@@ -1,0 +1,289 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA GPU (the quickest proof that
+the port starts on the card).
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+  1. the card's name and power limit, then the build of every CUDA kernel
+     (``src/repro_torch/kernels/csrc``) with its seconds and ptxas report;
+  2. each kernel against its plain PyTorch version on the card, at the
+     full-width prefill shapes of xLSTM-125M (B=8, S=2048), with errors
+     against the stated tolerance, times and bounds;
+  3. the prefill step at full width through the entry points a user calls,
+     with the launch counts zeroed just before and read just after (10
+     mLSTM and 2 sLSTM launches), held against the same model on the plain
+     kernel versions;
+  4. the decode Server at full width answering 6 short requests and one
+     512-token request submitted as futures under plan("threads"); the
+     long request's first token and its logits are held against the
+     prefill step on the same prompt.
+The line before the last is a JSON object with one entry per kernel; the
+last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
+script exits non-zero and prints no result.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+SEED = 0
+B, S = 8, 2048                   # full-width prefill shape
+# H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# tolerances: the kernel ones are tests/test_kernels.py's (mLSTM 5e-4,
+# sLSTM 3e-5, as rtol and atol); model logits are compared relative to the
+# largest logit, because fp32 sums taken in another order differ by about
+# 1e-6 of the value at each of the 12 blocks
+TOL_MLSTM = 5e-4
+TOL_SLSTM = 3e-5
+TOL_PREFILL_REL = 1e-4           # kernel path vs plain path, same algorithm
+TOL_DECODE_REL = 1e-3            # recurrent decode vs chunkwise prefill
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    import repro_torch.core as rc
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mlstm_scan as MK
+    from repro_torch.kernels import slstm_scan as SK
+    from repro_torch.models import Model
+    from repro_torch.serve import Server
+    from repro_torch.train import make_prefill_step
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * scale + shift
+        return torch.from_numpy(a).to(dev)
+
+    # -- 1. card and build ---------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi)                   # the card's name and power limit
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    print(f"build: {len(reports)} kernels in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # -- 2. kernels against their plain versions -----------------------------
+    cfg = get_arch("xlstm-125m")
+    H, D = cfg.xlstm.n_heads, cfg.xlstm.head_dim           # 4, 384
+    NH, HD = cfg.xlstm.n_heads, cfg.d_model // cfg.xlstm.n_heads   # 4, 192
+    kernels = {}
+
+    q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
+    ig, fg = randn(B, H, S), randn(B, H, S, shift=2.0)
+    out = MK.mlstm_scan(q, k, v, ig, fg)
+    torch.cuda.synchronize()
+    ref = MK.plain(q, k, v, ig, fg, cs=256)
+    err = (out - ref).abs()
+    chunk = MK._lib().mlstm_scan_chunk()
+    flops = 4.0 * B * H * S * D * (chunk + D)
+    nbytes = 4.0 * (4 * B * H * S * D + 2 * B * H * S)
+    kernels["mlstm_scan"] = dict(
+        name="mlstm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        replaces="src/repro/kernels/mlstm_scan.py:29",
+        max_abs_err=err.max().item(),
+        ms=cuda_ms(lambda: MK.mlstm_scan(q, k, v, ig, fg), 10),
+        plain_ms=cuda_ms(lambda: MK.plain(q, k, v, ig, fg, cs=256), 3),
+        library_ms=None)
+    kernels["mlstm_scan"]["bound_ms"], kernels["mlstm_scan"]["bound_by"] = \
+        bound(flops, nbytes)
+    ok = bool((err <= TOL_MLSTM + TOL_MLSTM * ref.abs()).all())
+    print(f"mlstm_scan (B,H,S,D)={(B, H, S, D)}: max abs err "
+          f"{err.max().item():.3e}, max rel err "
+          f"{(err.max() / ref.abs().max()).item():.3e} (tolerance rtol=atol="
+          f"{TOL_MLSTM}) {'ok' if ok else 'FAIL'}")
+    check(ok, "mlstm_scan kernel disagrees with its plain version")
+    del q, k, v, ig, fg, out, ref, err
+
+    zs = [randn(B, NH, S, HD) for _ in range(4)]
+    rs = [randn(NH, HD, HD, scale=HD ** -0.5) for _ in range(4)]
+    out = SK.slstm_scan(*zs, *rs)
+    torch.cuda.synchronize()
+    ref = SK.plain(*zs, *rs)
+    err = (out - ref).abs()
+    flops = 8.0 * B * NH * S * HD * HD
+    nbytes = 4.0 * (5 * B * NH * S * HD + 4 * NH * HD * HD)
+    kernels["slstm_scan"] = dict(
+        name="slstm_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+        replaces="src/repro/kernels/slstm_scan.py:29",
+        max_abs_err=err.max().item(),
+        ms=cuda_ms(lambda: SK.slstm_scan(*zs, *rs), 5),
+        plain_ms=cuda_ms(lambda: SK.plain(*zs, *rs), 1, warmup=0),
+        library_ms=None)
+    kernels["slstm_scan"]["bound_ms"], kernels["slstm_scan"]["bound_by"] = \
+        bound(flops, nbytes)
+    ok = bool((err <= TOL_SLSTM + TOL_SLSTM * ref.abs()).all())
+    print(f"slstm_scan (B,NH,S,HD)={(B, NH, S, HD)}: max abs err "
+          f"{err.max().item():.3e}, max rel err "
+          f"{(err.max() / ref.abs().max()).item():.3e} (tolerance rtol=atol="
+          f"{TOL_SLSTM}) {'ok' if ok else 'FAIL'}")
+    check(ok, "slstm_scan kernel disagrees with its plain version")
+    del zs, rs, out, ref, err
+    for kr in kernels.values():
+        print(f"  {kr['name']}: kernel {kr['ms']:.3f} ms, plain "
+              f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.3f} ms "
+              f"({kr['bound_by']})")
+
+    # -- 3. prefill step at full width ---------------------------------------
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(SEED), device=dev)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(B, S))).to(dev)
+    prefill = make_prefill_step(model)
+    MK.launches = SK.launches = 0
+    first = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = {"mlstm_scan": MK.launches, "slstm_scan": SK.launches}
+    print(f"prefill launches: {launches}")
+    n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
+    n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
+    check(launches == {"mlstm_scan": n_m, "slstm_scan": n_s},
+          f"prefill must launch mlstm_scan {n_m}x and slstm_scan {n_s}x")
+    check(tuple(first.shape) == (B, 1) and first.dtype == torch.int32,
+          "prefill returns (B, 1) int32 tokens")
+    for name, n in launches.items():
+        kernels[name]["launches"] = n
+    ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 3)
+    print(f"prefill (B,S)={(B, S)}: {ms:.1f} ms, "
+          f"{B * S / ms * 1e3:.0f} tokens/s")
+    with torch.no_grad():
+        got = model.apply(params, {"tokens": tokens})[0][:, -1]
+        want = Model(cfg, kernel_impl="plain").apply(
+            params, {"tokens": tokens})[0][:, -1]
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    ok = bool(torch.isfinite(got).all()) and rel <= TOL_PREFILL_REL
+    print(f"prefill last-position logits, kernels vs plain: max abs diff "
+          f"{(got - want).abs().max().item():.3e}, relative {rel:.3e} "
+          f"(tolerance {TOL_PREFILL_REL}) {'ok' if ok else 'FAIL'}")
+    check(ok, "prefill with the kernels disagrees with the plain path")
+    print("kernels: " + json.dumps([{"name": n, "launches": kr["launches"]}
+                                    for n, kr in kernels.items()]))
+    del got, want
+
+    # -- 4. the Server at full width -----------------------------------------
+    rc.plan("threads", workers=4)
+    server = Server(smoke=False, slots=4, max_new=16, device=dev,
+                    params=params)
+    loop = threading.Thread(target=server.serve_loop, daemon=True)
+    loop.start()
+    prompts = [rng.integers(0, cfg.vocab_size, size=4).tolist()
+               for _ in range(6)]
+    long_prompt = rng.integers(0, cfg.vocab_size, size=512).tolist()
+    prompts.append(long_prompt)
+    t0 = time.perf_counter()
+    pending = {i: (server.submit(p), time.perf_counter())
+               for i, p in enumerate(prompts)}
+    replies = {}
+    while pending:
+        for i, (f, t_sub) in list(pending.items()):
+            if rc.resolved(f):
+                replies[i] = rc.value(f)
+                print(f"request {i} (prompt {len(prompts[i])} tokens): "
+                      f"{time.perf_counter() - t_sub:.3f} s -> "
+                      f"{replies[i][:8]}")
+                del pending[i]
+        time.sleep(0.005)
+    wall = time.perf_counter() - t0
+    server.stop()
+    loop.join(timeout=30)
+    check(not loop.is_alive(), "serve loop stopped")
+    rc.shutdown()
+    check(len(replies) == 7 and all(len(r) == 16 for r in replies.values())
+          and all(0 <= t < cfg.vocab_size
+                  for r in replies.values() for t in r),
+          "the Server answers all 7 requests with 16 tokens each")
+    print(f"server: 7 requests in {wall:.3f} s, "
+          f"{7 * 16 / wall:.1f} generated tokens/s")
+
+    step = server.step
+    cache = model.init_cache(4, device=dev)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: step(params, cache, tok), 32)
+    print(f"decode step (B=4): {ms:.2f} ms, {4 / ms * 1e3:.0f} tokens/s")
+
+    long_toks = torch.tensor([long_prompt], device=dev)
+    with torch.no_grad():
+        pre_logits = model.apply(params, {"tokens": long_toks})[0][0, -1]
+        cache = model.init_cache(1, device=dev)
+        for t in range(len(long_prompt)):
+            dec_logits, cache = model.decode_step(params, cache,
+                                                  long_toks[:, t:t + 1])
+    dec_logits = dec_logits[0, -1]
+    pre_tok = int(make_prefill_step(model)(params, {"tokens": long_toks}))
+    scale = pre_logits.abs().max().item()
+    diff = (dec_logits - pre_logits).abs().max().item()
+    top2 = pre_logits.topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    ok = diff <= TOL_DECODE_REL * scale
+    print(f"512-token request: decode-path vs prefill logits max abs diff "
+          f"{diff:.3e} (relative {diff / scale:.3e}, tolerance "
+          f"{TOL_DECODE_REL}) {'ok' if ok else 'FAIL'}; first token: "
+          f"server {replies[6][0]}, prefill {pre_tok}, top-2 margin "
+          f"{margin:.3e}")
+    check(ok, "decode-path logits disagree with the prefill step")
+    if margin > TOL_DECODE_REL * scale:
+        check(replies[6][0] == pre_tok
+              and int(dec_logits.argmax()) == pre_tok,
+              "the Server's first token matches the prefill step")
+    else:
+        print("  top-2 margin below the tolerance: logits compared only")
+
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,113 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's serving path on one GPU.
+
+    python3 scripts/profile_torch.py
+
+Runs xLSTM-125M at full width with random weights (seed 0) and, under
+``torch.profiler``, one prefill step at B=8, S=2048 and 16 decode steps at
+B=4. For each it prints the wall time (host clock around work that ends in
+``torch.cuda.synchronize()``), the device time summed over the kernels
+that ran, the device's idle share (1 - device / wall), and the kernels
+that took the most device time. Needs a CUDA device.
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
+    from torch.autograd import DeviceType
+    # kernel rows only: an operator's row carries its kernels' time too
+    rows = sorted(((e.key, e.count, _device_us(e))
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[2])
+    dev_s = sum(r[2] for r in rows) / 1e6
+    if dev_s == 0.0:
+        print(f"{label}: wall {wall_s / steps * 1e3:.3f} ms per step; "
+              f"device time not measured (the profiler saw no kernels)")
+        return
+    print(f"{label}: wall {wall_s / steps * 1e3:.3f} ms per step, device "
+          f"{dev_s / steps * 1e3:.3f} ms per step, device idle share "
+          f"{1 - dev_s / wall_s:.3f}")
+    for key, count, us in rows[:top]:
+        if us <= 0:
+            break
+        print(f"  {us / steps / 1e3:9.3f} ms/step {count // steps:6d} "
+              f"calls/step  {us / 1e6 / dev_s:6.1%}  {key[:90]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_torch: no CUDA device is available", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    _build.build_all()
+    dev = torch.device("cuda")
+    cfg = get_arch("xlstm-125m")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    prefill = make_prefill_step(model)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(8, 2048))).to(dev)}
+    prefill(params, batch)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report("prefill B=8 S=2048", prof, wall, 1)
+
+    step = make_serve_step(model)
+    cache = model.init_cache(4, device=dev)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    for _ in range(3):
+        tok, cache = step(params, cache, tok)
+    torch.cuda.synchronize()
+    steps = 16
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok, cache = step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report("decode B=4", prof, wall, steps)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        tok, cache = step(params, cache, tok)
+    torch.cuda.synchronize()
+    print(f"decode B=4 without the profiler: "
+          f"{(time.perf_counter() - t0) / steps * 1e3:.3f} ms per step")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

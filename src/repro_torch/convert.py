@@ -1,0 +1,57 @@
+"""Parameters from the JAX package into the port, leaf by leaf by path.
+
+A JAX ``Model.init`` pytree, with its leaves as numpy arrays, maps onto the
+port's parameter dict path for path (``stages/0/b3/cell/w_up``): both keep
+JAX's names and ``(in, out)`` layouts. Every leaf's shape is checked against
+the port's own parameters for the same config, and a leaf that either side
+lacks is an error, so nothing is silently dropped or left at random.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .models.model import Model
+
+
+def _to_tensor(leaf: Any) -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if not arr.flags.writeable:
+        arr = arr.copy()
+    return torch.from_numpy(arr)
+
+
+def _convert(tree: Any, want: Any, path: str, device: torch.device) -> Any:
+    if isinstance(want, dict):
+        if not isinstance(tree, dict):
+            raise ValueError(f"{path or '/'}: expected a dict, got "
+                             f"{type(tree).__name__}")
+        missing = sorted(set(want) - set(tree))
+        extra = sorted(set(tree) - set(want))
+        if missing or extra:
+            raise ValueError(f"{path or '/'}: missing leaves {missing}, "
+                             f"unused leaves {extra}")
+        return {k: _convert(tree[k], want[k], f"{path}/{k}".lstrip("/"),
+                            device) for k in want}
+    if isinstance(want, list):
+        if not isinstance(tree, (list, tuple)) or len(tree) != len(want):
+            raise ValueError(f"{path}: expected a list of {len(want)}")
+        return [_convert(t, w, f"{path}/{i}", device)
+                for i, (t, w) in enumerate(zip(tree, want))]
+    t = _to_tensor(tree)
+    if tuple(t.shape) != tuple(want.shape):
+        raise ValueError(f"{path}: shape {tuple(t.shape)} from JAX, "
+                         f"expected {tuple(want.shape)}")
+    return t.to(device)
+
+
+def params_from_jax(tree: Any, cfg, *, device=None) -> dict:
+    """The port's parameters for ``cfg`` from a JAX ``Model.init`` pytree
+    of numpy arrays, placed on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    want = Model(cfg).init(torch.Generator(), device="meta")
+    return _convert(tree, want, "", dev)

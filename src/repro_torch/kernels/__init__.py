@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels of the port and their plain versions.
+
+``ops`` dispatches by device; ``mlstm_scan`` and ``slstm_scan`` hold the
+ctypes wrappers (with their launch counts) and plain versions; ``ref`` holds
+the plain versions; ``_build`` compiles ``csrc/*.cu`` at first use.
+"""

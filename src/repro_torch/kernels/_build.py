@@ -1,0 +1,91 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library, loaded with ctypes. The library
+lands in ``<repo>/build/kernels/<name>-<hash>.so``, where the hash covers
+the source and the flags, so a changed source is rebuilt and an unchanged
+one is loaded as it is. Nothing is built when this module is imported: the
+first call that needs a kernel builds it, and :func:`build_all` builds every
+source at once, one ``nvcc`` per source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str) -> "tuple[Path, Path, subprocess.Popen] | None":
+    out = _target(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    log = out.with_suffix(".log")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+    return out, tmp, proc
+
+
+def _finish(name: str, job) -> None:
+    if job is None:
+        return
+    out, tmp, proc = job
+    if proc.wait() != 0:
+        log = out.with_suffix(".log").read_text()
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def sources() -> list[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> dict[str, str]:
+    """Build every kernel source in parallel; return each one's ptxas
+    report (registers, shared memory, spills) from its build log."""
+    with _lock:
+        jobs = {name: _start(name) for name in sources()}
+        for name, job in jobs.items():
+            _finish(name, job)
+    return {name: _target(name).with_suffix(".log").read_text()
+            if _target(name).with_suffix(".log").exists() else ""
+            for name in sources()}
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            _finish(name, _start(name))
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+        return lib

@@ -1,0 +1,38 @@
+"""Dispatch for the ported kernels: the CUDA kernel for a CUDA tensor, the
+plain PyTorch version for a CPU tensor.
+
+Counterpart of ``repro/kernels/ops.py``. Nothing falls back: a CUDA tensor
+that the kernel cannot take raises. ``kernel_impl="plain"`` runs the plain
+version on any device; it exists so that the same model can be held
+against its own kernel-free run on the card.
+"""
+
+from __future__ import annotations
+
+from . import mlstm_scan as _mlstm
+from . import slstm_scan as _slstm
+
+KERNEL_IMPLS = ("hopper", "plain")
+
+
+def _use_kernel(x, kernel_impl: str) -> bool:
+    if kernel_impl not in KERNEL_IMPLS:
+        raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}, "
+                         f"got {kernel_impl!r}")
+    return kernel_impl == "hopper" and x.is_cuda
+
+
+def mlstm_scan(q, k, v, i_raw, f_raw, *, cs: int = 256,
+               kernel_impl: str = "hopper"):
+    """Chunkwise mLSTM from zero state. ``cs`` is the plain version's chunk;
+    the kernel uses its own."""
+    if _use_kernel(q, kernel_impl):
+        return _mlstm.mlstm_scan(q, k, v, i_raw, f_raw)
+    return _mlstm.plain(q, k, v, i_raw, f_raw, cs=cs)
+
+
+def slstm_scan(z, i, f, o, rz, ri, rf, ro, *, kernel_impl: str = "hopper"):
+    """Sequential sLSTM from zero state on (B,NH,S,HD) pre-activations."""
+    if _use_kernel(z, kernel_impl):
+        return _slstm.slstm_scan(z, i, f, o, rz, ri, rf, ro)
+    return _slstm.plain(z, i, f, o, rz, ri, rf, ro)

@@ -1,0 +1,84 @@
+"""Shared helpers for the PyTorch port's tests (``test_torch_*.py``).
+
+Not collected (leading underscore). Inputs are made with numpy from a seed
+and handed to the JAX package and the port alike; parameters go from a JAX
+``Model.init`` pytree through ``repro_torch.convert.params_from_jax``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as prc
+
+# Tolerances. The kernel ones are tests/test_kernels.py's: mLSTM 5e-4
+# (chunked vs sequential stabilisers), sLSTM 3e-5. Model parity in fp32 is
+# 1e-4: XLA and ATen sum matmuls in different orders, about 1e-6 of each
+# value per block, and the logits reach ~70 at smoke width.
+MLSTM_TOL = dict(rtol=5e-4, atol=5e-4)
+SLSTM_TOL = dict(rtol=3e-5, atol=3e-5)
+MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.fixture(autouse=True)
+def _reset_port():
+    """The port's plan and seed per test (tests/conftest.py resets only
+    repro.core)."""
+    prc.plan("sequential")
+    prc.set_session_seed(0)
+    yield
+    prc.shutdown()
+    prc.plan("sequential")
+
+
+@pytest.fixture
+def cuda_device():
+    """The GPU for ``requires_cuda`` tests; skips without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100 host)")
+    return torch.device("cuda")
+
+
+def randn(rng: np.random.Generator, *shape, scale=1.0, shift=0.0):
+    return (rng.standard_normal(shape) * scale + shift).astype(np.float32)
+
+
+def mlstm_inputs(seed, b, h, s, d):
+    """q, k, v (B,H,S,D) and gates i, f (B,H,S) for mlstm_scan."""
+    rng = np.random.default_rng(seed)
+    return (randn(rng, b, h, s, d), randn(rng, b, h, s, d),
+            randn(rng, b, h, s, d), randn(rng, b, h, s),
+            randn(rng, b, h, s, shift=2.0))
+
+
+def slstm_inputs(seed, b, nh, s, hd):
+    """z, i, f, o (B,NH,S,HD) and r_z, r_i, r_f, r_o (NH,HD,HD)."""
+    rng = np.random.default_rng(seed)
+    xs = [randn(rng, b, nh, s, hd) for _ in range(4)]
+    rs = [randn(rng, nh, hd, hd, scale=hd ** -0.5) for _ in range(4)]
+    return xs + rs
+
+
+def t(a: np.ndarray, device="cpu") -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def n(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def jax_params(cfg, seed: int = 0):
+    """(JAX params, the same as a numpy pytree) from ``Model(cfg).init``."""
+    import jax
+    from repro.models import Model
+    params = Model(cfg).init(jax.random.PRNGKey(seed))
+    return params, jax.tree_util.tree_map(np.asarray, params)
+
+
+def torch_params(np_tree, cfg, device="cpu"):
+    from repro_torch.convert import params_from_jax
+    return params_from_jax(np_tree, cfg, device=device)

@@ -40,6 +40,10 @@ def pytest_configure(config):
         "markers",
         "serving: multi-tenant secure serving tier tests (TLS/token "
         "handshake, driver server, fair-share; select with '-m serving')")
+    config.addinivalue_line(
+        "markers",
+        "requires_cuda: needs a CUDA device and nvcc (the PyTorch port's "
+        "kernels); skips without one")
 
 
 def pytest_collection_modifyitems(config, items):
