@@ -18,11 +18,24 @@ Phases, each printing its own lines; any failure exits non-zero:
      512-token request submitted as futures under plan("threads"); the
      long request's first token and its logits are held against the
      prefill step on the same prompt.
+Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
+4096, 10.4 B fp32 parameters, random from the seed) takes the card:
+  2b. the RG-LRU scan, windowed flash attention and split-S decode
+      attention against their plain versions at its full-width shapes,
+      with times, bounds and, for attention, one PyTorch library call;
+  3b. the prefill step at B=1, S=4096 (past the 2048 window), with the
+      launch counts zeroed just before and read just after (26 rglru_scan
+      and 12 flash_attention launches), held against the plain path;
+  4b. the decode Server for this arch answering the same kind of traffic;
+      one decode step at B=4 (26 rglru_scan and 12 decode_attention
+      launches) is timed, and the 512-token request's decode-path logits
+      are held against the prefill step.
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -45,6 +58,13 @@ TOL_MLSTM = 5e-4
 TOL_SLSTM = 3e-5
 TOL_PREFILL_REL = 1e-4           # kernel path vs plain path, same algorithm
 TOL_DECODE_REL = 1e-3            # recurrent decode vs chunkwise prefill
+# RecurrentGemma: the RG-LRU tolerance is tests/test_kernels.py's 3e-5, the
+# attention ones its _tol (2e-5 fp32, 2e-2 bf16)
+TOL_RGLRU = 3e-5
+TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
+RG_S = 4096                      # prefill length, twice the window
+RG_DEC_B = 4                     # decode batch
+RG_DEC_LENGTHS = (1, 700, 2048, 2048)
 
 
 def check(ok: bool, what: str) -> None:
@@ -278,11 +298,311 @@ def main() -> int:
     else:
         print("  top-2 margin below the tolerance: logits compared only")
 
+    # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
+    del model, params, server, step, cache, tok, first, tokens, prefill
+    del dec_logits, pre_logits, long_toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrentgemma_phases(dev, rng, kernels)
+
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _close(name: str, got, want, tol: float) -> float:
+    """Max abs error, printed and checked as rtol=atol=tol."""
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= tol + tol * want.float().abs()).all())
+    print(f"  {name}: max abs err {err.max().item():.3e} on values up to "
+          f"{want.abs().max().item():.3e} (tolerance rtol=atol={tol}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{name}: the kernel disagrees with its plain version")
+    return err.max().item()
+
+
+def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.core as rc
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as DK
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import mlstm_scan as MK
+    from repro_torch.kernels import rglru_scan as RK
+    from repro_torch.kernels import slstm_scan as SK
+    from repro_torch.models import Model
+    from repro_torch.serve import Server
+    from repro_torch.train import make_prefill_step
+
+    counters = {"mlstm_scan": MK, "slstm_scan": SK, "rglru_scan": RK,
+                "flash_attention": FK, "decode_attention": DK}
+
+    def zero_counts():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read_counts():
+        return {name: mod.launches for name, mod in counters.items()}
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * scale + shift
+        return torch.from_numpy(a).to(dev)
+
+    cfg = get_arch("recurrentgemma-9b")
+    W, H, KV, HD = cfg.rglru.lru_width, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    win = cfg.attn_window
+
+    # -- 2b. the RecurrentGemma kernels against their plain versions ---------
+    print(f"recurrentgemma-9b kernels at full width (S={RG_S}, W={W}, H={H}, "
+          f"KV={KV}, D={HD}, window {win}):")
+    x = randn(1, RG_S, W)
+    ag, ig = torch.sigmoid(randn(1, RG_S, W)), torch.sigmoid(randn(1, RG_S, W))
+    lam = randn(W, shift=3.0)
+    h0 = randn(1, W)
+    errs = []
+    for label, init in (("zero state", None), ("h0", h0)):
+        y, hl = RK.rglru_scan(x, ag, ig, lam, init)
+        torch.cuda.synchronize()
+        yp, hp = RK.plain(x, ag, ig, lam, init)
+        errs.append(_close(f"rglru_scan (B,S,W)={(1, RG_S, W)}, {label}, y",
+                           y, yp, TOL_RGLRU))
+        errs.append(_close(f"rglru_scan {label}, h_last", hl, hp, TOL_RGLRU))
+    n_el = RG_S * W
+    kernels["rglru_scan"] = dict(
+        name="rglru_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:25",
+        max_abs_err=max(errs),
+        ms=cuda_ms(lambda: RK.rglru_scan(x, ag, ig, lam), 20),
+        plain_ms=cuda_ms(lambda: RK.plain(x, ag, ig, lam), 5),
+        library_ms=None)
+    # per element: 3 inputs read, y written; ~10 flops of gate algebra and
+    # recurrence; lambda read and h_last written once per channel
+    kernels["rglru_scan"]["bound_ms"], kernels["rglru_scan"]["bound_by"] = \
+        bound(10.0 * n_el, 16.0 * n_el + 8.0 * W)
+    del x, ag, ig, lam, h0, y, hl, yp, hp
+
+    # q, k, v as the model holds them: (B,S,H,D) projections viewed as
+    # (B,H,S,D)
+    q = randn(1, RG_S, H, HD).transpose(1, 2)
+    k = randn(1, RG_S, KV, HD).transpose(1, 2)
+    v = randn(1, RG_S, KV, HD).transpose(1, 2)
+    out = FK.flash_attention(q, k, v, causal=True, window=win)
+    torch.cuda.synchronize()
+    ref = FK.plain(q, k, v, causal=True, window=win)
+    err = _close(f"flash_attention (B,H,S,D)={(1, H, RG_S, HD)}, KV={KV}, "
+                 f"causal, window {win}", out, ref, TOL_ATTN["float32"])
+    del out, ref
+    pos = torch.arange(RG_S, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - win)
+    pairs = int(mask.sum())               # visible (q, k) pairs per head
+    kernels["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:28",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: FK.flash_attention(q, k, v, causal=True,
+                                              window=win), 5),
+        plain_ms=cuda_ms(lambda: FK.plain(q, k, v, causal=True, window=win),
+                         2),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), 5))
+    kernels["flash_attention"]["bound_ms"], \
+        kernels["flash_attention"]["bound_by"] = bound(
+            4.0 * HD * pairs * H, 4.0 * (2 * H + 2 * KV) * RG_S * HD)
+    print(f"  flash_attention: {pairs} visible (q, k) pairs per head")
+    del q, k, v, mask
+
+    lengths = torch.tensor(RG_DEC_LENGTHS, dtype=torch.int32, device=dev)
+    q = randn(RG_DEC_B, H, HD)
+    kc, vc = randn(RG_DEC_B, win, KV, HD), randn(RG_DEC_B, win, KV, HD)
+    valid = int(sum(RG_DEC_LENGTHS))      # cache positions this run reads
+    for dtype in ("float32", "bfloat16"):
+        kd, vd = kc.to(getattr(torch, dtype)), vc.to(getattr(torch, dtype))
+        out = DK.decode_attention(q, kd, vd, lengths)
+        torch.cuda.synchronize()
+        err = _close(f"decode_attention (B,S,KV,D)="
+                     f"{(RG_DEC_B, win, KV, HD)} {dtype} cache, lengths "
+                     f"{RG_DEC_LENGTHS}", out, DK.plain(q, kd, vd, lengths),
+                     TOL_ATTN[dtype])
+        ms = cuda_ms(lambda: DK.decode_attention(q, kd, vd, lengths), 50)
+        plain_ms = cuda_ms(lambda: DK.plain(q, kd, vd, lengths), 10)
+        b_ms, b_by = bound(4.0 * valid * H * HD,
+                           2.0 * valid * KV * HD * kd.element_size()
+                           + 8.0 * RG_DEC_B * H * HD + 4.0 * RG_DEC_B)
+        print(f"  decode_attention {dtype} cache: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if dtype == "float32":       # the Server's cache type
+            kmask = (torch.arange(win, device=dev)[None, :]
+                     < lengths[:, None])[:, None, None, :]
+            kernels["decode_attention"] = dict(
+                name="decode_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:27",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
+                    attn_mask=kmask, enable_gqa=True), 50),
+                bound_ms=b_ms, bound_by=b_by)
+    del q, kc, vc, kd, vd, out
+    for name in ("rglru_scan", "flash_attention", "decode_attention"):
+        kr = kernels[name]
+        print(f"  {name}: kernel {kr['ms']:.4f} ms, plain "
+              f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
+              f"({kr['bound_by']}), library {kr['library_ms']}")
+
+    # -- 3b. the prefill step at full width ----------------------------------
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"recurrentgemma-9b: {model.param_count() / 1e9:.3f} B parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(1, RG_S))).to(dev)
+    prefill = make_prefill_step(model)
+    n_r = sum(kind == "rglru" for kind in cfg.layer_pattern)
+    n_a = sum(kind == "lattn" for kind in cfg.layer_pattern)
+    zero_counts()
+    first = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"prefill launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0) | {"rglru_scan": n_r,
+                                                    "flash_attention": n_a},
+          f"prefill must launch rglru_scan {n_r}x and flash_attention "
+          f"{n_a}x and nothing else")
+    check(tuple(first.shape) == (1, 1) and first.dtype == torch.int32,
+          "prefill returns (1, 1) int32 tokens")
+    kernels["rglru_scan"]["launches"] = launches["rglru_scan"]
+    kernels["flash_attention"]["launches"] = launches["flash_attention"]
+    ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 2)
+    print(f"prefill (B,S)={(1, RG_S)}: {ms:.1f} ms, "
+          f"{RG_S / ms * 1e3:.0f} tokens/s")
+    with torch.no_grad():
+        # clones, so the 4.2 GB logits of each run are freed
+        got = model.apply(params, {"tokens": tokens})[0][:, -1].clone()
+        want = Model(cfg, kernel_impl="plain").apply(
+            params, {"tokens": tokens})[0][:, -1].clone()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    ok = bool(torch.isfinite(got).all()) and rel <= TOL_PREFILL_REL \
+        and got.abs().max().item() <= cfg.logits_softcap
+    print(f"prefill last-position logits, kernels vs plain: max abs diff "
+          f"{(got - want).abs().max().item():.3e}, relative {rel:.3e} "
+          f"(tolerance {TOL_PREFILL_REL}) {'ok' if ok else 'FAIL'}")
+    check(ok, "prefill with the kernels disagrees with the plain path")
+    # yardstick for that tolerance: the plain path against itself with the
+    # embedding table moved by one or two ulps, i.e. how far 38 random fp32
+    # layers carry a rounding difference on their own
+    with torch.no_grad():
+        moved = dict(params, embed={
+            "table": params["embed"]["table"] * (1 + 2 ** -23)})
+        alt = Model(cfg, kernel_impl="plain").apply(
+            moved, {"tokens": tokens})[0][:, -1].clone()
+        del moved
+    moved_rel = ((alt - want).abs().max() / want.abs().max()).item()
+    print(f"  yardstick: plain path with the embeddings moved by 1-2 ulps, "
+          f"relative {moved_rel:.3e}")
+    del alt
+    print(f"peak device memory so far: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del got, want, first
+    torch.cuda.empty_cache()
+
+    # -- 4b. the Server at full width ----------------------------------------
+    rc.plan("threads", workers=4)
+    server = Server("recurrentgemma-9b", smoke=False, slots=4, max_new=16,
+                    device=dev, params=params)
+    loop = threading.Thread(target=server.serve_loop, daemon=True)
+    loop.start()
+    prompts = [rng.integers(0, cfg.vocab_size, size=4).tolist()
+               for _ in range(6)]
+    long_prompt = rng.integers(0, cfg.vocab_size, size=512).tolist()
+    prompts.append(long_prompt)
+    t0 = time.perf_counter()
+    pending = {i: (server.submit(p), time.perf_counter())
+               for i, p in enumerate(prompts)}
+    replies = {}
+    while pending:
+        for i, (f, t_sub) in list(pending.items()):
+            if rc.resolved(f):
+                replies[i] = rc.value(f)
+                print(f"request {i} (prompt {len(prompts[i])} tokens): "
+                      f"{time.perf_counter() - t_sub:.3f} s -> "
+                      f"{replies[i][:8]}")
+                del pending[i]
+        time.sleep(0.005)
+    wall = time.perf_counter() - t0
+    server.stop()
+    loop.join(timeout=60)
+    check(not loop.is_alive(), "serve loop stopped")
+    rc.shutdown()
+    check(len(replies) == 7 and all(len(r) == 16 for r in replies.values())
+          and all(0 <= t < cfg.vocab_size
+                  for r in replies.values() for t in r),
+          "the Server answers all 7 requests with 16 tokens each")
+    print(f"server: 7 requests in {wall:.3f} s, "
+          f"{7 * 16 / wall:.1f} generated tokens/s")
+
+    # one decode step at B=4 with every local-attention ring buffer full
+    step = server.step
+    cache = model.init_cache(RG_DEC_B, max_seq=2 * win, device=dev,
+                             dtype=torch.float32)
+    for stage in cache:
+        for block in stage.values():
+            if "pos" in block:
+                block["pos"].fill_(2 * win)
+    tok = torch.zeros(RG_DEC_B, 1, dtype=torch.int64, device=dev)
+    zero_counts()
+    step(params, cache, tok)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"decode step launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0) | {"rglru_scan": n_r,
+                                                    "decode_attention": n_a},
+          f"a decode step must launch rglru_scan {n_r}x and "
+          f"decode_attention {n_a}x and nothing else")
+    kernels["decode_attention"]["launches"] = launches["decode_attention"]
+    ms = cuda_ms(lambda: step(params, cache, tok), 16)
+    print(f"decode step (B={RG_DEC_B}, window full): {ms:.2f} ms, "
+          f"{RG_DEC_B / ms * 1e3:.0f} tokens/s")
+    del cache
+
+    long_toks = torch.tensor([long_prompt], device=dev)
+    with torch.no_grad():
+        pre_logits = model.apply(params,
+                                 {"tokens": long_toks})[0][0, -1].clone()
+        cache = model.init_cache(1, max_seq=len(long_prompt), device=dev,
+                                 dtype=torch.float32)
+        for t in range(len(long_prompt)):
+            dec_logits, cache = model.decode_step(params, cache,
+                                                  long_toks[:, t:t + 1])
+    dec_logits = dec_logits[0, -1]
+    pre_tok = int(make_prefill_step(model)(params, {"tokens": long_toks}))
+    scale = pre_logits.abs().max().item()
+    diff = (dec_logits - pre_logits).abs().max().item()
+    top2 = pre_logits.topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    ok = diff <= TOL_DECODE_REL * scale
+    print(f"512-token request: decode-path vs prefill logits max abs diff "
+          f"{diff:.3e} (relative {diff / scale:.3e}, tolerance "
+          f"{TOL_DECODE_REL}) {'ok' if ok else 'FAIL'}; first token: "
+          f"server {replies[6][0]}, prefill {pre_tok}, top-2 margin "
+          f"{margin:.3e}")
+    check(ok, "decode-path logits disagree with the prefill step")
+    if margin > TOL_DECODE_REL * scale:
+        check(replies[6][0] == pre_tok
+              and int(dec_logits.argmax()) == pre_tok,
+              "the Server's first token matches the prefill step")
+    else:
+        print("  top-2 margin below the tolerance: logits compared only")
 
 
 if __name__ == "__main__":

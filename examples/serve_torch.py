@@ -10,6 +10,8 @@ Future API as a serving front door.
 Run on the GPU:  PYTHONPATH=src python examples/serve_torch.py
 On the CPU:      PYTHONPATH=src python examples/serve_torch.py --device cpu
 Full width:      add --full
+Another arch:    add --arch recurrentgemma-9b (full width: 41.8 GB of fp32
+                 parameters, drawn on the card)
 """
 
 import argparse
@@ -17,8 +19,10 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 import repro_torch.core as rc
+from repro_torch.configs import all_archs
 from repro_torch.serve import Server
 
 
@@ -28,10 +32,20 @@ def main():
                     help="cuda (default) or cpu")
     ap.add_argument("--full", action="store_true",
                     help="serve the full-width config, not the smoke one")
+    ap.add_argument("--arch", default="xlstm-125m", choices=all_archs())
     args = ap.parse_args()
 
     rc.plan("threads", workers=4)
-    server = Server(smoke=not args.full, device=args.device)
+    params = None
+    if args.full and args.device != "cpu":
+        # draw full-width weights with the card's generator: the CPU one
+        # takes tens of seconds for 10 B values
+        from repro_torch.configs import get_arch
+        from repro_torch.models import Model
+        params = Model(get_arch(args.arch)).init(
+            torch.Generator(device="cuda").manual_seed(0))
+    server = Server(args.arch, smoke=not args.full, device=args.device,
+                    params=params)
     loop = threading.Thread(target=server.serve_loop, daemon=True)
     loop.start()
 

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path on one GPU.
 
-    python3 scripts/profile_torch.py
+    python3 scripts/profile_torch.py [--arch recurrentgemma-9b]
 
-Runs xLSTM-125M at full width with random weights (seed 0) and, under
-``torch.profiler``, one prefill step at B=8, S=2048 and 16 decode steps at
-B=4. For each it prints the wall time (host clock around work that ends in
+Runs an arch at full width with random weights (seed 0) and, under
+``torch.profiler``, one prefill step and 16 decode steps at B=4:
+xLSTM-125M (the default) prefills B=8, S=2048; RecurrentGemma-9B prefills
+B=1, S=4096 and decodes with every local-attention ring buffer full. For
+each it prints the wall time (host clock around work that ends in
 ``torch.cuda.synchronize()``), the device time summed over the kernels
 that ran, the device's idle share (1 - device / wall), and the kernels
 that took the most device time. Needs a CUDA device.
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -48,7 +51,14 @@ def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
               f"calls/step  {us / 1e6 / dev_s:6.1%}  {key[:90]}")
 
 
+#: full-width prefill shape (batch, sequence) of each arch
+PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096)}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="xlstm-125m", choices=sorted(PREFILL))
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device is available", file=sys.stderr)
@@ -68,15 +78,17 @@ def main() -> int:
         check=True).stdout.strip())
     _build.build_all()
     dev = torch.device("cuda")
-    cfg = get_arch("xlstm-125m")
+    cfg = get_arch(args.arch)
     model = Model(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
     rng = np.random.default_rng(0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    b, s = PREFILL[args.arch]
 
     prefill = make_prefill_step(model)
     batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, size=(8, 2048))).to(dev)}
+        rng.integers(0, cfg.vocab_size, size=(b, s))).to(dev)}
     prefill(params, batch)
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -84,10 +96,16 @@ def main() -> int:
         prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    _report("prefill B=8 S=2048", prof, wall, 1)
+    _report(f"prefill B={b} S={s}", prof, wall, 1)
+    del prof
+    torch.cuda.empty_cache()
 
     step = make_serve_step(model)
-    cache = model.init_cache(4, device=dev)
+    cache = model.init_cache(4, max_seq=s, device=dev, dtype=torch.float32)
+    for stage in cache:                # local attention: ring buffers full
+        for block in stage.values():
+            if "pos" in block:
+                block["pos"].fill_(s)
     tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
     for _ in range(3):
         tok, cache = step(params, cache, tok)

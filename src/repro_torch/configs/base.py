@@ -2,9 +2,10 @@
 
 Every architecture file in this package registers exactly one full-size
 config (the published numbers) plus a ``smoke`` reduced config of the same
-family for CPU tests. The port registers xLSTM-125M; the other families'
-configs (and their ``*Dims`` types, typed ``Optional[object]`` below until
-their models arrive) come with their models in later slices.
+family for CPU tests. The port registers xLSTM-125M and RecurrentGemma-9B;
+the other families' configs (and their ``*Dims`` types, typed
+``Optional[object]`` below until their models arrive) come with their
+models in later slices.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from ..models.rglru import RGLRUDims
 from ..models.xlstm import XLSTMDims
 
 
@@ -44,7 +46,7 @@ class ArchConfig:
     moe_first_dense: int = 0
     moe_dense_ff: int = 0
     mla: Optional[object] = None
-    rglru: Optional[object] = None
+    rglru: Optional[RGLRUDims] = None
     xlstm: Optional[XLSTMDims] = None
     # frontend stubs
     frontend: Optional[str] = None    # vision | audio
@@ -165,5 +167,5 @@ def _ensure_loaded():
     global _loaded
     if _loaded:
         return
-    from . import xlstm_125m  # noqa: F401
+    from . import recurrentgemma_9b, xlstm_125m  # noqa: F401
     _loaded = True

@@ -2,7 +2,8 @@
 
 A JAX ``Model.init`` pytree, with its leaves as numpy arrays, maps onto the
 port's parameter dict path for path (``stages/0/b3/cell/w_up``): both keep
-JAX's names and ``(in, out)`` layouts. Every leaf's shape is checked against
+JAX's names and ``(in, out)`` layouts, and a stage with repeat > 1 is
+stacked on a leading axis in both, so its leaves map one to one too. Every leaf's shape is checked against
 the port's own parameters for the same config, and a leaf that either side
 lacks is an error, so nothing is silently dropped or left at random.
 """

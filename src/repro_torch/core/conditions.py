@@ -156,6 +156,10 @@ class _StdoutRouter(io.TextIOBase):
 
 
 _router_lock = threading.Lock()
+#: one router per real stream, never freed: CPython 3.12's print() holds
+#: sys.stdout by a borrowed reference across its writes, so a router that
+#: another thread's release dropped mid-print would be freed under it
+_routers: dict[int, _StdoutRouter] = {}
 
 
 def _acquire_router() -> _StdoutRouter:
@@ -163,7 +167,9 @@ def _acquire_router() -> _StdoutRouter:
         if isinstance(sys.stdout, _StdoutRouter):
             router = sys.stdout
         else:
-            router = _StdoutRouter(sys.stdout)
+            router = _routers.get(id(sys.stdout))
+            if router is None:
+                router = _routers[id(sys.stdout)] = _StdoutRouter(sys.stdout)
             sys.stdout = router
         router.refs += 1
         return router

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
-``ops`` dispatches by device; ``mlstm_scan`` and ``slstm_scan`` hold the
-ctypes wrappers (with their launch counts) and plain versions; ``ref`` holds
-the plain versions; ``_build`` compiles ``csrc/*.cu`` at first use.
+``ops`` dispatches by device; ``mlstm_scan``, ``slstm_scan``,
+``rglru_scan``, ``flash_attention`` and ``decode_attention`` hold the ctypes
+wrappers (with their launch counts) and plain versions; ``ref`` holds the
+plain versions; ``_build`` compiles ``csrc/*.cu`` at first use.
 """

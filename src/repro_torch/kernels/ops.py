@@ -9,7 +9,10 @@ against its own kernel-free run on the card.
 
 from __future__ import annotations
 
+from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import mlstm_scan as _mlstm
+from . import rglru_scan as _rglru
 from . import slstm_scan as _slstm
 
 KERNEL_IMPLS = ("hopper", "plain")
@@ -36,3 +39,29 @@ def slstm_scan(z, i, f, o, rz, ri, rf, ro, *, kernel_impl: str = "hopper"):
     if _use_kernel(z, kernel_impl):
         return _slstm.slstm_scan(z, i, f, o, rz, ri, rf, ro)
     return _slstm.plain(z, i, f, o, rz, ri, rf, ro)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    kernel_impl: str = "hopper"):
+    """Attention over a whole sequence. q: (B,H,S,D); k, v: (B,KV,S,D),
+    views in any layout."""
+    if _use_kernel(q, kernel_impl):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _flash.plain(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k, v, lengths, *, kernel_impl: str = "hopper"):
+    """One token against a cache. q: (B,H,D); k, v: (B,S,KV,D); lengths:
+    (B,) int32."""
+    if _use_kernel(q, kernel_impl):
+        return _decode.decode_attention(q, k, v, lengths)
+    return _decode.plain(q, k, v, lengths)
+
+
+def rglru_scan(x, a_gate, i_gate, lam, h0=None, *,
+               kernel_impl: str = "hopper"):
+    """RG-LRU with its gates on (B,S,W) fp32 from h0 (zeros when None).
+    Returns (y, h_last)."""
+    if _use_kernel(x, kernel_impl):
+        return _rglru.rglru_scan(x, a_gate, i_gate, lam, h0)
+    return _rglru.plain(x, a_gate, i_gate, lam, h0)

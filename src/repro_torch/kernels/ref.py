@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the ported kernels (the correctness contract).
 
-Counterpart of ``repro/kernels/ref.py`` for the two kernels of the xLSTM
-serving path, plus the chunkwise mLSTM form that the mLSTM kernel computes.
-Each is a transparent implementation that the CUDA kernels are held
-against on the card and that the CPU path runs.
+Counterpart of ``repro/kernels/ref.py`` for every kernel of the port: the
+two of the xLSTM serving path (plus the chunkwise mLSTM form that the mLSTM
+kernel computes) and the three of the RecurrentGemma path (flash attention,
+decode attention, the RG-LRU scan). Each is a transparent implementation
+that the CUDA kernels are held against on the card and that the CPU path
+runs.
 """
 
 from __future__ import annotations
@@ -111,3 +113,70 @@ def slstm_scan_ref(z, i, f, o, rz, ri, rf, ro):
                                 f[:, :, t], o[:, :, t], r_all)
         out[:, :, t] = h
     return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: "int | None" = None):
+    """Masked softmax attention. q: (B,H,Sq,D); k,v: (B,KV,Skv,D) with
+    H = KV*G (query head h reads KV head h // G). Key j is visible to query
+    i iff j <= i (causal) and j > i - window. fp32 accumulation; a query
+    with no visible key gives zeros, as the CUDA kernel does."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, sq, d).float()
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (d ** -0.5)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
+    probs = probs.masked_fill(~mask.any(-1, keepdim=True), 0.0)
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def decode_attention(q, k, v, lengths):
+    """One-token attention against a cache. q: (B,H,D); k,v: (B,S,KV,D)
+    in any float type (widened to fp32); lengths: (B,) valid cache length.
+    Positions >= lengths[b] are masked; at length 0 the result is zeros,
+    as the TPU kernel gives (its jnp oracle gives NaN)."""
+    b, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, kv, g, d).float()
+    logits = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * (d ** -0.5)
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths.to(q.device)[:, None])[:, None, None]   # (B,1,1,S)
+    probs = torch.softmax(logits.masked_fill(~valid, float("-inf")), -1)
+    probs = probs.masked_fill(~valid, 0.0)
+    out = torch.einsum("bkgs,bskd->bkgd", probs, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def rglru_scan(x, a_gate, i_gate, lam, h0=None, c: float = 8.0):
+    """RG-LRU over (B,S,W) fp32 inputs: h_t = a_t h_{t-1} + x_hat_t from
+    h0 (zeros when None). A log-depth (Hillis-Steele) scan over S, the
+    counterpart of ``jax.lax.associative_scan``: ceil(log2 S) rounds of
+    whole-tensor work, never a loop over S. The gates first:
+    log_a = a_gate * (-c * softplus(-lam)), a = exp(log_a),
+    x_hat = sqrt(max(1 - exp(2 log_a), 1e-12)) * i_gate * x.
+    Returns (y, h_last)."""
+    lam = lam.float()
+    log_a = a_gate * (-c * torch.logaddexp(-lam, lam.new_zeros(())))
+    a = torch.exp(log_a)
+    xs = torch.sqrt(torch.clamp_min(1 - torch.exp(2 * log_a), 1e-12)) \
+        * (i_gate * x)
+    if h0 is not None:
+        xs = torch.cat([xs[:, :1] + a[:, :1] * h0[:, None], xs[:, 1:]], 1)
+    s = x.shape[1]
+    k = 1
+    while k < s:
+        # combine((a1, x1), (a2, x2)) = (a1 a2, a2 x1 + x2), offset k
+        xs = torch.cat([xs[:, :k], a[:, k:] * xs[:, :-k] + xs[:, k:]], 1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], 1)
+        k *= 2
+    return xs, xs[:, -1]

@@ -1,15 +1,23 @@
-"""Core model layers in PyTorch: what the xLSTM stack uses of
-``repro/models/layers.py``.
+"""Core model layers in PyTorch: what the xLSTM and RecurrentGemma stacks
+use of ``repro/models/layers.py`` (norms, embedding, RoPE, GQA/MQA and
+local attention with its ring-buffer cache, the SwiGLU MLP).
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts, so a JAX pytree converts leaf by leaf (``repro_torch.convert``).
-The attention, MLP, RoPE and conv-position layers come with the model
-families that use them.
+M-RoPE, qk-norm, explicit positions, the other MLP kinds and the
+conv-position layer come with the model families that use them.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
 
 Params = dict  # nested dict of tensors
 
@@ -51,6 +59,180 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = ((x - mu) ** 2).mean(-1, keepdim=True)
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * p["scale"].float() + p["bias"].float()).to(dt)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 1e6) -> np.ndarray:
+    """Frequencies in float64 numpy, as the JAX package computes them."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_table(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """fp32 frequencies on ``device``, copied there once: a copy from host
+    memory on every call would stall the host behind the stream."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(
+        device=device, dtype=torch.float32)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e6) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int."""
+    freqs = _rope_table(x.shape[-1], theta, x.device)          # (D/2,)
+    ang = positions[..., None].float() * freqs                 # (B,S,D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, -1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Attention (GQA / MQA / local)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnDims:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+
+
+def attention_init(gen: torch.Generator, dims: AttnDims, dtype=torch.float32,
+                   device="cpu") -> Params:
+    dev = torch.device(device)
+    d, h, kvh, hd = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim
+    s = d ** -0.5
+    return {
+        "wq": _he(gen, (d, h * hd), s, dtype, dev),
+        "wk": _he(gen, (d, kvh * hd), s, dtype, dev),
+        "wv": _he(gen, (d, kvh * hd), s, dtype, dev),
+        "wo": _he(gen, (h * hd, d), (h * hd) ** -0.5, dtype, dev),
+    }
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool, window: "int | None" = None,
+         kv_len: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Grouped softmax attention, the plain masked path of the JAX package
+    (the model itself goes through ``ops``). q: (B,Sq,H,D), k/v:
+    (B,Skv,KV,D) with H = KV * G; KV heads are never repeated. Key j is
+    visible to query i iff j <= i (causal) and j > i - window; ``kv_len``:
+    optional (B,) active cache lengths. Masked logits are -1e30, fp32
+    softmax."""
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, sq, kvh, g, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
+                          k.float()) * (d ** -0.5)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, -1e30)
+    if kv_len is not None:
+        valid = kpos[None] < kv_len[:, None, None]              # (B,1,Skv)
+        logits = logits.masked_fill(~valid[:, None, None], -1e30)
+    probs = torch.softmax(logits, -1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
+def attention_apply(p: Params, x: torch.Tensor, dims: AttnDims, *,
+                    rope_theta: float = 1e6, causal: bool = True,
+                    window: "int | None" = None,
+                    cache: "Params | None" = None,
+                    kernel_impl: str = "hopper",
+                    ) -> tuple[torch.Tensor, "Params | None"]:
+    """Full attention block with RoPE. Without a cache, the whole sequence
+    goes through ``ops.flash_attention``. With one, x is (B, 1, d) and the
+    cache is {"k": (B,Smax,KV,D), "v": ..., "pos": (B,) int32}: the new key
+    and value are written in place at slot ``pos % Smax`` (a ring buffer
+    for local attention, which the softmax does not mind; for a global
+    cache pos < Smax, so the slot is pos), and the token attends through
+    ``ops.decode_attention`` to the first ``min(pos + 1, Smax)`` slots.
+    Returns (out, new_cache)."""
+    if "q_norm" in p:
+        raise NotImplementedError("qk-norm comes with the GQA attention "
+                                  "slice")
+    b, s, _ = x.shape
+    h, kvh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k = (x @ p["wk"]).reshape(b, s, kvh, hd)
+    v = (x @ p["wv"]).reshape(b, s, kvh, hd)
+
+    if cache is not None:
+        pos = cache["pos"]                                       # (B,)
+        q = apply_rope(q, pos[:, None], rope_theta)
+        k = apply_rope(k, pos[:, None], rope_theta)
+        ck, cv = cache["k"], cache["v"]
+        smax = ck.shape[1]
+        slot = (pos % smax).long()
+        rows = torch.arange(b, device=x.device)
+        ck[rows, slot] = k[:, 0].to(ck.dtype)                   # in place
+        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        lengths = torch.clamp(pos + 1, max=smax).to(torch.int32)
+        out = ops.decode_attention(q[:, 0].to(torch.float32), ck, cv,
+                                   lengths, kernel_impl=kernel_impl)
+        out = out.to(x.dtype)[:, None]                           # (B,1,H,D)
+        new_cache = {"k": ck, "v": cv, "pos": pos + 1}
+    else:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+        # (B,H,S,D) views of the (B,S,H,D) projections; the output keeps
+        # that layout, so the reshape below is free
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=causal,
+                                  window=window,
+                                  kernel_impl=kernel_impl).transpose(1, 2)
+        new_cache = None
+    out = out.reshape(b, s, h * hd)
+    return out @ p["wo"], new_cache
+
+
+def attention_cache_init(batch: int, max_seq: int, dims: AttnDims,
+                         dtype=torch.bfloat16, device="cpu") -> Params:
+    shape = (batch, max_seq, dims.n_kv_heads, dims.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+def _mlp_kind(kind: str) -> None:
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp_kind {kind!r} comes with the model "
+                                  f"family that uses it")
+
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str,
+             dtype=torch.float32, device="cpu") -> Params:
+    _mlp_kind(kind)
+    dev = torch.device(device)
+    s_in, s_out = d ** -0.5, d_ff ** -0.5
+    return {"w_gate": _he(gen, (d, d_ff), s_in, dtype, dev),
+            "w_up": _he(gen, (d, d_ff), s_in, dtype, dev),
+            "w_down": _he(gen, (d_ff, d), s_out, dtype, dev)}
+
+
+def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """SwiGLU, the kind of every ported config; the JAX package's
+    ``squared_relu`` and ``gelu`` come with the families that use them."""
+    _mlp_kind(kind)
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
 # --------------------------------------------------------------------------

@@ -1,13 +1,18 @@
 """Model assembly in PyTorch: builds an architecture from an ArchConfig.
 Counterpart of ``repro/models/model.py``.
 
-Block kinds of this slice: ``mlstm`` (self-contained mLSTM block) and
-``slstm`` (self-contained sLSTM block), the xLSTM stack. Parameters are a
-plain nested dict with the JAX pytree's paths (``stages/0/b3/cell/w_up``),
-so ``repro_torch.convert.params_from_jax`` maps one onto the other leaf by
-leaf. Stages run unrolled: xLSTM has ``scan_layers=False``, and a stage
-with repeat > 1 (stacked params) comes with the families that use it.
-Activation checkpointing comes with training.
+Block kinds of the port so far:
+  mlstm   self-contained mLSTM block (xLSTM)
+  slstm   self-contained sLSTM block (xLSTM)
+  rglru   RG-LRU recurrent temporal mixing + MLP (recurrentgemma)
+  lattn   local (windowed) attention + MLP (recurrentgemma)
+
+Parameters are a plain nested dict with the JAX pytree's paths
+(``stages/0/b3/cell/w_up``), so ``repro_torch.convert.params_from_jax``
+maps one onto the other leaf by leaf. A stage with repeat > 1 has its
+parameters (and its decode caches) stacked on a leading axis, exactly as
+the JAX package stacks them for ``lax.scan``; here a Python loop runs the
+repeats over views ``p[r]``. Activation checkpointing comes with training.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 from ..device import resolve_device
 from ..kernels.ops import KERNEL_IMPLS
 from . import layers as L
+from . import rglru as RG
 from . import xlstm as XL
 
 if TYPE_CHECKING:                      # avoid circular import (configs -> models)
@@ -30,8 +36,8 @@ Params = dict
 
 #: block kinds of the JAX package that later slices of the port bring
 _LATER = {"attn": "the GQA attention slice", "dense": "the GQA attention slice",
-          "moe": "the MoE slice", "lattn": "the recurrentgemma slice",
-          "rglru": "the recurrentgemma slice", "mla": "the MLA slice"}
+          "moe": "the MoE slice", "mla": "the MLA slice"}
+_KINDS = ("mlstm", "slstm", "rglru", "lattn")
 
 
 def _unsupported(kind: str) -> NotImplementedError:
@@ -42,6 +48,38 @@ def _unsupported(kind: str) -> NotImplementedError:
     return NotImplementedError(f"unknown block kind {kind!r}")
 
 
+def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
+    return L.AttnDims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts/lists of tensors."""
+    t0 = trees[0]
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (list, tuple)):
+        return [_tree_map(fn, *xs) for xs in zip(*trees)]
+    return fn(*trees)
+
+
+def _repeats(tree, repeat: int) -> list:
+    """A stage's tree for each repeat: views ``t[r]`` of a stacked stage,
+    the tree itself for an unstacked one."""
+    if repeat == 1:
+        return [tree]
+    return [_tree_map(lambda t: t[r], tree) for r in range(repeat)]
+
+
+def _write_back(dst, src) -> None:
+    """Copy a repeat's new cache into its views of the stacked cache,
+    skipping leaves that were already updated in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write_back(dst[k], src[k])
+    elif src.data_ptr() != dst.data_ptr():
+        dst.copy_(src)
+
+
 # --------------------------------------------------------------------------
 # Per-block init / apply / cache dispatch
 # --------------------------------------------------------------------------
@@ -50,8 +88,21 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
                device) -> Params:
     norm_init = (L.layernorm_init if cfg.norm == "layernorm"
                  else L.rmsnorm_init)
+    d = cfg.d_model
+    if kind == "lattn":
+        return {"ln1": norm_init(d, dtype, device),
+                "attn": L.attention_init(gen, _attn_dims(cfg), dtype, device),
+                "ln2": norm_init(d, dtype, device),
+                "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                  device)}
+    if kind == "rglru":
+        return {"ln1": norm_init(d, dtype, device),
+                "rec": RG.rglru_block_init(gen, cfg.rglru, dtype, device),
+                "ln2": norm_init(d, dtype, device),
+                "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                  device)}
     if kind == "mlstm":
-        return {"ln1": norm_init(cfg.d_model, dtype, device),
+        return {"ln1": norm_init(d, dtype, device),
                 "cell": XL.mlstm_block_init(gen, cfg.xlstm, dtype, device)}
     if kind == "slstm":
         return {"cell": XL.slstm_block_init(gen, cfg.xlstm, dtype, device)}
@@ -67,6 +118,21 @@ def _norm(cfg: ArchConfig, p: Params, x):
 def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *, cache=None,
                 kernel_impl: str = "hopper"):
     """Returns (x_out, new_cache)."""
+    if kind == "lattn":
+        h, new_cache = L.attention_apply(
+            p["attn"], _norm(cfg, p["ln1"], x), _attn_dims(cfg),
+            rope_theta=cfg.rope_theta, causal=cfg.causal,
+            window=cfg.attn_window, cache=cache, kernel_impl=kernel_impl)
+        x = x + h
+        y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
+        return x + y, new_cache
+    if kind == "rglru":
+        h, new_cache = RG.rglru_block_apply(
+            p["rec"], _norm(cfg, p["ln1"], x), cfg.rglru, cache=cache,
+            kernel_impl=kernel_impl)
+        x = x + h
+        y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
+        return x + y, new_cache
     if kind == "mlstm":
         h, new_cache = XL.mlstm_block_apply(
             p["cell"], _norm(cfg, p["ln1"], x), cfg.xlstm, cache=cache,
@@ -80,9 +146,17 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *, cache=None,
     raise _unsupported(kind)
 
 
-def block_cache_init(cfg: ArchConfig, kind: str, batch: int,
-                     device) -> Params:
-    # the xLSTM caches are fp32 whatever dtype the model runs in
+def block_cache_init(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                     dtype, device) -> Params:
+    # the recurrent caches are fp32 whatever dtype the attention caches take
+    if kind == "lattn":
+        smax = min(max_seq, cfg.attn_window or max_seq)
+        if smax < 1:
+            raise ValueError("an attention cache needs max_seq >= 1")
+        return L.attention_cache_init(batch, smax, _attn_dims(cfg), dtype,
+                                      device)
+    if kind == "rglru":
+        return RG.rglru_cache_init(batch, cfg.rglru, torch.float32, device)
     if kind == "mlstm":
         return XL.mlstm_cache_init(batch, cfg.xlstm, torch.float32, device)
     if kind == "slstm":
@@ -102,17 +176,17 @@ class Model:
     def __init__(self, cfg: ArchConfig, kernel_impl: str = "hopper"):
         if kernel_impl not in KERNEL_IMPLS:
             raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}")
-        for pattern, repeat in cfg.stages:
-            if repeat != 1:
-                raise NotImplementedError(
-                    "stacked (scanned) stages come with the families that "
-                    "use them; set scan_layers=False")
+        for pattern, _ in cfg.stages:
             for kind in pattern:
-                if kind not in ("mlstm", "slstm"):
+                if kind not in _KINDS:
                     raise _unsupported(kind)
         if cfg.frontend is not None:
             raise NotImplementedError(
                 f"the {cfg.frontend} frontend comes with its model family")
+        if "lattn" in cfg.layer_pattern and cfg.rope_kind != "rope":
+            raise NotImplementedError(
+                f"rope_kind {cfg.rope_kind!r} comes with the GQA attention "
+                f"slice")
         self.cfg = cfg
         self.kernel_impl = kernel_impl
 
@@ -133,10 +207,13 @@ class Model:
         if not cfg.tie_embeddings:
             p["unembed"] = L.embedding_init(generator, cfg.vocab_size,
                                             cfg.d_model, dtype, dev)
-        p["stages"] = [
-            {f"b{bi}": block_init(generator, cfg, kind, dtype, dev)
-             for bi, kind in enumerate(pattern)}
-            for pattern, _ in cfg.stages]
+        p["stages"] = []
+        for pattern, repeat in cfg.stages:
+            def unit(_pattern=pattern):
+                return {f"b{bi}": block_init(generator, cfg, kind, dtype, dev)
+                        for bi, kind in enumerate(_pattern)}
+            p["stages"].append(unit() if repeat == 1
+                               else _stack_filled(unit, repeat))
         return p
 
     # -- forward --------------------------------------------------------------
@@ -154,46 +231,76 @@ class Model:
 
     def apply(self, params: Params, batch: dict
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward. Returns (logits fp32, aux_loss); the
-        xLSTM blocks add no auxiliary loss, so aux is 0."""
+        """Full-sequence forward. Returns (logits fp32, aux_loss); none of
+        the ported blocks adds an auxiliary loss, so aux is 0."""
         cfg = self.cfg
         x = L.embed(params["embed"], batch["tokens"])
-        for (pattern, _), sp in zip(cfg.stages, params["stages"]):
-            for bi, kind in enumerate(pattern):
-                x, _ = block_apply(sp[f"b{bi}"], x, cfg, kind,
-                                   kernel_impl=self.kernel_impl)
+        for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
+            for lp in _repeats(sp, repeat):
+                for bi, kind in enumerate(pattern):
+                    x, _ = block_apply(lp[f"b{bi}"], x, cfg, kind,
+                                       kernel_impl=self.kernel_impl)
         return self._logits(params, x), x.new_zeros((), dtype=torch.float32)
 
     # -- decode ---------------------------------------------------------------
 
-    def init_cache(self, batch: int, max_seq: int = 0, *,
-                   device=None) -> list:
-        """Per-block recurrent state (fp32). ``max_seq`` is accepted for
-        the JAX signature; the xLSTM state does not grow with it."""
+    def init_cache(self, batch: int, max_seq: int = 0, *, device=None,
+                   dtype=torch.bfloat16) -> list:
+        """Per-block decode state, stacked like the parameters. The
+        recurrent states are fp32; attention caches take ``dtype`` and hold
+        ``max_seq`` positions (``min(max_seq, attn_window)`` for local
+        attention), as in the JAX package. The xLSTM state does not grow
+        with ``max_seq``."""
         dev = resolve_device(device)
-        return [{f"b{bi}": block_cache_init(self.cfg, kind, batch, dev)
-                 for bi, kind in enumerate(pattern)}
-                for pattern, _ in self.cfg.stages]
+        caches = []
+        for pattern, repeat in self.cfg.stages:
+            def unit(_pattern=pattern):
+                return {f"b{bi}": block_cache_init(self.cfg, kind, batch,
+                                                   max_seq, dtype, dev)
+                        for bi, kind in enumerate(_pattern)}
+            caches.append(unit() if repeat == 1
+                          else _stack_filled(unit, repeat))
+        return caches
 
     @torch.no_grad()
     def decode_step(self, params: Params, cache: list,
                     tokens: torch.Tensor) -> tuple[torch.Tensor, list]:
-        """One token for every sequence. tokens: (B, 1) int."""
+        """One token for every sequence. tokens: (B, 1) int. Attention
+        caches are written in place; a stacked stage's cache is updated in
+        place in its stacked tensors and returned as it is."""
         cfg = self.cfg
         x = L.embed(params["embed"], tokens)
         new_caches = []
-        for (pattern, _), sp, sc in zip(cfg.stages, params["stages"], cache):
-            nc = {}
-            for bi, kind in enumerate(pattern):
-                x, nc[f"b{bi}"] = block_apply(sp[f"b{bi}"], x, cfg, kind,
-                                              cache=sc[f"b{bi}"],
-                                              kernel_impl=self.kernel_impl)
-            new_caches.append(nc)
+        for (pattern, repeat), sp, sc in zip(cfg.stages, params["stages"],
+                                             cache):
+            for lp, lc in zip(_repeats(sp, repeat), _repeats(sc, repeat)):
+                nc = {}
+                for bi, kind in enumerate(pattern):
+                    x, nc[f"b{bi}"] = block_apply(
+                        lp[f"b{bi}"], x, cfg, kind, cache=lc[f"b{bi}"],
+                        kernel_impl=self.kernel_impl)
+                if repeat > 1:
+                    _write_back(lc, nc)
+            new_caches.append(nc if repeat == 1 else sc)
         return self._logits(params, x), new_caches
 
     def param_count(self) -> int:
         shapes = self.init(torch.Generator(), device="meta")
         return sum(t.numel() for t in _leaves(shapes))
+
+
+def _stack_filled(make_unit, repeat: int):
+    """``repeat`` units from ``make_unit()`` stacked on a leading axis, as
+    the JAX package stacks a stage for ``lax.scan``. The stacked tensors are
+    allocated once and filled a unit at a time, so the peak is the stack
+    plus one unit (a full-width stage would not fit twice)."""
+    first = make_unit()
+    stacked = _tree_map(lambda t: t.new_empty((repeat, *t.shape)), first)
+    for r in range(repeat):
+        unit = first if r == 0 else make_unit()
+        _tree_map(lambda dst, src: dst[r].copy_(src), stacked, unit)
+        del unit
+    return stacked
 
 
 def _leaves(tree):

@@ -5,7 +5,9 @@ prompts and get back a ``repro_torch.core`` future over the generated
 tokens; a serving loop batches whatever requests are pending into up to
 ``slots`` rows, prefills them by single-token decode steps, decodes
 ``max_new`` tokens greedily, and replies to each client on a
-``queue.Queue`` that its future waits on.
+``queue.Queue`` that its future waits on. It serves any ported arch; each
+batch's cache holds the batch's longest prompt plus ``max_new`` positions
+(local attention keeps at most its window of them).
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ from .train import make_serve_step
 
 
 class Server:
-    """Greedy decode server with slot-based batching. ``params`` defaults
-    to random weights drawn from ``seed``; ``smoke=False`` serves the
-    full-width config."""
+    """Greedy decode server with slot-based batching for the config
+    ``arch``. ``params`` defaults to random weights drawn from ``seed``;
+    ``smoke=False`` serves the full-width config."""
 
     def __init__(self, arch: str = "xlstm-125m", *, smoke: bool = True,
                  slots: int = 4, max_new: int = 16, device=None,
@@ -78,9 +80,11 @@ class Server:
 
     def _decode_batch(self, batch):
         b = len(batch)
-        cache = self.model.init_cache(b, device=self.device)
-        # prefill via single-token steps, then greedy decode
         maxlen = max(len(p) for p, _ in batch)
+        cache = self.model.init_cache(b, max_seq=maxlen + self.max_new,
+                                      device=self.device,
+                                      dtype=torch.float32)
+        # prefill via single-token steps, then greedy decode
         outs: list[list[int]] = [[] for _ in range(b)]
         last = [0] * b
         for t in range(maxlen + self.max_new):

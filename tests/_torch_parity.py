@@ -14,11 +14,15 @@ import torch
 import repro_torch.core as prc
 
 # Tolerances. The kernel ones are tests/test_kernels.py's: mLSTM 5e-4
-# (chunked vs sequential stabilisers), sLSTM 3e-5. Model parity in fp32 is
-# 1e-4: XLA and ATen sum matmuls in different orders, about 1e-6 of each
-# value per block, and the logits reach ~70 at smoke width.
+# (chunked vs sequential stabilisers), sLSTM and RG-LRU 3e-5, attention
+# 2e-5 in fp32 and 2e-2 in bf16 (``_tol``). Model parity in fp32 is 1e-4:
+# XLA and ATen sum matmuls in different orders, about 1e-6 of each value
+# per block, and the logits reach ~70 at smoke width.
 MLSTM_TOL = dict(rtol=5e-4, atol=5e-4)
 SLSTM_TOL = dict(rtol=3e-5, atol=3e-5)
+RGLRU_TOL = dict(rtol=3e-5, atol=3e-5)
+ATTN_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+            "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -61,6 +65,35 @@ def slstm_inputs(seed, b, nh, s, hd):
     return xs + rs
 
 
+def flash_inputs(seed, b, kv, g, s, d):
+    """q (B,H,S,D) and k, v (B,KV,S,D), H = KV*G."""
+    rng = np.random.default_rng(seed)
+    return (randn(rng, b, kv * g, s, d), randn(rng, b, kv, s, d),
+            randn(rng, b, kv, s, d))
+
+
+def decode_inputs(seed, b, kv, g, s, d, lengths=None):
+    """q (B,H,D), a cache k, v (B,S,KV,D) and lengths (B,) int32 in
+    [1, S] unless given."""
+    rng = np.random.default_rng(seed)
+    if lengths is None:
+        lengths = rng.integers(1, s + 1, size=b)
+    return (randn(rng, b, kv * g, d), randn(rng, b, s, kv, d),
+            randn(rng, b, s, kv, d), np.asarray(lengths, np.int32))
+
+
+def rglru_inputs(seed, b, s, w, with_h0):
+    """x (B,S,W), gates in (0, 1), lambda (W,) around 3, h0 (B,W) or
+    None, as tests/test_kernels.py draws them."""
+    rng = np.random.default_rng(seed)
+    x = randn(rng, b, s, w)
+    ag = 1 / (1 + np.exp(-randn(rng, b, s, w)))
+    ig = 1 / (1 + np.exp(-randn(rng, b, s, w)))
+    lam = randn(rng, w, shift=3.0)
+    h0 = randn(rng, b, w) if with_h0 else None
+    return x, ag.astype(np.float32), ig.astype(np.float32), lam, h0
+
+
 def t(a: np.ndarray, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -72,7 +105,10 @@ def n(x) -> np.ndarray:
 
 
 def jax_params(cfg, seed: int = 0):
-    """(JAX params, the same as a numpy pytree) from ``Model(cfg).init``."""
+    """(JAX params, the same as a numpy pytree) from ``Model(cfg).init``.
+    A stage with repeat > 1 is one dict whose leaves are stacked on a
+    leading axis in both packages, so the numpy pytree hands over as it
+    is."""
     import jax
     from repro.models import Model
     params = Model(cfg).init(jax.random.PRNGKey(seed))

@@ -60,6 +60,30 @@ def test_error_relayed_as_is_and_on_every_value():
         value(f)
 
 
+def test_stdout_router_outlives_its_release():
+    """CPython 3.12's print() holds sys.stdout by a borrowed reference
+    across its writes, so a router that a worker thread releases while the
+    main thread prints must not be freed under the print: routers are kept
+    and reused, and the real stream is restored."""
+    import gc
+    import sys
+    import weakref
+
+    from repro_torch.core import conditions
+    real = sys.stdout
+    router = conditions._acquire_router()
+    assert sys.stdout is router and router.real is real
+    ref = weakref.ref(router)
+    conditions._release_router(router)
+    del router
+    gc.collect()
+    assert sys.stdout is real and ref() is not None
+    again = conditions._acquire_router()
+    assert again is ref()
+    conditions._release_router(again)
+    assert sys.stdout is real
+
+
 def test_stdout_and_warning_relay_order(capsys):
     def body():
         print("line-1")

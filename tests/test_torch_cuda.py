@@ -8,11 +8,16 @@ Python has no JAX for tests/conftest.py to import):
 import numpy as np
 import pytest
 import torch
-from _torch_parity import (MLSTM_TOL, SLSTM_TOL, _reset_port,  # noqa: F401
-                           cuda_device, mlstm_inputs, n, slstm_inputs, t)
+from _torch_parity import (ATTN_TOL, MLSTM_TOL, RGLRU_TOL,  # noqa: F401
+                           SLSTM_TOL, _reset_port, cuda_device,
+                           decode_inputs, flash_inputs, mlstm_inputs, n,
+                           rglru_inputs, slstm_inputs, t)
 
+from repro_torch.kernels import decode_attention as DK
+from repro_torch.kernels import flash_attention as FK
 from repro_torch.kernels import mlstm_scan as MK
 from repro_torch.kernels import ops
+from repro_torch.kernels import rglru_scan as RK
 from repro_torch.kernels import slstm_scan as SK
 
 
@@ -50,13 +55,86 @@ def test_mlstm_kernel_rejects_unsupported_head_dim(cuda_device):
         ops.mlstm_scan(*args)
 
 
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,w,with_h0", [
+    (2, 128, 256, False), (2, 300, 200, True), (4, 1, 4096, True),
+    (1, 4096, 4096, False)])
+def test_rglru_kernel_matches_plain_on_card(cuda_device, b, s, w, with_h0):
+    args = [None if a is None else t(a, cuda_device)
+            for a in rglru_inputs(3, b, s, w, with_h0)]
+    before = RK.launches
+    y, hl = ops.rglru_scan(*args)
+    torch.cuda.synchronize()
+    assert RK.launches == before + 1
+    yw, hw = RK.plain(*args)
+    np.testing.assert_allclose(n(y), n(yw), **RGLRU_TOL)
+    np.testing.assert_allclose(n(hl), n(hw), **RGLRU_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window", [
+    (1, 1, 16, 512, 256, True, 128), (2, 2, 2, 200, 64, False, None),
+    (1, 4, 1, 256, 128, True, None), (2, 1, 4, 333, 64, True, 50)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
+                                            causal, window):
+    q, k, v = (t(a, cuda_device) for a in flash_inputs(3, b, kv, g, s, d))
+    before = FK.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.launches == before + 1
+    want = FK.plain(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+
+
+@pytest.mark.requires_cuda
+def test_flash_kernel_reads_strided_views_on_card(cuda_device):
+    """(B,H,S,D) views of (B,S,H,D) tensors, as the model passes them; the
+    output keeps q's layout."""
+    q, k, v = (t(a, cuda_device).transpose(1, 2).contiguous().transpose(1, 2)
+               for a in flash_inputs(4, 2, 1, 4, 160, 128))
+    got = ops.flash_attention(q, k, v, causal=True, window=64)
+    assert got.stride() == q.stride()
+    want = FK.plain(q, k, v, causal=True, window=64)
+    np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+
+
+@pytest.mark.requires_cuda
+def test_flash_kernel_refuses_bf16(cuda_device):
+    q, k, v = (t(a, cuda_device).to(torch.bfloat16)
+               for a in flash_inputs(0, 1, 1, 2, 64, 64))
+    with pytest.raises(ValueError, match="float32"):
+        ops.flash_attention(q, k, v)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,kv,g,s,d,lengths", [
+    (4, 1, 16, 2048, 256, [1, 700, 2048, 2048]),
+    (2, 2, 4, 300, 128, [0, 299]), (3, 8, 1, 100, 64, None)])
+def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
+                                             d, lengths):
+    q, k, v, ln = decode_inputs(3, b, kv, g, s, d, lengths)
+    tdt = getattr(torch, dtype)
+    args = (t(q, cuda_device), t(k, cuda_device).to(tdt),
+            t(v, cuda_device).to(tdt), t(ln, cuda_device))
+    before = DK.launches
+    got = ops.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert DK.launches == before + 1
+    want = DK.plain(*args)
+    np.testing.assert_allclose(n(got), n(want), **ATTN_TOL[dtype])
+    if lengths is not None and lengths[0] == 0:
+        assert torch.all(got[0] == 0)
+
+
 # --------------------------------------------------------------------------
 # the build, on any host
 # --------------------------------------------------------------------------
 
 def test_build_targets_are_hashed_per_source():
     from repro_torch.kernels import _build
-    assert _build.sources() == ["mlstm_scan", "slstm_scan"]
+    assert _build.sources() == ["decode_attention", "flash_attention",
+                                "mlstm_scan", "rglru_scan", "slstm_scan"]
     for name in _build.sources():
         target = _build._target(name)
         assert target.parent == _build.BUILD_DIR

@@ -40,6 +40,10 @@ def test_importing_every_module_leaves_jax_out():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert len(_port_modules()) >= 20
+    assert {"repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.kernels.rglru_scan",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.decode_attention"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
@@ -49,7 +53,8 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
 
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT.rglob("*.py")]
-    + [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py"]),
+    + [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
+       ROOT / "scripts" / "profile_torch.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_repro_or_jax(path):
     assert not _IMPORT_REPRO.findall(path.read_text())
@@ -57,7 +62,8 @@ def test_no_file_of_the_port_imports_repro_or_jax(path):
 
 def test_kernel_sources_are_present():
     assert sorted(p.name for p in (PORT / "kernels" / "csrc").glob("*.cu")) \
-        == ["mlstm_scan.cu", "slstm_scan.cu"]
+        == ["decode_attention.cu", "flash_attention.cu", "mlstm_scan.cu",
+            "rglru_scan.cu", "slstm_scan.cu"]
 
 
 @pytest.fixture

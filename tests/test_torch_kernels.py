@@ -1,6 +1,7 @@
 """The port's kernels: plain versions against the JAX Pallas kernels
-(interpret mode) and their jnp oracles on the CPU. The CUDA kernels are
-held against their plain versions in test_torch_cuda.py."""
+(interpret mode) and their jnp oracles on the CPU, at the shapes and
+tolerances of tests/test_kernels.py. The CUDA kernels are held against
+their plain versions in test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -8,15 +9,30 @@ import pytest
 jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
-from _torch_parity import (MLSTM_TOL, SLSTM_TOL, _reset_port,  # noqa: E402,F401
-                           mlstm_inputs, n, slstm_inputs, t)
+import torch  # noqa: E402
+from _torch_parity import (ATTN_TOL, MLSTM_TOL, RGLRU_TOL,  # noqa: E402,F401
+                           SLSTM_TOL, _reset_port, decode_inputs,
+                           flash_inputs, mlstm_inputs, n, rglru_inputs,
+                           slstm_inputs, t)
 
 from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.decode_attention import \
+    decode_attention as jax_decode_attention  # noqa: E402
+from repro.kernels.flash_attention import \
+    flash_attention as jax_flash_attention  # noqa: E402
 from repro.kernels.mlstm_scan import mlstm_scan as jax_mlstm_scan  # noqa: E402
+from repro.kernels.rglru_scan import rglru_scan as jax_rglru_scan  # noqa: E402
 from repro.kernels.slstm_scan import slstm_scan as jax_slstm_scan  # noqa: E402
+from repro.models.rglru import rglru_scan_ref as jax_rglru_model  # noqa: E402
+from repro_torch.kernels import decode_attention as DK  # noqa: E402
+from repro_torch.kernels import flash_attention as FK  # noqa: E402
 from repro_torch.kernels import mlstm_scan as MK  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rglru_scan as RK  # noqa: E402
 from repro_torch.kernels import slstm_scan as SK  # noqa: E402
+
+_DT = {"float32": (jnp.float32, torch.float32),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 
 MLSTM_CASES = [(1, 1, 128, 32, 32), (2, 2, 128, 64, 64),
@@ -70,11 +86,193 @@ def test_slstm_plain_matches_jax_oracle(b, nh, s, hd, cs):
     np.testing.assert_allclose(n(got), n(want), **SLSTM_TOL)
 
 
+# --------------------------------------------------------------------------
+# flash attention
+# --------------------------------------------------------------------------
+
+FLASH_CASES = [  # b, kv, g, s, d, causal, window, dtype
+    (1, 1, 4, 128, 64, True, None, "float32"),
+    (2, 2, 2, 200, 64, False, None, "float32"),
+    (1, 4, 1, 64, 128, True, None, "float32"),
+    (2, 1, 2, 256, 64, False, None, "bfloat16"),
+    (1, 2, 2, 128, 128, True, None, "bfloat16"),
+    (1, 1, 4, 256, 64, True, 64, "float32"),
+]
+
+
+def _cast(arrays, dtype):
+    jdt, tdt = _DT[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [t(a).to(tdt) for a in arrays])
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window,dtype", FLASH_CASES)
+def test_flash_plain_matches_jax_kernel(b, kv, g, s, d, causal, window,
+                                        dtype):
+    jargs, targs = _cast(flash_inputs(b + s + d, b, kv, g, s, d), dtype)
+    got = ops.flash_attention(*targs, causal=causal, window=window)
+    want = jax_flash_attention(*jargs, causal=causal, window=window, bq=64,
+                               bk=64, interpret=True)
+    assert got.dtype == targs[0].dtype and got.shape == (b, kv * g, s, d)
+    np.testing.assert_allclose(n(got.float()), n(want.astype(jnp.float32)),
+                               **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window,dtype", FLASH_CASES)
+def test_flash_plain_matches_jax_oracle(b, kv, g, s, d, causal, window,
+                                        dtype):
+    jargs, targs = _cast(flash_inputs(b + s + d + 1, b, kv, g, s, d), dtype)
+    got = ops.flash_attention(*targs, causal=causal, window=window)
+    want = jref.flash_attention_ref(*jargs, causal=causal, window=window)
+    np.testing.assert_allclose(n(got.float()), n(want.astype(jnp.float32)),
+                               **ATTN_TOL[dtype])
+
+
+def test_flash_plain_reads_strided_views():
+    """The model hands (B,H,S,D) views of its (B,S,H,D) projections."""
+    q, k, v = flash_inputs(5, 2, 1, 4, 64, 64)
+    views = [t(a).transpose(1, 2).contiguous().transpose(1, 2)
+             for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = ops.flash_attention(*views, causal=True, window=16)
+    want = jref.flash_attention_ref(*(jnp.asarray(a) for a in (q, k, v)),
+                                    causal=True, window=16)
+    np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+
+
+# --------------------------------------------------------------------------
+# decode attention
+# --------------------------------------------------------------------------
+
+DECODE_CASES = [  # b, kv, g, s, d, dtype
+    (2, 1, 4, 300, 64, "float32"),
+    (3, 2, 4, 128, 128, "bfloat16"),
+    (1, 8, 1, 512, 64, "float32"),
+    (2, 2, 1, 128, 64, "bfloat16"),
+]
+
+
+def _decode_args(arrays, dtype):
+    q, k, v, lengths = arrays
+    jdt, tdt = _DT[dtype]
+    jargs = (jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+             jnp.asarray(lengths))
+    targs = (t(q).to(tdt), t(k).to(tdt), t(v).to(tdt), t(lengths))
+    return jargs, targs
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,dtype", DECODE_CASES)
+def test_decode_plain_matches_jax_kernel(b, kv, g, s, d, dtype):
+    jargs, targs = _decode_args(decode_inputs(b + s + d, b, kv, g, s, d),
+                                dtype)
+    got = ops.decode_attention(*targs)
+    want = jax_decode_attention(*jargs, bs=128, interpret=True)
+    np.testing.assert_allclose(n(got.float()), n(want.astype(jnp.float32)),
+                               **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,dtype", DECODE_CASES)
+def test_decode_plain_matches_jax_oracle(b, kv, g, s, d, dtype):
+    jargs, targs = _decode_args(
+        decode_inputs(b + s + d + 1, b, kv, g, s, d), dtype)
+    got = ops.decode_attention(*targs)
+    want = jref.decode_attention_ref(*jargs)
+    np.testing.assert_allclose(n(got.float()), n(want.astype(jnp.float32)),
+                               **ATTN_TOL[dtype])
+
+
+def test_decode_plain_takes_a_wider_cache_like_the_model():
+    """The model hands an fp32 query and a bf16 cache; JAX casts the cache
+    to the activations' type first, which is the same function."""
+    q, k, v, lengths = decode_inputs(9, 2, 1, 4, 64, 64)
+    kb, vb = (t(a).to(torch.bfloat16) for a in (k, v))
+    got = ops.decode_attention(t(q), kb, vb, t(lengths))
+    want = jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(n(kb.float())), jnp.asarray(n(vb.float())),
+        jnp.asarray(lengths))
+    np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+
+
+def test_decode_plain_gives_zeros_at_length_zero():
+    """At length 0 the TPU kernel returns zeros (its oracle gives NaN); the
+    port follows the kernel."""
+    q, k, v, lengths = decode_inputs(4, 2, 1, 4, 256, 64, lengths=[0, 37])
+    got = ops.decode_attention(t(q), t(k), t(v), t(lengths))
+    assert torch.all(got[0] == 0)
+    want = jax_decode_attention(*(jnp.asarray(a) for a in (q, k, v, lengths)),
+                                bs=128, interpret=True)
+    np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+    assert np.isnan(np.asarray(jref.decode_attention_ref(
+        *(jnp.asarray(a) for a in (q, k, v, lengths)))[0])).all()
+
+
+# --------------------------------------------------------------------------
+# RG-LRU scan
+# --------------------------------------------------------------------------
+
+RGLRU_CASES = [  # b, s, w, with_h0
+    (1, 128, 256, False), (2, 256, 512, True), (2, 128, 256, True),
+    (1, 256, 256, False)]
+
+
+def _rglru_args(arrays, lib):
+    conv = jnp.asarray if lib == "jax" else t
+    return [None if a is None else conv(a) for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", RGLRU_CASES)
+def test_rglru_plain_matches_jax_kernel(b, s, w, with_h0):
+    arrays = rglru_inputs(b + s + w, b, s, w, with_h0)
+    y, hl = ops.rglru_scan(*_rglru_args(arrays, "torch"))
+    yw, hw = jax_rglru_scan(*_rglru_args(arrays, "jax"), cs=64, bw=128,
+                            interpret=True)
+    np.testing.assert_allclose(n(y), n(yw), **RGLRU_TOL)
+    np.testing.assert_allclose(n(hl), n(hw), **RGLRU_TOL)
+
+
+@pytest.mark.parametrize("b,s,w,with_h0", RGLRU_CASES)
+def test_rglru_plain_matches_jax_oracles(b, s, w, with_h0):
+    arrays = rglru_inputs(b + s + w + 1, b, s, w, with_h0)
+    y, hl = ops.rglru_scan(*_rglru_args(arrays, "torch"))
+    for oracle in (jref.rglru_scan_ref, jax_rglru_model):
+        yw, hw = oracle(*_rglru_args(arrays, "jax"))
+        np.testing.assert_allclose(n(y), n(yw), **RGLRU_TOL)
+        np.testing.assert_allclose(n(hl), n(hw), **RGLRU_TOL)
+
+
+def test_rglru_plain_decode_step_continues_the_scan():
+    """A scan split in two, the second half from the first's last state,
+    is the whole scan: the decode step (S = 1, h0 from the cache) rests on
+    it."""
+    x, ag, ig, lam, _ = rglru_inputs(3, 2, 64, 32, False)
+    full, h_full = ref.rglru_scan(t(x), t(ag), t(ig), t(lam))
+    y1, h1 = ref.rglru_scan(t(x[:, :40]), t(ag[:, :40]), t(ig[:, :40]),
+                            t(lam))
+    ys = [y1]
+    for i in range(40, 64):
+        y_i, h1 = ref.rglru_scan(t(x[:, i:i + 1]), t(ag[:, i:i + 1]),
+                                 t(ig[:, i:i + 1]), t(lam), h1)
+        ys.append(y_i)
+    np.testing.assert_allclose(n(torch.cat(ys, 1)), n(full), **RGLRU_TOL)
+    np.testing.assert_allclose(n(h1), n(h_full), **RGLRU_TOL)
+
+
+# --------------------------------------------------------------------------
+# dispatch
+# --------------------------------------------------------------------------
+
+def _all_launches():
+    return (MK.launches, SK.launches, RK.launches, FK.launches, DK.launches)
+
+
 def test_cpu_dispatch_takes_plain_version_and_counts_nothing():
-    before = (MK.launches, SK.launches)
+    before = _all_launches()
     ops.mlstm_scan(*(t(a) for a in mlstm_inputs(0, 1, 1, 64, 64)), cs=32)
     ops.slstm_scan(*(t(a) for a in slstm_inputs(0, 1, 1, 8, 32)))
-    assert (MK.launches, SK.launches) == before
+    ops.rglru_scan(*(t(a) for a in rglru_inputs(0, 1, 8, 32, True)))
+    ops.flash_attention(*(t(a) for a in flash_inputs(0, 1, 1, 2, 16, 64)))
+    ops.decode_attention(*(t(a) for a in decode_inputs(0, 1, 1, 2, 16, 64)))
+    assert _all_launches() == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -84,6 +282,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         MK.mlstm_scan(*(t(a) for a in mlstm_inputs(0, 1, 1, 64, 64)))
     with pytest.raises(ValueError, match="CUDA"):
         SK.slstm_scan(*(t(a) for a in slstm_inputs(0, 1, 1, 8, 32)))
+    with pytest.raises(ValueError, match="CUDA"):
+        RK.rglru_scan(*(t(a) for a in rglru_inputs(0, 1, 8, 32, True)))
+    with pytest.raises(ValueError, match="CUDA"):
+        FK.flash_attention(*(t(a) for a in flash_inputs(0, 1, 1, 2, 16, 64)))
+    with pytest.raises(ValueError, match="CUDA"):
+        DK.decode_attention(*(t(a) for a in decode_inputs(0, 1, 1, 2, 16,
+                                                          64)))
 
 
 def test_unknown_kernel_impl_raises():

@@ -1,6 +1,7 @@
 """The port's decode Server on the CPU against the JAX Server of
 examples/serve.py: same smoke weights (converted), same 6 prompts, same
-greedy tokens, each request answered through a future."""
+greedy tokens, each request answered through a future, for xLSTM-125M and
+RecurrentGemma-9B."""
 
 import importlib.util
 import os
@@ -96,3 +97,46 @@ def test_server_batches_more_requests_than_slots():
     alone = [_serve(Server(device="cpu", slots=1, max_new=3), rc, [p])[0]
              for p in prompts]
     assert replies == alone
+
+
+def test_recurrentgemma_server_matches_jax_server_tokens():
+    """The JAX Server sizes its caches for 64 positions and the port's for
+    the batch (prompt + max_new = 20): both local-attention caches hold 16
+    positions, the smoke window, and every generated token past it agrees."""
+    mod = _jax_server_module()
+    jrc.plan("threads", workers=8)
+    jserver = mod.Server(arch="recurrentgemma-9b")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, jserver.cfg.vocab_size, size=4).tolist()
+               for _ in range(6)]
+    want = _serve(jserver, jrc, prompts)
+
+    rc.plan("threads", workers=8)
+    np_params = jax.tree_util.tree_map(np.asarray, jserver.params)
+    server = Server("recurrentgemma-9b", device="cpu",
+                    params=torch_params(np_params, jserver.cfg))
+    got = _serve(server, rc, prompts)
+    assert got == want
+    assert all(len(toks) == 16 for toks in got)
+
+
+def test_recurrentgemma_long_prompt_first_token_matches_prefill_step():
+    """A 48-token prompt, three times the smoke window: the Server's
+    single-token steps wrap the ring buffer and still give the prefill
+    step's first token and logits."""
+    rc.plan("threads", workers=4)
+    server = Server("recurrentgemma-9b", device="cpu", max_new=2, seed=1)
+    prompt = np.random.default_rng(1).integers(
+        0, server.cfg.vocab_size, size=48).tolist()
+    (toks,) = _serve(server, rc, [prompt])
+    batch = {"tokens": torch.tensor([prompt])}
+    assert toks[0] == int(make_prefill_step(server.model)(server.params,
+                                                          batch))
+    model = Model(server.cfg)
+    want, _ = model.apply(server.params, batch)
+    cache = model.init_cache(1, max_seq=50, device="cpu",
+                             dtype=torch.float32)
+    for i in range(len(prompt)):
+        got, cache = model.decode_step(server.params, cache,
+                                       batch["tokens"][:, i:i + 1])
+    np.testing.assert_allclose(n(got[0, -1]), n(want[0, -1]), **MODEL_TOL)
