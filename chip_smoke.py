@@ -9,7 +9,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      (``src/repro_torch/kernels/csrc``) with its seconds and ptxas report;
   2. each kernel against its plain PyTorch version on the card, at the
      full-width prefill shapes of xLSTM-125M (B=8, S=2048), with errors
-     against the stated tolerance, times and bounds;
+     against the stated tolerance, times and bounds; for the sLSTM also its
+     cluster geometry, its time a step and that of one chain alone;
   3. the prefill step at full width through the entry points a user calls,
      with the launch counts zeroed just before and read just after (10
      mLSTM and 2 sLSTM launches), held against the same model on the plain
@@ -166,6 +167,11 @@ def main() -> int:
 
     zs = [randn(B, NH, S, HD) for _ in range(4)]
     rs = [randn(NH, HD, HD, scale=HD ** -0.5) for _ in range(4)]
+    geo = SK.launch_geometry(B, NH, HD)
+    print(f"slstm_scan geometry: clusters of {geo.cl} CTAs x {geo.threads} "
+          f"threads, {geo.rb} batch rows a cluster, {geo.n_clusters} "
+          f"clusters ({geo.grid} CTAs), at most {geo.max_active_clusters} "
+          f"clusters resident, R in {SK.R_HELD_IN}")
     out = SK.slstm_scan(*zs, *rs)
     torch.cuda.synchronize()
     ref = SK.plain(*zs, *rs)
@@ -177,7 +183,7 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/slstm_scan.cu",
         replaces="src/repro/kernels/slstm_scan.py:29",
         max_abs_err=err.max().item(),
-        ms=cuda_ms(lambda: SK.slstm_scan(*zs, *rs), 5),
+        ms=cuda_ms(lambda: SK.slstm_scan(*zs, *rs), 10),
         plain_ms=cuda_ms(lambda: SK.plain(*zs, *rs), 1, warmup=0),
         library_ms=None)
     kernels["slstm_scan"]["bound_ms"], kernels["slstm_scan"]["bound_by"] = \
@@ -188,7 +194,16 @@ def main() -> int:
           f"{(err.max() / ref.abs().max()).item():.3e} (tolerance rtol=atol="
           f"{TOL_SLSTM}) {'ok' if ok else 'FAIL'}")
     check(ok, "slstm_scan kernel disagrees with its plain version")
-    del zs, rs, out, ref, err
+    print(f"  slstm_scan: {kernels['slstm_scan']['ms']:.4f} ms a launch, "
+          f"{kernels['slstm_scan']['ms'] * 1e3 / S:.4f} us a step")
+    # the floor the recurrence sets: one chain at HD=16, where the matvec is
+    # negligible and a step is the cell update and the exchange of h
+    one = [randn(1, 1, S, 16) for _ in range(4)] + [
+        randn(1, 16, 16, scale=0.25) for _ in range(4)]
+    ms_one = cuda_ms(lambda: SK.slstm_scan(*one), 10)
+    print(f"  slstm_scan, one chain at HD=16 (latency of a step alone): "
+          f"{ms_one:.4f} ms a launch, {ms_one * 1e3 / S:.4f} us a step")
+    del zs, rs, out, ref, err, one
     for kr in kernels.values():
         print(f"  {kr['name']}: kernel {kr['ms']:.3f} ms, plain "
               f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.3f} ms "

@@ -38,7 +38,13 @@ def test_mlstm_kernel_matches_plain_on_card(cuda_device, b, h, s, d):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("b,nh,s,hd", [(2, 2, 128, 64), (2, 4, 256, 192)])
+@pytest.mark.parametrize("b,nh,s,hd", [
+    (2, 2, 128, 64), (2, 4, 256, 192),
+    (8, 4, 512, 192),        # the model's width and batch
+    (1, 1, 64, 64),          # a single cluster
+    (3, 4, 96, 256),         # eight CTAs a cluster, odd batch
+    (2, 2, 128, 128), (2, 3, 40, 16), (2, 1, 33, 208), (1, 2, 1, 48),
+    (20, 4, 48, 192)])       # more clusters than the card holds at once
 def test_slstm_kernel_matches_plain_on_card(cuda_device, b, nh, s, hd):
     args = [t(a, cuda_device) for a in slstm_inputs(3, b, nh, s, hd)]
     before = SK.launches
@@ -46,6 +52,25 @@ def test_slstm_kernel_matches_plain_on_card(cuda_device, b, nh, s, hd):
     torch.cuda.synchronize()
     assert SK.launches == before + 1
     np.testing.assert_allclose(n(got), n(SK.plain(*args)), **SLSTM_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,nh,hd", [(8, 4, 192), (3, 4, 256), (64, 4, 192)])
+def test_slstm_launch_geometry_on_card(cuda_device, b, nh, hd):
+    """The card's count of resident clusters picks the rows per cluster."""
+    geo = SK.launch_geometry(b, nh, hd, cuda_device)
+    assert geo.max_active_clusters >= 1
+    assert geo == SK.geometry(b, nh, hd, geo.max_active_clusters)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("hd", [40, 264])
+def test_slstm_kernel_rejects_unsupported_head_dim(cuda_device, hd):
+    args = [t(a, cuda_device) for a in slstm_inputs(0, 1, 1, 8, hd)]
+    before = SK.launches
+    with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+        ops.slstm_scan(*args)
+    assert SK.launches == before
 
 
 @pytest.mark.requires_cuda

@@ -258,6 +258,60 @@ def test_rglru_plain_decode_step_continues_the_scan():
 
 
 # --------------------------------------------------------------------------
+# the sLSTM kernel's launch geometry (plain Python, no card)
+# --------------------------------------------------------------------------
+
+SLSTM_GEOMETRIES = [(8, 4, 192, 32), (8, 4, 192, 30), (8, 4, 192, 16),
+                    (3, 4, 256, 12), (1, 1, 64, 1), (2, 2, 128, 132),
+                    (16, 4, 192, 20), (5, 3, 16, 2)]
+
+
+@pytest.mark.parametrize("b,nh,hd,active", SLSTM_GEOMETRIES)
+def test_slstm_geometry_covers_every_chain_once(b, nh, hd, active):
+    geo = SK.geometry(b, nh, hd, active)
+    served = [pair for c in range(geo.n_clusters) for pair in geo.chains(c)]
+    assert sorted(served) == [(bb, h) for bb in range(b) for h in range(nh)]
+    assert all(geo.chains(c) for c in range(geo.n_clusters))
+    assert geo.grid == geo.cl * geo.n_clusters
+
+
+@pytest.mark.parametrize("hd,cl", [(16, 4), (64, 4), (128, 4), (144, 8),
+                                   (192, 8), (208, 8), (256, 8)])
+def test_slstm_geometry_splits_units_across_the_cluster(hd, cl):
+    geo = SK.geometry(2, 2, hd, 8)
+    assert geo.cl == cl
+    owned = [u for rank in range(geo.cl) for u in geo.units_of(rank)]
+    assert owned == list(range(hd))
+    # 16 threads a unit (four gates, a sixteenth of K each), whole warps,
+    # each holding at most 64 values of R
+    assert geo.threads == 16 * hd // cl and geo.threads % 32 == 0
+    assert 4 * hd * (hd // cl) <= 64 * geo.threads
+
+
+@pytest.mark.parametrize("b,nh,active,rb", [
+    (8, 4, 32, 1), (8, 4, 31, 2), (8, 4, 16, 2), (8, 4, 15, 3),
+    (8, 4, 8, 4), (8, 4, 4, 4), (8, 4, 1, 4), (3, 4, 12, 1), (3, 4, 8, 2),
+    (1, 1, 1, 1), (20, 1, 2, 4), (16, 4, 30, 3), (2, 4, 4, 2)])
+def test_slstm_geometry_takes_the_smallest_rows_that_fit(b, nh, active, rb):
+    geo = SK.geometry(b, nh, 192, active)
+    assert geo.rb == rb
+    fits = [r for r in range(1, min(b, SK.MAX_ROWS) + 1)
+            if nh * -(-b // r) <= active]
+    if fits:
+        assert geo.n_clusters <= active and rb == fits[0]
+    else:                        # nothing fits: the most rows, in waves
+        assert rb == min(b, SK.MAX_ROWS)
+
+
+@pytest.mark.parametrize("hd", [0, 8, 24, 100, 200, 264, 272, 512])
+def test_slstm_geometry_rejects_head_dims(hd):
+    with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+        SK.geometry(2, 2, hd, 32)
+    with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+        SK.cluster_size(hd)
+
+
+# --------------------------------------------------------------------------
 # dispatch
 # --------------------------------------------------------------------------
 
