@@ -9,8 +9,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      (``src/repro_torch/kernels/csrc``) with its seconds and ptxas report;
   2. each kernel against its plain PyTorch version on the card, at the
      full-width prefill shapes of xLSTM-125M (B=8, S=2048), with errors
-     against the stated tolerance, times and bounds; for the sLSTM also its
-     cluster geometry, its time a step and that of one chain alone;
+     against the stated tolerance, times and bounds; for the mLSTM also its
+     launch geometry (column tile, CTAs, waves, shared memory), for the
+     sLSTM its cluster geometry, its time a step and that of one chain
+     alone;
   3. the prefill step at full width through the entry points a user calls,
      with the launch counts zeroed just before and read just after (10
      mLSTM and 2 sLSTM launches), held against the same model on the plain
@@ -140,12 +142,18 @@ def main() -> int:
 
     q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
     ig, fg = randn(B, H, S), randn(B, H, S, shift=2.0)
+    mgeo = MK.launch_geometry(B, H, D)
+    print(f"mlstm_scan geometry: DV={mgeo.dv} columns of C a CTA, "
+          f"{mgeo.grid} CTAs x {mgeo.threads} threads, {mgeo.ctas_per_sm} "
+          f"CTA(s) per SM on {mgeo.n_sms} SMs, {mgeo.waves} wave(s), "
+          f"{mgeo.smem_bytes} B of shared memory a CTA, chunk {MK.CHUNK}")
     out = MK.mlstm_scan(q, k, v, ig, fg)
     torch.cuda.synchronize()
     ref = MK.plain(q, k, v, ig, fg, cs=256)
     err = (out - ref).abs()
-    chunk = MK._lib().mlstm_scan_chunk()
-    flops = 4.0 * B * H * S * D * (chunk + D)
+    # the function's floor, whatever the chunking: the recurrent form's
+    # q.C readout and k (x) v update, D*D FMAs each a row
+    flops = 4.0 * B * H * S * D * D
     nbytes = 4.0 * (4 * B * H * S * D + 2 * B * H * S)
     kernels["mlstm_scan"] = dict(
         name="mlstm_scan", route="cuda",

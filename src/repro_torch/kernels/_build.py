@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ctypes. The library
 lands in ``<repo>/build/kernels/<name>-<hash>.so``, where the hash covers
-the source and the flags, so a changed source is rebuilt and an unchanged
-one is loaded as it is. Nothing is built when this module is imported: the
+the source, the flags and any extra ``-D`` defines, so a changed source is
+rebuilt and an unchanged one is loaded as it is. Nothing is built when this module is imported: the
 first call that needs a kernel builds it, and :func:`build_all` builds every
 source at once, one ``nvcc`` per source, all started together.
 """
@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -35,21 +35,28 @@ def _nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def _flags(defines: tuple[str, ...]) -> list[str]:
+    return [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+
+
+def _target(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(_flags(defines)).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
-def _start(name: str) -> "tuple[Path, Path, subprocess.Popen] | None":
-    out = _target(name)
+def _start(name: str, defines: tuple[str, ...] = ()
+           ) -> "tuple[Path, Path, subprocess.Popen] | None":
+    out = _target(name, defines)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = out.with_suffix(".log")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     with open(log, "w") as fh:
         proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
     return out, tmp, proc
@@ -81,11 +88,27 @@ def build_all() -> dict[str, str]:
             for name in sources()}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would have to differentiate through kernel
+    ``name``: the kernels have no backward yet, and the outputs they write
+    carry no ``grad_fn``, so a backward would silently drop every gradient
+    through them."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet; "
+                           f"call it under torch.no_grad() or on inputs "
+                           f"that do not require grad")
+
+
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed;
+    ``defines`` (macro names, passed as ``-D``) select an instrumented
+    build, kept apart from the plain one."""
+    key = (name, *defines)
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            _finish(name, _start(name))
-            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+            _finish(name, _start(name, defines))
+            lib = _libs[key] = ctypes.CDLL(str(_target(name, defines)))
         return lib

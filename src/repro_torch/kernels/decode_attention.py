@@ -47,6 +47,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     last dim contiguous; lengths: (B,) int32 on the same device.
     Returns (B,H,D) fp32."""
     global launches
+    _build.refuse_grad("decode_attention", q, k, v)
     b, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     if not q.is_cuda or q.dtype != torch.float32 or not q.is_contiguous():

@@ -48,6 +48,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rows; H a multiple of KV; D in ``HEAD_DIMS``. Returns (B,H,Sq,D) in
     q's layout."""
     global launches
+    _build.refuse_grad("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, kv, skv, d)),

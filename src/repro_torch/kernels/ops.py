@@ -5,6 +5,11 @@ Counterpart of ``repro/kernels/ops.py``. Nothing falls back: a CUDA tensor
 that the kernel cannot take raises. ``kernel_impl="plain"`` runs the plain
 version on any device; it exists so that the same model can be held
 against its own kernel-free run on the card.
+
+The kernels take a narrower set of shapes than the TPU kernels (the CUDA
+``mlstm_scan``: D a multiple of 64 up to 512, S a multiple of 16) and have
+no backward yet: each wrapper raises under grad for inputs that require
+it, rather than return a result that autograd cannot see through.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ def _use_kernel(x, kernel_impl: str) -> bool:
 def mlstm_scan(q, k, v, i_raw, f_raw, *, cs: int = 256,
                kernel_impl: str = "hopper"):
     """Chunkwise mLSTM from zero state. ``cs`` is the plain version's chunk;
-    the kernel uses its own."""
+    the kernel uses its own (16 rows, so S must be a multiple of 16)."""
     if _use_kernel(q, kernel_impl):
         return _mlstm.mlstm_scan(q, k, v, i_raw, f_raw)
     return _mlstm.plain(q, k, v, i_raw, f_raw, cs=cs)

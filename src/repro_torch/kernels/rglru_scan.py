@@ -41,6 +41,7 @@ def rglru_scan(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
     contiguous; lam: (W,); h0: (B,W) or None for a zero state.
     Returns (y (B,S,W), h_last (B,W))."""
     global launches
+    _build.refuse_grad("rglru_scan", x, a_gate, i_gate, lam, h0)
     b, s, w = x.shape
     checks = [("x", x, (b, s, w)), ("a_gate", a_gate, (b, s, w)),
               ("i_gate", i_gate, (b, s, w)), ("lam", lam, (w,))]

@@ -147,6 +147,7 @@ def slstm_scan(z, i, f, o, rz, ri, rf, ro) -> torch.Tensor:
     pre-activations, contiguous; r*: (NH,HD,HD) indexed [in, out]; HD a
     multiple of 16 up to 256. Returns h: (B,NH,S,HD)."""
     global launches
+    _build.refuse_grad("slstm_scan", z, i, f, o, rz, ri, rf, ro)
     b, nh, s, hd = z.shape
     seq, rec = (b, nh, s, hd), (nh, hd, hd)
     for name, t, shape in (("z", z, seq), ("i", i, seq), ("f", f, seq),

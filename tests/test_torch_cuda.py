@@ -26,15 +26,62 @@ from repro_torch.kernels import slstm_scan as SK
 # --------------------------------------------------------------------------
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("b,h,s,d", [(2, 2, 256, 64), (1, 4, 512, 384)])
-def test_mlstm_kernel_matches_plain_on_card(cuda_device, b, h, s, d):
+@pytest.mark.parametrize("b,h,s,d,dv", [
+    (2, 2, 256, 64, 32), (1, 4, 512, 384, 32), (3, 4, 512, 384, 64),
+    (8, 4, 256, 384, 96), (2, 2, 128, 192, 32), (1, 2, 64, 512, 32),
+    (2, 2, 48, 128, 32),     # S a multiple of 16, not of 32
+    (2, 2, 48, 64, 32),
+    (1, 1, 16, 64, 32),      # one chunk
+    (8, 4, 2048, 384, 96)])  # the xLSTM-125M prefill shape
+def test_mlstm_kernel_matches_plain_on_card(cuda_device, b, h, s, d, dv):
+    """One case per column tile; the plain version walks chunks of up to
+    256 rows, the kernel 16."""
     args = [t(a, cuda_device) for a in mlstm_inputs(3, b, h, s, d)]
+    assert MK.launch_geometry(b, h, d, cuda_device).dv == dv
     before = MK.launches
     got = ops.mlstm_scan(*args)
     torch.cuda.synchronize()
     assert MK.launches == before + 1
     want = MK.plain(*args, cs=256)
     np.testing.assert_allclose(n(got), n(want), **MLSTM_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,h,d", [(8, 4, 384), (1, 4, 384), (2, 2, 64)])
+def test_mlstm_launch_geometry_on_card(cuda_device, b, h, d):
+    """The card's SM count and occupancy pick the column tile; the xLSTM
+    shape runs in one wave."""
+    geo = MK.launch_geometry(b, h, d, cuda_device)
+    assert geo.ctas_per_sm >= 1
+    assert geo.n_sms == torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    if (b, h, d) == (8, 4, 384):
+        assert (geo.dv, geo.grid, geo.waves) == (96, 128, 1)
+
+
+@pytest.mark.requires_cuda
+def test_mlstm_kernel_rejects_sequence_off_the_chunk(cuda_device):
+    args = [t(a, cuda_device) for a in mlstm_inputs(0, 1, 1, 40, 64)]
+    before = MK.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        MK.mlstm_scan(*args)
+    assert MK.launches == before
+
+
+@pytest.mark.requires_cuda
+def test_kernel_refuses_grad_on_card(cuda_device):
+    """Under grad an input that requires it is refused and nothing is
+    launched; under no_grad the same call runs."""
+    args = [t(a, cuda_device) for a in mlstm_inputs(0, 1, 1, 64, 64)]
+    args[0].requires_grad_(True)
+    before = MK.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.mlstm_scan(*args)
+    assert MK.launches == before
+    with torch.no_grad():
+        ops.mlstm_scan(*args)
+    torch.cuda.synchronize()
+    assert MK.launches == before + 1
 
 
 @pytest.mark.requires_cuda
@@ -165,6 +212,16 @@ def test_build_targets_are_hashed_per_source():
         assert target.parent == _build.BUILD_DIR
         assert target.name.startswith(f"{name}-") and target.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_targets_keep_instrumented_builds_apart():
+    """A build with extra defines lands in a file of its own."""
+    from repro_torch.kernels import _build
+    plain = _build._target("mlstm_scan")
+    clocked = _build._target("mlstm_scan", ("MLSTM_PHASE_CLOCKS",))
+    assert clocked != plain and clocked.parent == plain.parent
+    assert clocked.name.startswith("mlstm_scan-")
+    assert _build._flags(("X",))[-1] == "-DX"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

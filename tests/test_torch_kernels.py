@@ -312,6 +312,67 @@ def test_slstm_geometry_rejects_head_dims(hd):
 
 
 # --------------------------------------------------------------------------
+# the mLSTM kernel's launch geometry (plain Python, no card)
+# --------------------------------------------------------------------------
+
+def _per_sm(n):
+    """Resident CTAs per SM, the same ``n`` for every tile width."""
+    return dict.fromkeys(MK.TILE_WIDTHS, n)
+
+
+@pytest.mark.parametrize("b,h,d,n_sms,per_sm,dv,grid,waves", [
+    (8, 4, 384, 132, 1, 96, 128, 1),     # xLSTM-125M prefill: one full wave
+    (1, 4, 384, 132, 1, 32, 48, 1),      # small batch: the narrowest tile
+    (2, 4, 384, 132, 1, 32, 96, 1),
+    (3, 4, 384, 132, 1, 64, 72, 1),      # 32 would need 144 CTAs
+    (16, 4, 384, 132, 1, 96, 256, 2),    # no tile fits one wave
+    (8, 4, 384, 132, {32: 2, 64: 1, 96: 1}, 96, 128, 1),
+    (4, 4, 384, 132, {32: 2, 64: 1, 96: 1}, 32, 192, 1),
+    (2, 2, 64, 132, 1, 32, 8, 1),
+    (64, 4, 64, 132, 1, 64, 256, 2),     # D=64: 96 does not divide it
+    (1, 1, 512, 132, 1, 32, 16, 1)])     # only 32 fits shared memory
+def test_mlstm_geometry_takes_the_narrowest_tile_in_one_wave(
+        b, h, d, n_sms, per_sm, dv, grid, waves):
+    per = per_sm if isinstance(per_sm, dict) else _per_sm(per_sm)
+    geo = MK.geometry(b, h, d, n_sms, per)
+    assert (geo.dv, geo.grid, geo.waves) == (dv, grid, waves)
+    assert d % geo.dv == 0 and geo.smem_bytes <= MK.SMEM_LIMIT
+    assert geo.threads == MK.THREADS == 512
+    resident = [w for w in MK.tile_widths(d)
+                if b * h * (d // w) <= n_sms * per[w]]
+    if resident:                 # the narrowest tile that is resident
+        assert geo.dv == resident[0] and geo.waves == 1
+    else:                        # none is: the widest that fits, in waves
+        assert geo.dv == MK.tile_widths(d)[-1] and geo.waves > 1
+
+
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 448, 512])
+def test_mlstm_tile_widths_divide_the_head_dim_and_fit(d):
+    widths = MK.tile_widths(d)
+    assert widths and widths == sorted(widths)
+    assert all(d % w == 0 and MK.smem_bytes(d, w) <= MK.SMEM_LIMIT
+               for w in widths)
+    for b, h in ((1, 1), (8, 4), (64, 8)):
+        assert d % MK.geometry(b, h, d, 132, _per_sm(1)).dv == 0
+    # the xLSTM tile: C 384x96 with 16 v rows, q|W padded, two regions
+    # that take turns holding k (padded) and the partial sums, n and 7
+    # gate vectors
+    assert MK.smem_bytes(384, 96) == 4 * (400 * 96 + 16 * 404
+                                          + 2 * 16 * 388 + 384 + 7 * 16)
+
+
+@pytest.mark.parametrize("d", [0, 32, 96, 100, 576, 640])
+def test_mlstm_geometry_rejects_head_dims(d):
+    with pytest.raises(ValueError, match="multiple of 64"):
+        MK.geometry(2, 2, d, 132, _per_sm(1))
+
+
+def test_mlstm_geometry_needs_a_resident_tile():
+    with pytest.raises(ValueError, match="resident"):
+        MK.geometry(2, 2, 384, 132, _per_sm(0))
+
+
+# --------------------------------------------------------------------------
 # dispatch
 # --------------------------------------------------------------------------
 
@@ -343,6 +404,39 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         DK.decode_attention(*(t(a) for a in decode_inputs(0, 1, 1, 2, 16,
                                                           64)))
+
+
+def _grad_inputs(kernel):
+    """CPU inputs of one CUDA wrapper, the first of them requiring grad."""
+    args = {"mlstm_scan": lambda: mlstm_inputs(0, 1, 1, 64, 64),
+            "slstm_scan": lambda: slstm_inputs(0, 1, 1, 8, 32),
+            "rglru_scan": lambda: rglru_inputs(0, 1, 8, 32, True),
+            "flash_attention": lambda: flash_inputs(0, 1, 1, 2, 16, 64),
+            "decode_attention": lambda: decode_inputs(0, 1, 1, 2, 16,
+                                                      64)}[kernel]()
+    args = [t(a) for a in args]
+    args[0].requires_grad_(True)
+    return args
+
+
+_WRAPPERS = {"mlstm_scan": MK.mlstm_scan, "slstm_scan": SK.slstm_scan,
+             "rglru_scan": RK.rglru_scan,
+             "flash_attention": FK.flash_attention,
+             "decode_attention": DK.decode_attention}
+
+
+@pytest.mark.parametrize("kernel", sorted(_WRAPPERS))
+def test_kernel_wrappers_refuse_grad(kernel):
+    """No kernel has a backward yet: under grad, an input that requires it
+    is refused before anything else is checked, so the refusal shows on
+    the CPU; under no_grad the same call reaches the device check."""
+    args = _grad_inputs(kernel)
+    before = _all_launches()
+    with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
+        _WRAPPERS[kernel](*args)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        _WRAPPERS[kernel](*args)
+    assert _all_launches() == before
 
 
 def test_unknown_kernel_impl_raises():
