@@ -26,6 +26,9 @@ Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
   2b. the RG-LRU scan, windowed flash attention and split-S decode
       attention against their plain versions at its full-width shapes,
       with times, bounds and, for attention, one PyTorch library call;
+      for flash attention also its launch geometry (rows a CTA, CTAs,
+      waves, shared memory, K and V bytes read from L2) and both bounds,
+      fp32 SIMT and 3xTF32 on tensor cores (its route);
   3b. the prefill step at B=1, S=4096 (past the 2048 window), with the
       launch counts zeroed just before and read just after (26 rglru_scan
       and 12 flash_attention launches), held against the plain path;
@@ -41,6 +44,7 @@ script exits non-zero and prints no result.
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -50,8 +54,10 @@ import numpy as np
 
 SEED = 0
 B, S = 8, 2048                   # full-width prefill shape
-# H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
+# H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on them,
+# HBM3 rate
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 # tolerances: the kernel ones are tests/test_kernels.py's (mLSTM 5e-4,
 # sLSTM 3e-5, as rtol and atol); model logits are compared relative to the
@@ -90,8 +96,9 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float,
+          peak: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -133,6 +140,8 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    check(not re.search(r"[1-9]\d* bytes spill", reports["flash_attention"]),
+          "no flash_attention instance spills registers")
 
     # -- 2. kernels against their plain versions -----------------------------
     cfg = get_arch("xlstm-125m")
@@ -415,6 +424,12 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     q = randn(1, RG_S, H, HD).transpose(1, 2)
     k = randn(1, RG_S, KV, HD).transpose(1, 2)
     v = randn(1, RG_S, KV, HD).transpose(1, 2)
+    fgeo = FK.launch_geometry(1, H, KV, RG_S, RG_S, HD, True, win)
+    print(f"  flash_attention geometry: {fgeo.rows} query rows a CTA, "
+          f"{fgeo.ctas} CTAs x {fgeo.threads} threads, {fgeo.ctas_per_sm} "
+          f"CTA(s) per SM on {fgeo.n_sms} SMs, {fgeo.waves} wave(s), "
+          f"{fgeo.smem_bytes} B of shared memory a CTA; {fgeo.key_rows} K "
+          f"and as many V rows, {fgeo.l2_bytes} B, read from L2")
     out = FK.flash_attention(q, k, v, causal=True, window=win)
     torch.cuda.synchronize()
     ref = FK.plain(q, k, v, causal=True, window=win)
@@ -435,10 +450,17 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
                          2),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), 5))
+    # the kernel's route: each fp32 product as three TF32 MMAs (3xTF32)
+    flops, nbytes = 4.0 * HD * pairs * H, 4.0 * (2 * H + 2 * KV) * RG_S * HD
+    fp32_ms, fp32_by = bound(flops, nbytes)
     kernels["flash_attention"]["bound_ms"], \
-        kernels["flash_attention"]["bound_by"] = bound(
-            4.0 * HD * pairs * H, 4.0 * (2 * H + 2 * KV) * RG_S * HD)
-    print(f"  flash_attention: {pairs} visible (q, k) pairs per head")
+        kernels["flash_attention"]["bound_by"] = bound(3 * flops, nbytes,
+                                                       PEAK_TF32_FLOPS)
+    print(f"  flash_attention: {pairs} visible (q, k) pairs per head, "
+          f"{flops / 1e9:.1f} GFLOP; bound as fp32 SIMT {fp32_ms:.4f} ms "
+          f"({fp32_by}), as 3xTF32 on tensor cores "
+          f"{kernels['flash_attention']['bound_ms']:.4f} ms "
+          f"({kernels['flash_attention']['bound_by']})")
     del q, k, v, mask
 
     lengths = torch.tensor(RG_DEC_LENGTHS, dtype=torch.int32, device=dev)

@@ -1,246 +1,539 @@
-// Flash attention forward with GQA, causal and window masks, fp32, for
+// Flash attention forward with GQA, causal and window masks, fp32 in and
+// out, both products on TF32 tensor cores in split precision (3xTF32), for
 // sm_90a.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention -> _fa_kernel). Same function: for query head h, which
 // reads KV head h / G, softmax(q k^T / sqrt(D)) v over the visible keys,
 // where key j is visible to query i iff j < Skv, j <= i (causal) and
-// j > i - window (window). Online softmax with fp32 accumulation; K blocks
-// wholly above the diagonal or left of the window are skipped. A query with
-// no visible key gives zeros.
+// j > i - window (window). Online softmax in fp32; key blocks wholly above
+// the diagonal or left of the window are skipped. A query with no visible
+// key gives zeros.
 //
 // What bounds it here: operations. At RecurrentGemma's prefill (H = 16,
-// one KV head, D = 256, S = 4096, window 2048) the visible (q, k) pairs need
-// 103 GFLOP against 142 MB of q, k, v and out, far past the card's ridge.
-// fp32 inputs have no tensor-core path, so the rate is the SIMT FMA rate,
-// and the design aims to keep the FMA pipes fed from shared memory.
-// Design: one CTA of 256 threads per (b, h, 64-row query tile). The Q tile
-// (64 x D) stays in shared memory for the whole key loop; K and V blocks of
-// 32 rows take turns in one buffer (K for S = QK^T, then V for S V), so a
-// CTA needs 109 KB at D = 256 and two CTAs share an SM, one loading while
-// the other computes. Rows are padded by 4 floats so the 16-byte reads of
-// eight rows fall in distinct banks. Each thread owns a 4 x 2 block of S and
-// a 4 x D/16 block of the output, kept in registers; four threads own each
-// row's running max and sum. Tensors are read in place through their
-// strides (the model passes its (B, S, H, D) projections as (B, H, S, D)
-// views), the ragged tail is masked, never padded.
+// one KV head, D = 256, S = 4096, window 2048) the visible (q, k) pairs
+// need 103 GFLOP against 142 MB of q, k, v and out. fp32 SIMT FMAs cap that
+// at 67 TFLOP/s; the TF32 tensor cores run 495. TF32 keeps 10 mantissa
+// bits, so each fp32 operand x is split into big = tf32(x) and
+// small = tf32(x - big), and a product is small.big + big.small + big.big
+// with fp32 accumulation (the small.small term, 2^-22 of the product, is
+// dropped): three MMAs for each fp32 one, about fp32's accuracy, at
+// 3 x 103 / 495 GFLOP/TFLOP/s = 0.625 ms of tensor-core time.
+//
+// Design. One CTA of 8 warps serves 128 query rows of one head; warp w owns
+// rows 16w..16w+15, the M of mma.sync.m16n8k8.tf32. CTAs are numbered so
+// that a q tile's H x B heads come together (the G heads of a KV group read
+// the same K and V blocks from L2 back to back) and the tiles with the most
+// visible keys come first (the last tiles under a causal mask), so the
+// short tiles fill the tail of the last wave.
+//  - Shared memory: the Q tile (128 x D) for the whole loop, one K block and
+//    one V block of BK = 32 keys. The stream of tiles K0, V0, K1, V1, ... is
+//    double-buffered over the two buffers: K_{j+1} is copied by cp.async
+//    while PV_j reads V_j, and V_{j+1} while QK^T_{j+1} and the softmax
+//    read K_{j+1}. Two buffers of each would need 267,264 B at D = 256
+//    against 232,448. Bytes: (160 (D + 16) + 32 (D + 4)) x 4: 207,360 at
+//    D = 256 (1 CTA/SM), 109,056 at 128 and 59,904 at 64 (2 CTAs/SM).
+//  - Operands from shared memory, split on the fly: big rounded as
+//    cvt.rna.tf32.f32 rounds (in integer operations), small the same on
+//    x - big. The contraction index of each product is permuted, which the
+//    sum does not see:
+//    QK^T: over d in chunks of 16, lane (g, t) (g = lane / 4, t = lane % 4)
+//      reads one float4 at d = 16c + 4t of Q row g, Q row g + 8 and K row g
+//      of each 8-key tile; its .x/.y are the fragment's k = t and t + 4 of
+//      the first k-step, .z/.w those of the second. Bank check, row pitch
+//      D + 16 (= 16 mod 32 words): a 16-byte load is served a quarter warp
+//      (lanes 4g'..4g'+7, g in {2i, 2i+1}, t = 0..3) at a time; its
+//      addresses start at words 16 (g mod 2) + 4t, 8 distinct 4-bank
+//      groups: no conflict.
+//    PV: the keys of k-step n are taken in the order 2t, 2t+1 for lane
+//      (g, t), so the S accumulator (c0, c1 at keys 2t, 2t+1 of row g; c2,
+//      c3 of row g + 8) already is the A fragment of P (a0 = c0, a1 = c2,
+//      a2 = c1, a3 = c3): P never leaves the registers and needs no
+//      shuffle. V's columns are interleaved over 4 n-tiles: column g of
+//      n-tile j of group c is column 32c + 4g + j, so one float4 of V row
+//      2t (b0) and one of row 2t + 1 (b1) feed four n-tiles, and the lane's
+//      output row holds the 8 consecutive columns 32c + 8t .. 32c + 8t + 7.
+//      Bank check, row pitch D + 4 (= 4 mod 32): a quarter warp's loads
+//      start at words 8t + 4g + 4(row parity), g in {0, 1}: 8 distinct
+//      4-bank groups: no conflict.
+//    The two small products are issued before big.big.
+//  - Registers: the 16 x D output accumulator is D / 2 floats a thread
+//    (128 at D = 256), the S tile 16, the split fragments of one k-step 24;
+//    one CTA a SM, so up to 255 a thread. Splitting takes integer
+//    operations, not cvt (see to_tf32).
+//  - Online softmax in fp32 in the base-2 domain (scale x log2 e folded into
+//    S, exp2f); each lane keeps the row sums of its own columns and the
+//    quad adds them once at the end. A warp skips a block that none of its
+//    rows sees, and masks only blocks that straddle the diagonal, the
+//    window's edge or Skv.
+// Tensors are read in place through their strides (the model passes its
+// (B, S, H, D) projections as (B, H, S, D) views); ragged tails are
+// zero-filled by the copies and masked, never padded in memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per CTA
-constexpr int BK = 32;   // key rows per block of the loop
-constexpr int NT = 256;  // threads per CTA
-constexpr int PAD = 4;   // floats of padding per shared row
-constexpr int SP = BK + 4;  // row pitch of the score tile
+constexpr int BQ = 128;    // query rows a CTA
+constexpr int BK = 32;     // keys a block
+constexpr int NW = 8;      // warps a CTA, 16 rows each
+constexpr int NT = 32 * NW;
+constexpr int QK_PAD = 16;  // Q and K row pitch D + 16
+constexpr int V_PAD = 4;    // V row pitch D + 4
+constexpr int SMEM_LIMIT = 232448;
+static_assert(BQ == 16 * NW, "a warp owns the 16 rows of one MMA tile");
+static_assert(BK == 32, "the softmax walks 4 n-tiles of 8 keys");
 
 struct Strides {
   long long b, h, s;
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)BQ * (D + PAD) + (size_t)BK * (D + PAD) + BQ * SP + 2 * BQ);
+__host__ __device__ constexpr size_t smem_floats(int d) {
+  return (size_t)(BQ + BK) * (d + QK_PAD) + (size_t)BK * (d + V_PAD);
 }
 
-// Copies rows [r0, r0 + n) of a (rows x D) tile from global memory into
-// shared memory with pitch D + PAD, zero-filling rows at or past `limit`.
-template <int D>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          long long stride, int r0, int n,
+// Built with -DFLASH_PHASE_CLOCKS (scripts/flash_phases.py), lane 0 of the
+// last warp of each CTA (the one with the most keys under a causal mask)
+// adds up the clock cycles of each phase of a key block; slot N_PHASES
+// counts the blocks. flash_attention_phase_cycles reads the sums.
+#ifdef FLASH_PHASE_CLOCKS
+constexpr int N_PHASES = 4;  // wait for K/V, QK^T, softmax, PV
+constexpr int CLOCK_TID = NT - 32;
+__device__ unsigned long long phase_cycles[N_PHASES + 1];
+#define PHASE_END(i)                    \
+  if (tid == CLOCK_TID) {               \
+    const long long now = clock64();    \
+    clocks[i] += now - last_clock;      \
+    last_clock = now;                   \
+  }
+#else
+#define PHASE_END(i)
+#endif
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero), bit for bit, in two integer operations. cvt issues on the
+// conversion pipe (16 results a clock an SM, against 64 for integer adds
+// and logic), and with it the kernel was slower, with the same output.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both TF32 (x - big is exact in fp32)
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32, the small products first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], uint32_t bb0,
+                                     uint32_t bb1, uint32_t bs0,
+                                     uint32_t bs1) {
+  mma(c, as, bb0, bb1);
+  mma(c, ab, bs0, bs1);
+  mma(c, ab, bb0, bb1);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 16 bytes, zero-filled where !valid (nothing is read then)
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+                                           bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Key blocks [lo, hi) that q tile `tile` walks: those holding a key
+// visible to some row of the tile.
+__device__ __forceinline__ int2 key_range(int tile, int Sq, int Skv,
+                                          int causal, int window) {
+  const int q0 = tile * BQ;
+  int lo = 0, hi = (Skv + BK - 1) / BK;
+  if (causal) hi = min(hi, (min(q0 + BQ, Sq) - 1) / BK + 1);
+  if (window > 0) lo = max(0, q0 - window + 1) / BK;
+  return make_int2(lo, max(lo, hi));
+}
+
+// The q tile at launch rank `rank`: tiles sorted by the key blocks they
+// walk, most first; ties in order, the last tile first under a causal
+// mask. Each thread places some tiles (n_tiles steps each); the CTA reads
+// its own through shared memory.
+__device__ int tile_at_rank(int rank, int n_tiles, int Sq, int Skv,
+                            int causal, int window, int* pick) {
+  for (int u = threadIdx.x; u < n_tiles; u += NT) {
+    const int2 ru = key_range(u, Sq, Skv, causal, window);
+    const int bu = ru.y - ru.x;
+    int pos = 0;
+    for (int w = 0; w < n_tiles; ++w) {
+      const int2 rw = key_range(w, Sq, Skv, causal, window);
+      const int bw = rw.y - rw.x;
+      pos += bw > bu || (bw == bu && (causal ? w > u : w < u));
+    }
+    if (pos == rank) *pick = u;
+  }
+  __syncthreads();
+  const int tile = *pick;
+  __syncthreads();
+  return tile;
+}
+
+// Starts copying rows [r0, r0 + ROWS) of a (rows x D) tensor into shared
+// memory with row pitch P, zero-filling rows at or past `limit`.
+template <int D, int P, int ROWS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          long long stride, int r0,
                                           int limit) {
-  constexpr int V = D / 4;  // float4 per row
-  for (int idx = threadIdx.x; idx < n * V; idx += NT) {
+  constexpr int V = D / 4;  // 16-byte pieces a row
+  static_assert(ROWS * V % NT == 0, "every thread copies as many pieces");
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < ROWS * V; idx += NT) {
     const int r = idx / V, c = idx - r * V;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < limit)
-      val = *reinterpret_cast<const float4*>(src + (r0 + r) * stride + 4 * c);
-    *reinterpret_cast<float4*>(dst + r * (D + PAD) + 4 * c) = val;
+    const bool ok = r0 + r < limit;
+    cp_async16(dst + r * P + 4 * c,
+               ok ? src + (long long)(r0 + r) * stride + 4 * c : src, ok);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, 1)
     flash_attention_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            Strides sq, Strides sk, Strides sv, Strides so,
-                           int H, int G, int Sq, int Skv, int causal,
-                           int window, float scale) {
+                           int H, int G, int B, int Sq, int Skv, int causal,
+                           int window, float scale_log2) {
+  constexpr int QP = D + QK_PAD, VP = D + V_PAD;
+  constexpr int NC = D / 32;  // groups of 4 output n-tiles
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // BQ x (D + PAD)
-  float* kv_s = q_s + BQ * (D + PAD);            // BK x (D + PAD)
-  float* p_s = kv_s + BK * (D + PAD);            // BQ x SP
-  float* alpha_s = p_s + BQ * SP;                // BQ
-  float* l_s = alpha_s + BQ;                     // BQ
+  float* q_s = reinterpret_cast<float*>(smem4);  // BQ x QP
+  float* k_s = q_s + BQ * QP;                    // BK x QP
+  float* v_s = k_s + BK * QP;                    // BK x VP
 
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;  // S and output blocks
-  const int srow = tid >> 2, part = tid & 3;  // softmax: 4 threads a row
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // the H x B heads of a q tile together, the heaviest tiles first
+  const int n_tiles = (Sq + BQ - 1) / BQ;
+  const int hb = blockIdx.x % (H * B);
+  const int tile = tile_at_rank(blockIdx.x / (H * B), n_tiles, Sq, Skv,
+                                causal, window, reinterpret_cast<int*>(q_s));
+  const int h = hb % H, b = hb / H, kvh = h / G;
+  const int q0 = tile * BQ;
+  const int r_lo = q0 + 16 * warp, r_hi = r_lo + 15;  // this warp's rows
   const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + kvh * sk.h;
   const float* vb = v + b * sv.b + kvh * sv.h;
 
-  // key blocks that hold a visible key for some row of this tile
-  int kb_lo = 0, kb_hi = (Skv + BK - 1) / BK;
-  if (causal) kb_hi = min(kb_hi, (q0 + BQ - 1) / BK + 1);
-  if (window > 0) kb_lo = max(0, q0 - window + 1) / BK;
+  const int2 range = key_range(tile, Sq, Skv, causal, window);
+  const int kb_lo = range.x, kb_hi = range.y;
 
-  load_tile<D>(q_s, qb, sq.s, q0, BQ, Sq);
+#ifdef FLASH_PHASE_CLOCKS
+  long long clocks[N_PHASES] = {};
+  long long last_clock = clock64();
+#endif
 
-  constexpr int CPT = D / 16;  // output columns per thread
-  float acc[4][CPT];
+  copy_rows<D, QP, BQ>(q_s, qb, sq.s, q0, Sq);
+  if (kb_lo < kb_hi) copy_rows<D, QP, BK>(k_s, kb, sk.s, kb_lo * BK, Skv);
+  cp_async_commit();
+  if (kb_lo < kb_hi) copy_rows<D, VP, BK>(v_s, vb, sv.s, kb_lo * BK, Skv);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and the first K
+  __syncthreads();
+  PHASE_END(0)
+
+  float acc[NC][4][4];  // [group][n-tile][c0..c3]
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-  float m_run = -INFINITY, l_run = 0.f;  // row srow, held by its 4 threads
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+  // running max (base 2) and this lane's share of the sum, rows g and g+8
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  const float* q_row = q_s + (16 * warp + g) * QP + 4 * t;
+  const float* k_row = k_s + g * QP + 4 * t;
+  const float* v_row = v_s + 2 * t * VP + 4 * g;
 
   for (int blk = kb_lo; blk < kb_hi; ++blk) {
     const int k0 = blk * BK;
-    __syncthreads();  // the previous block's S V is done with kv_s
-    load_tile<D>(kv_s, kb, sk.s, k0, BK, Skv);
-    __syncthreads();
+    const bool more = blk + 1 < kb_hi;
+    const bool skip = r_lo >= Sq || (causal && k0 > r_hi) ||
+                      (window > 0 && k0 + BK - 1 <= r_lo - window);
+    const bool edge = (causal && k0 + BK - 1 > r_lo) ||
+                      (window > 0 && k0 <= r_hi - window) || k0 + BK > Skv;
+    float s[4][4];  // [n-tile of 8 keys][c0..c3]
 
-    // S = Q K^T for rows 4 ty + i, keys tx + 16 j
-    float s[4][2];
+    if (!skip) {
+      // S = Q K^T
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], kv[2];
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(q_s + (4 * ty + i) * (D + PAD) + d);
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll 1
+      for (int c = 0; c < D / 16; ++c) {
+        const float4 qa = ld4(q_row + 16 * c);
+        const float4 qc = ld4(q_row + 8 * QP + 16 * c);
+        uint32_t ab0[4], as0[4], ab1[4], as1[4];
+        split(qa.x, ab0[0], as0[0]);
+        split(qc.x, ab0[1], as0[1]);
+        split(qa.y, ab0[2], as0[2]);
+        split(qc.y, ab0[3], as0[3]);
+        split(qa.z, ab1[0], as1[0]);
+        split(qc.z, ab1[1], as1[1]);
+        split(qa.w, ab1[2], as1[2]);
+        split(qc.w, ab1[3], as1[3]);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(kv_s + (tx + 16 * j) * (D + PAD) + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          s[i][j] += qv[i].x * kv[j].x + qv[i].y * kv[j].y +
-                     qv[i].z * kv[j].z + qv[i].w * kv[j].w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        bool vis = kj < Skv;
-        if (causal) vis = vis && kj <= qi;
-        if (window > 0) vis = vis && kj > qi - window;
-        p_s[(4 * ty + i) * SP + tx + 16 * j] = vis ? s[i][j] * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // V into the buffer K has left, while the rows' softmax is updated
-    load_tile<D>(kv_s, vb, sv.s, k0, BK, Skv);
-    {
-      float pv[BK / 4];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < BK / 4; ++e) {
-        pv[e] = p_s[srow * SP + part + 4 * e];
-        mx = fmaxf(mx, pv[e]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float alpha = 1.f, sum = 0.f;
-      if (m_new != -INFINITY) {
-        alpha = expf(m_run - m_new);  // 0 while m_run is -inf
-#pragma unroll
-        for (int e = 0; e < BK / 4; ++e) {
-          pv[e] = expf(pv[e] - m_new);  // masked keys: exp(-inf) = 0
-          sum += pv[e];
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < BK / 4; ++e) pv[e] = 0.f;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_run = l_run * alpha + sum;
-      m_run = m_new;
-#pragma unroll
-      for (int e = 0; e < BK / 4; ++e) p_s[srow * SP + part + 4 * e] = pv[e];
-      if (part == 0) alpha_s[srow] = alpha;
-    }
-    __syncthreads();
-
-    // O = alpha O + P V for rows 4 ty + i, columns 4 tx + 64 c + e
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = alpha_s[4 * ty + i];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] *= a;
-    }
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = p_s[(4 * ty + i) * SP + kk];
-#pragma unroll
-      for (int c = 0; c < CPT / 4; ++c) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(kv_s + kk * (D + PAD) + 4 * tx + 64 * c);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * c + 0] += p[i] * vv.x;
-          acc[i][4 * c + 1] += p[i] * vv.y;
-          acc[i][4 * c + 2] += p[i] * vv.z;
-          acc[i][4 * c + 3] += p[i] * vv.w;
+        for (int n = 0; n < 4; ++n) {
+          const float4 kk = ld4(k_row + 8 * n * QP + 16 * c);
+          uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
+          split(kk.x, xb, xs);
+          split(kk.y, yb, ys);
+          split(kk.z, zb, zs);
+          split(kk.w, wb, ws);
+          mma3(s[n], ab0, as0, xb, yb, xs, ys);
+          mma3(s[n], ab1, as1, zb, wb, zs, ws);
         }
       }
+      PHASE_END(1)
+
+      // online softmax; lane (g, t) holds keys 8n + 2t, 8n + 2t + 1
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (edge) {
+            const int row = r_lo + g + (e >> 1) * 8;
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            const bool vis = key < Skv && (!causal || key <= row) &&
+                             (window <= 0 || key > row - window);
+            x = vis ? x : -INFINITY;
+          }
+          s[n][e] = x;
+        }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      // a row with no visible key yet keeps p = 0 and alpha = 0
+      const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        s[n][0] = exp2f(s[n][0] - mu0);
+        s[n][1] = exp2f(s[n][1] - mu0);
+        s[n][2] = exp2f(s[n][2] - mu1);
+        s[n][3] = exp2f(s[n][3] - mu1);
+        sum0 += s[n][0] + s[n][1];
+        sum1 += s[n][2] + s[n][3];
+      }
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[c][j][0] *= al0;
+          acc[c][j][1] *= al0;
+          acc[c][j][2] *= al1;
+          acc[c][j][3] *= al1;
+        }
+      PHASE_END(2)
     }
+
+    cp_async_wait<0>();  // V of this block
+    __syncthreads();     // every warp is done with K
+    if (more) copy_rows<D, QP, BK>(k_s, kb, sk.s, k0 + BK, Skv);
+    cp_async_commit();
+    PHASE_END(0)
+
+    if (!skip) {
+      // O += P V, k-step n over keys 8n .. 8n + 7
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        uint32_t pb[4], ps[4];
+        split(s[n][0], pb[0], ps[0]);
+        split(s[n][2], pb[1], ps[1]);
+        split(s[n][1], pb[2], ps[2]);
+        split(s[n][3], pb[3], ps[3]);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 v0 = ld4(v_row + 8 * n * VP + 32 * c);
+          const float4 v1 = ld4(v_row + (8 * n + 1) * VP + 32 * c);
+          uint32_t b0[4], s0[4], b1[4], s1[4];
+          split(v0.x, b0[0], s0[0]);
+          split(v0.y, b0[1], s0[1]);
+          split(v0.z, b0[2], s0[2]);
+          split(v0.w, b0[3], s0[3]);
+          split(v1.x, b1[0], s1[0]);
+          split(v1.y, b1[1], s1[1]);
+          split(v1.z, b1[2], s1[2]);
+          split(v1.w, b1[3], s1[3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            mma3(acc[c][j], pb, ps, b0[j], b1[j], s0[j], s1[j]);
+          // keeps the compiler from hoisting the next groups' V loads,
+          // whose registers would spill beside the 128 of the accumulator
+          __syncwarp();
+        }
+      }
+      PHASE_END(3)
+    }
+
+    cp_async_wait<0>();  // K of the next block
+    __syncthreads();     // every warp is done with V
+    if (more) copy_rows<D, VP, BK>(v_s, vb, sv.s, k0 + BK, Skv);
+    cp_async_commit();
+    PHASE_END(0)
   }
+  cp_async_wait<0>();
 
-  if (part == 0) l_s[srow] = l_run;
-  __syncthreads();
+#ifdef FLASH_PHASE_CLOCKS
+  if (tid == CLOCK_TID) {
+    for (int i = 0; i < N_PHASES; ++i)
+      atomicAdd(&phase_cycles[i], (unsigned long long)clocks[i]);
+    atomicAdd(&phase_cycles[N_PHASES], (unsigned long long)(kb_hi - kb_lo));
+  }
+#endif
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   float* ob = o + b * so.b + h * so.h;
+  const int row0 = r_lo + g, row1 = row0 + 8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-    if (q0 + r >= Sq) continue;
-    const float l = l_s[r];
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT / 4; ++c) {
-      float4 out = make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv,
-                               acc[i][4 * c + 2] * inv, acc[i][4 * c + 3] * inv);
-      *reinterpret_cast<float4*>(ob + (q0 + r) * so.s + 4 * tx + 64 * c) = out;
+  for (int c = 0; c < NC; ++c) {
+    const int col = 32 * c + 8 * t;
+    if (row0 < Sq) {
+      float* p = ob + row0 * so.s + col;
+      *reinterpret_cast<float4*>(p) =
+          make_float4(acc[c][0][0] * inv0, acc[c][1][0] * inv0,
+                      acc[c][2][0] * inv0, acc[c][3][0] * inv0);
+      *reinterpret_cast<float4*>(p + 4) =
+          make_float4(acc[c][0][1] * inv0, acc[c][1][1] * inv0,
+                      acc[c][2][1] * inv0, acc[c][3][1] * inv0);
+    }
+    if (row1 < Sq) {
+      float* p = ob + row1 * so.s + col;
+      *reinterpret_cast<float4*>(p) =
+          make_float4(acc[c][0][2] * inv1, acc[c][1][2] * inv1,
+                      acc[c][2][2] * inv1, acc[c][3][2] * inv1);
+      *reinterpret_cast<float4*>(p + 4) =
+          make_float4(acc[c][0][3] * inv1, acc[c][1][3] * inv1,
+                      acc[c][2][3] * inv1, acc[c][3][3] * inv1);
     }
   }
+}
+
+template <int D>
+bool prepare(size_t* smem) {
+  static_assert(sizeof(float) * smem_floats(D) <= SMEM_LIMIT,
+                "the tiles fit one CTA's shared memory");
+  *smem = sizeof(float) * smem_floats(D);
+  return cudaFuncSetAttribute(flash_attention_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem) == cudaSuccess;
+}
+
+template <int D>
+int max_active() {
+  size_t smem = 0;
+  if (!prepare<D>(&smem)) return -(int)cudaGetLastError();
+  int n = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, flash_attention_kernel<D>, NT, smem);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-           int G, int Sq, int Skv, int causal, int window, float scale,
+           int G, int Sq, int Skv, int causal, int window, float scale_log2,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<D><<<grid, NT, smem, stream>>>(
-      q, k, v, o, sq, sk, sv, so, H, G, Sq, Skv, causal, window, scale);
+  size_t smem = 0;
+  if (!prepare<D>(&smem)) return (int)cudaGetLastError();
+  const long long ctas = (long long)((Sq + BQ - 1) / BQ) * H * B;
+  if (ctas < 1 || ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  flash_attention_kernel<D><<<(unsigned)ctas, NT, smem, stream>>>(
+      q, k, v, o, sq, sk, sv, so, H, G, B, Sq, Skv, causal, window,
+      scale_log2);
   return (int)cudaGetLastError();
+}
+
+template <typename F>
+int dispatch(int D, F&& f) {
+  switch (D) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 extern "C" {
+
+int flash_attention_rows(void) { return BQ; }
+
+int flash_attention_key_block(void) { return BK; }
+
+int flash_attention_threads(void) { return NT; }
+
+// Shared memory of one CTA at head dim d.
+int flash_attention_smem_bytes(int d) {
+  return (int)(sizeof(float) * smem_floats(d));
+}
+
+// Resident CTAs per SM at head dim d, or minus a CUDA error (-1 for a head
+// dim it was not built for).
+int flash_attention_max_active(int d) {
+  return dispatch(d, [](auto dim) {
+    return max_active<decltype(dim)::value>();
+  });
+}
 
 // q, o: (B,H,Sq,D); k, v: (B,KV,Skv,D); element strides per tensor for
 // (b, head, s), the last dim contiguous. window <= 0 means none.
@@ -255,19 +548,24 @@ int flash_attention_fwd(const float* q, const float* k, const float* v,
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
       so{sob, soh, sos};
   const int G = H / KV;
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, o, sq, sk, sv, so, B, H, G, Sq, Skv, causal,
-                        window, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, o, sq, sk, sv, so, B, H, G, Sq, Skv,
-                         causal, window, scale, stream);
-    case 256:
-      return launch<256>(q, k, v, o, sq, sk, sv, so, B, H, G, Sq, Skv,
-                         causal, window, scale, stream);
-    default:
-      return -1;
-  }
+  const float scale_log2 = scale * 1.4426950408889634f;
+  return dispatch(D, [&](auto dim) {
+    return launch<decltype(dim)::value>(q, k, v, o, sq, sk, sv, so, B, H, G,
+                                        Sq, Skv, causal, window, scale_log2,
+                                        stream);
+  });
 }
+
+#ifdef FLASH_PHASE_CLOCKS
+// Copies the phase sums (cycles over all CTAs, then the key blocks walked)
+// to host memory and zeroes them.
+int flash_attention_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, phase_cycles,
+                                         sizeof(phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[N_PHASES + 1] = {};
+  return (int)cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+}
+#endif
 
 }  // extern "C"

@@ -8,36 +8,197 @@ reads q, k and v through their strides, so the model hands it (B,H,S,D)
 views of its (B,S,H,D) projections without a copy, and the output keeps
 q's layout. The TPU kernel's block arguments (``bq``, ``bk``,
 ``interpret``) are gone: the kernel uses its own tiles.
+
+The kernel computes both products on TF32 tensor cores in split precision
+(3xTF32), ``ROWS`` query rows of one head a CTA; :func:`geometry` is its
+launch in plain Python. :func:`split_tf32` and
+:func:`flash_attention_3xtf32` are its arithmetic in plain PyTorch, the
+yardstick the route was chosen by.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from dataclasses import dataclass
 
 import torch
 
 from . import _build
 from .ref import flash_attention as plain
 
-__all__ = ["flash_attention", "plain", "launches", "HEAD_DIMS"]
+__all__ = ["flash_attention", "plain", "launches", "bind", "Geometry",
+           "geometry", "launch_geometry", "smem_bytes", "split_tf32",
+           "flash_attention_3xtf32", "HEAD_DIMS", "ROWS", "KEY_BLOCK",
+           "THREADS", "SMEM_LIMIT"]
 
 #: kernel launches made by :func:`flash_attention` in this process
 launches = 0
 
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128, 256)
+#: query rows a CTA, as ``flash_attention_rows``
+ROWS = 128
+#: keys a block of the loop, as ``flash_attention_key_block``
+KEY_BLOCK = 32
+#: threads a CTA, as ``flash_attention_threads``
+THREADS = 256
+#: shared memory one CTA may take on the card
+SMEM_LIMIT = 232448
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_geometries: dict[tuple, "Geometry"] = {}
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
+    return bind(_build.load("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a build of ``flash_attention.cu`` (the
+    plain one, or one with extra defines) and check that it agrees with
+    this module's constants."""
     lib.flash_attention_fwd.argtypes = ([_P] * 4 + [_L] * 12 + [_I] * 8
                                         + [ctypes.c_float, _P])
     lib.flash_attention_fwd.restype = _I
+    for name in ("flash_attention_max_active", "flash_attention_smem_bytes"):
+        getattr(lib, name).argtypes = [_I]
+        getattr(lib, name).restype = _I
+    for name in ("flash_attention_rows", "flash_attention_key_block",
+                 "flash_attention_threads"):
+        getattr(lib, name).restype = _I
+    if ((lib.flash_attention_rows(), lib.flash_attention_key_block(),
+         lib.flash_attention_threads()) != (ROWS, KEY_BLOCK, THREADS)
+            or any(lib.flash_attention_smem_bytes(d) != smem_bytes(d)
+                   for d in HEAD_DIMS)):
+        raise RuntimeError("flash_attention.cu and its wrapper disagree on "
+                           "the rows, the key block, the threads or shared "
+                           "memory")
     return lib
+
+
+def smem_bytes(d: int) -> int:
+    """Shared memory of one CTA, as ``smem_floats`` in the kernel: the Q
+    tile and one K block at row pitch d + 16, one V block at d + 4."""
+    return 4 * ((ROWS + KEY_BLOCK) * (d + 16) + KEY_BLOCK * (d + 4))
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch's layout: ``ctas`` CTAs of ``THREADS`` threads, each on
+    ``ROWS`` query rows of one head, the q tiles in ``order`` (each tile's
+    H x B heads together), and the key blocks each walks."""
+    b: int
+    h: int
+    kv: int
+    sq: int
+    skv: int
+    d: int
+    causal: bool
+    window: "int | None"
+    n_sms: int
+    ctas_per_sm: int   # resident CTAs per SM
+
+    rows = ROWS
+    threads = THREADS
+
+    @property
+    def tiles(self) -> int:
+        return math.ceil(self.sq / ROWS)
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.h * self.b
+
+    @property
+    def waves(self) -> int:
+        return math.ceil(self.ctas / (self.n_sms * self.ctas_per_sm))
+
+    @property
+    def smem_bytes(self) -> int:
+        return smem_bytes(self.d)
+
+    @property
+    def order(self) -> tuple[int, ...]:
+        """q tiles in launch order, as ``tile_at_rank`` in the kernel: the
+        most key blocks first, ties in order, the last tile first under a
+        causal mask (where later rows see more keys)."""
+        def key(tile):
+            lo, hi = self.key_range(tile)
+            return lo - hi, -tile if self.causal else tile
+        return tuple(sorted(range(self.tiles), key=key))
+
+    def key_range(self, tile: int) -> tuple[int, int]:
+        """Key blocks [lo, hi) that tile walks, as the kernel bounds them:
+        those with a key visible to some row of the tile."""
+        q0 = tile * ROWS
+        lo, hi = 0, math.ceil(self.skv / KEY_BLOCK)
+        if self.causal:
+            hi = min(hi, (min(q0 + ROWS, self.sq) - 1) // KEY_BLOCK + 1)
+        if self.window is not None:
+            lo = max(0, q0 - self.window + 1) // KEY_BLOCK
+        return lo, max(lo, hi)
+
+    @property
+    def key_rows(self) -> int:
+        """K (and V) rows the launch copies from L2: each CTA's key blocks,
+        cut at skv."""
+        per_head = sum(min(hi * KEY_BLOCK, self.skv) - lo * KEY_BLOCK
+                       for lo, hi in map(self.key_range, range(self.tiles))
+                       if hi > lo)
+        return per_head * self.h * self.b
+
+    @property
+    def l2_bytes(self) -> int:
+        """Bytes of K and V the launch reads from L2 (fp32 rows of d)."""
+        return self.key_rows * 2 * self.d * 4
+
+
+def _check_head_dim(d: int) -> None:
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+
+
+def geometry(b: int, h: int, kv: int, sq: int, skv: int, d: int,
+             causal: bool = True, window: "int | None" = None, *,
+             n_sms: int = 132, ctas_per_sm: int = 1) -> Geometry:
+    """The launch for q (b,h,sq,d) against k, v (b,kv,skv,d) on a card of
+    ``n_sms`` SMs holding ``ctas_per_sm`` CTAs each (by default one, the
+    count the kernel's launch bounds ask registers for)."""
+    _check_head_dim(d)
+    if min(b, h, kv, sq, skv, n_sms) < 1 or h % kv:
+        raise ValueError(f"flash_attention needs b, h, kv, sq, skv, n_sms "
+                         f">= 1 and h a multiple of kv, got {b}, {h}, {kv}, "
+                         f"{sq}, {skv}, {n_sms}")
+    return Geometry(b, h, kv, sq, skv, d, bool(causal), window, n_sms,
+                    ctas_per_sm)
+
+
+def launch_geometry(b: int, h: int, kv: int, sq: int, skv: int, d: int,
+                    causal: bool = True, window: "int | None" = None,
+                    device: "torch.device | None" = None) -> Geometry:
+    """:func:`geometry` with the card's SM count and its resident CTAs per
+    SM, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
+    _check_head_dim(d)
+    device = torch.device("cuda") if device is None else torch.device(device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if (d, index) not in _geometries:
+        with torch.cuda.device(index):
+            per_sm = _lib().flash_attention_max_active(d)
+        if per_sm < 1:
+            raise RuntimeError(f"flash_attention occupancy query failed: "
+                               f"CUDA error {-per_sm}")
+        n_sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _geometries[d, index] = geometry(1, 1, 1, 1, 1, d, n_sms=n_sms,
+                                         ctas_per_sm=per_sm)
+    card = _geometries[d, index]
+    return geometry(b, h, kv, sq, skv, d, causal, window, n_sms=card.n_sms,
+                    ctas_per_sm=card.ctas_per_sm)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -67,8 +228,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"16-byte aligned rows")
     if h % kv:
         raise ValueError(f"{h} query heads do not split over {kv} KV heads")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    _check_head_dim(d)
     if window is not None and window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
     out = torch.empty_like(q)          # keeps q's strides
@@ -85,3 +245,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"error {err}")
     launches += 1
     return out
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """(big, small) with big + small ~ x: ``big`` is fp32 ``x`` rounded to
+    TF32 as ``cvt.rna.tf32.f32`` does (to nearest, ties away from zero, 10
+    mantissa bits; on the int32 view ``(bits + 0x1000) & ~0x1FFF``) and
+    ``small`` is ``x - big`` rounded the same way."""
+    x = x.float()
+    big = _round_tf32(x)
+    return big, _round_tf32(x - big)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as three fp32 products of TF32 parts, summed in the order the
+    kernel issues them: small.big, big.small, then big.big."""
+    a_big, a_small = split_tf32(a)
+    b_big, b_small = split_tf32(b)
+    return (torch.matmul(a_small, b_big) + torch.matmul(a_big, b_small)
+            + torch.matmul(a_big, b_big))
+
+
+def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           window: "int | None" = None) -> torch.Tensor:
+    """:func:`plain` with both products in split precision: S = QK^T and
+    PV each as three products of TF32 parts (big.big + big.small +
+    small.big, fp32 sums), P = exp(S - max) split after the exponent and
+    normalised after PV, as the kernel does. Any device."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, sq, d).float()
+    logits = _matmul_3xtf32(qg, k.float()[:, :, None].transpose(-1, -2)) \
+        * (d ** -0.5)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    top = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isinf(top), 0.0, top))
+    l_sum = p.sum(-1, keepdim=True)
+    out = _matmul_3xtf32(p, v.float()[:, :, None])
+    out = torch.where(l_sum > 0, out / torch.where(l_sum > 0, l_sum, 1.0),
+                      0.0)
+    return out.reshape(b, h, sq, d).to(q.dtype)

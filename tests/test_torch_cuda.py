@@ -146,7 +146,11 @@ def test_rglru_kernel_matches_plain_on_card(cuda_device, b, s, w, with_h0):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("b,kv,g,s,d,causal,window", [
     (1, 1, 16, 512, 256, True, 128), (2, 2, 2, 200, 64, False, None),
-    (1, 4, 1, 256, 128, True, None), (2, 1, 4, 333, 64, True, 50)])
+    (1, 4, 1, 256, 128, True, None), (2, 1, 4, 333, 64, True, 50),
+    (1, 1, 16, 1100, 256, True, 300),    # RecurrentGemma's heads, ragged
+    (1, 2, 2, 300, 128, True, 5),        # a window inside one key block
+    (2, 2, 2, 130, 256, True, None),     # Sq past the 128-row tile by 2
+    (1, 1, 2, 77, 64, False, None)])     # non-causal, no window
 def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
                                             causal, window):
     q, k, v = (t(a, cuda_device) for a in flash_inputs(3, b, kv, g, s, d))
@@ -156,6 +160,22 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
     assert FK.launches == before + 1
     want = FK.plain(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_launch_geometry_on_card(cuda_device, d):
+    """The card's occupancy gives the CTAs per SM; at D=256 one CTA of 128
+    rows fills an SM's shared memory."""
+    geo = FK.launch_geometry(1, 16, 1, 4096, 4096, d, True, 2048,
+                             cuda_device)
+    assert geo.ctas_per_sm >= 1
+    assert geo.n_sms == torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert geo == FK.geometry(1, 16, 1, 4096, 4096, d, True, 2048,
+                              n_sms=geo.n_sms, ctas_per_sm=geo.ctas_per_sm)
+    if d == 256:
+        assert geo.ctas_per_sm == 1
 
 
 @pytest.mark.requires_cuda

@@ -141,6 +141,130 @@ def test_flash_plain_reads_strided_views():
 
 
 # --------------------------------------------------------------------------
+# the flash kernel's arithmetic (3xTF32) and launch geometry (plain, no card)
+# --------------------------------------------------------------------------
+
+def _rna_tf32(x):
+    """fp32 rounded to 10 mantissa bits, ties away from zero, computed in
+    float64 from the exponent (not from the bit pattern)."""
+    m, e = np.frexp(np.asarray(x, np.float64))   # |m| in [0.5, 1)
+    r = np.floor(np.abs(m) * 2.0 ** 11 + 0.5)    # 11 significant bits
+    return (np.sign(m) * r * np.exp2(e - 11)).astype(np.float32)
+
+
+# x and tf32(x) by hand: 1 + 2^-11 lies halfway between 1 and 1 + 2^-10
+TF32_TIES = [(1 + 2 ** -11, 1 + 2 ** -10), (-(1 + 2 ** -11), -(1 + 2 ** -10)),
+             (1 + 3 * 2 ** -11, 1 + 2 ** -9), (1 + 2 ** -11 - 2 ** -23, 1.0),
+             (1 + 2 ** -10, 1 + 2 ** -10), (3 * 2 ** -13, 3 * 2 ** -13),
+             (-(2 ** 7) * (1 + 2 ** -11), -(2 ** 7) * (1 + 2 ** -10))]
+
+
+@pytest.mark.parametrize("x,big", TF32_TIES)
+def test_split_tf32_rounds_ties_away_from_zero(x, big):
+    b, s = FK.split_tf32(torch.tensor([x], dtype=torch.float32))
+    assert b.item() == big
+    assert abs(b.item() + s.item() - x) <= 2 ** -21 * abs(x)
+
+
+def test_split_tf32_rounds_as_cvt_rna_and_keeps_fp32_accuracy():
+    rng = np.random.default_rng(17)
+    x = (rng.standard_normal(4096)
+         * np.exp2(rng.integers(-30, 30, 4096))).astype(np.float32)
+    # exact ties: bit 12 set and the 12 bits below it clear (exponents
+    # from 2^-97 to 2^97, so that x - big stays a normal number)
+    bits = rng.integers(0x0F000000, 0x70000000, 512, dtype=np.uint32)
+    ties = ((bits & ~np.uint32(0x1FFF)) | np.uint32(0x1000)).view(np.float32)
+    x = np.concatenate([x, ties, -ties]).astype(np.float32)
+    big, small = (n(a) for a in FK.split_tf32(torch.from_numpy(x)))
+    np.testing.assert_array_equal(big, _rna_tf32(x))
+    np.testing.assert_array_equal(small, _rna_tf32(x - big))
+    assert not (big.view(np.uint32) & 0x1FFF).any()
+    assert not (small.view(np.uint32) & 0x1FFF).any()
+    assert np.all(np.abs(big.astype(np.float64) + small - x)
+                  <= 2.0 ** -21 * np.abs(x))
+    assert np.all(np.abs(big[-1024:]) > np.abs(x[-1024:]))   # away from 0
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window",
+                         [c[:7] for c in FLASH_CASES if c[7] == "float32"])
+def test_flash_3xtf32_matches_jax_kernel(b, kv, g, s, d, causal, window):
+    arrays = flash_inputs(b + s + d, b, kv, g, s, d)
+    got = FK.flash_attention_3xtf32(*(t(a) for a in arrays), causal=causal,
+                                    window=window)
+    want = jax_flash_attention(*(jnp.asarray(a) for a in arrays),
+                               causal=causal, window=window, bq=64, bk=64,
+                               interpret=True)
+    assert got.shape == (b, kv * g, s, d)
+    np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+
+
+FLASH_GEOMETRIES = [  # b, h, kv, sq, skv, d, causal, window
+    (1, 16, 1, 4096, 4096, 256, True, 2048),   # RecurrentGemma-9B prefill
+    (1, 16, 1, 1100, 1100, 256, True, 300),
+    (2, 4, 2, 333, 333, 64, True, 50),
+    (2, 4, 4, 200, 200, 64, False, None),
+    (1, 4, 1, 500, 500, 128, False, 100),
+    (1, 2, 2, 77, 77, 64, False, None),
+    (1, 2, 1, 300, 300, 128, True, 5),
+    (1, 8, 2, 1000, 700, 128, True, None)]     # Sq != Skv
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window", FLASH_GEOMETRIES)
+def test_flash_geometry_walks_heaviest_tiles_first(b, h, kv, sq, skv, d,
+                                                   causal, window):
+    geo = FK.geometry(b, h, kv, sq, skv, d, causal, window)
+    assert geo.tiles == -(-sq // 128) and geo.ctas == geo.tiles * h * b
+    assert sorted(geo.order) == list(range(geo.tiles))
+    sizes = [hi - lo for lo, hi in map(geo.key_range, geo.order)]
+    assert sizes == sorted(sizes, reverse=True)
+    # every visible key of a tile lies in the blocks it walks
+    i, j = np.arange(sq)[:, None], np.arange(skv)[None, :]
+    vis = np.ones((sq, skv), bool)
+    if causal:
+        vis &= j <= i
+    if window is not None:
+        vis &= j > i - window
+    for tile in range(geo.tiles):
+        lo, hi = geo.key_range(tile)
+        keys = np.flatnonzero(vis[tile * 128:(tile + 1) * 128].any(0))
+        assert np.all((keys >= 32 * lo) & (keys < 32 * hi))
+
+
+@pytest.mark.parametrize("d", FK.HEAD_DIMS)
+def test_flash_tiles_fit_shared_memory(d):
+    """The Q tile and one K block at row pitch d + 16, one V block at
+    d + 4; two K and two V blocks would not fit at d = 256."""
+    geo = FK.geometry(1, 16, 1, 4096, 4096, d, True, 2048)
+    assert geo.smem_bytes == FK.smem_bytes(d) == \
+        4 * (160 * (d + 16) + 32 * (d + 4))
+    assert geo.smem_bytes <= FK.SMEM_LIMIT == 232448
+    assert 4 * (128 * (256 + 16) + 64 * (256 + 16) + 64 * (256 + 4)) \
+        > FK.SMEM_LIMIT
+
+
+def test_flash_geometry_counts_l2_bytes():
+    geo = FK.geometry(1, 16, 1, 4096, 4096, 256, True, 2048)
+    assert (geo.rows, geo.threads, geo.ctas, geo.waves, geo.smem_bytes) \
+        == (128, 256, 512, 4, 207360)
+    # tile t < 16 walks 4t + 4 blocks of 32 keys, later tiles 68
+    blocks = sum(4 * t + 4 for t in range(16)) + 16 * 68
+    assert blocks == 1632
+    assert geo.key_rows == 16 * 32 * blocks == 835584
+    assert geo.l2_bytes == 835584 * 2 * 256 * 4 == 1711276032
+    # a ragged tail is copied up to skv only
+    small = FK.geometry(1, 2, 1, 77, 77, 64, False, None)
+    assert small.key_rows == 2 * 77 and small.l2_bytes == 2 * 77 * 2 * 64 * 4
+    assert FK.geometry(1, 16, 1, 4096, 4096, 256, True, 2048, n_sms=132,
+                       ctas_per_sm=2).waves == 2
+
+
+@pytest.mark.parametrize("d", [16, 80, 192, 512])
+def test_flash_geometry_rejects_head_dims(d):
+    with pytest.raises(ValueError, match="not one of"):
+        FK.geometry(1, 1, 1, 64, 64, d)
+
+
+# --------------------------------------------------------------------------
 # decode attention
 # --------------------------------------------------------------------------
 
