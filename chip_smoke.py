@@ -26,9 +26,15 @@ Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
   2b. the RG-LRU scan, windowed flash attention and split-S decode
       attention against their plain versions at its full-width shapes,
       with times, bounds and, for attention, one PyTorch library call;
-      for flash attention also its launch geometry (rows a CTA, CTAs,
-      waves, shared memory, K and V bytes read from L2) and both bounds,
-      fp32 SIMT and 3xTF32 on tensor cores (its route);
+      for the RG-LRU scan also its launch geometry (stripe, tile, stages,
+      CTAs, waves, shared memory, bytes in flight a SM, HBM bytes), checked
+      against the launch the kernel made, the decode step's shape and
+      unaligned rows (W=203), and the byte yardstick
+      torch.addcmul(x, a_gate, i_gate) with the TB/s of both; the small
+      kernels are timed by CUDA-graph replay beside CUDA events; for flash
+      attention also its launch geometry (rows a CTA, CTAs, waves, shared
+      memory, K and V bytes read from L2) and both bounds, fp32 SIMT and
+      3xTF32 on tensor cores (its route);
   3b. the prefill step at B=1, S=4096 (past the 2048 window), with the
       launch counts zeroed just before and read just after (26 rglru_scan
       and 12 flash_attention launches), held against the plain path;
@@ -94,6 +100,36 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph (after a warm-up on the capturing stream, which also builds
+    the kernel), the graph replayed ``replays`` times between two events.
+    Unlike :func:`cuda_ms`, the host's cost of a call is not in it."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def bound(flops: float, nbytes: float,
@@ -396,28 +432,86 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     ag, ig = torch.sigmoid(randn(1, RG_S, W)), torch.sigmoid(randn(1, RG_S, W))
     lam = randn(W, shift=3.0)
     h0 = randn(1, W)
+    rgeo = RK.launch_geometry(1, RG_S, W, device=dev)
+    print(f"  rglru_scan geometry: a stripe of {rgeo.stripe} channels a CTA, "
+          f"tiles of {rgeo.tile} steps in a ring of {rgeo.stages} stages, "
+          f"{rgeo.ctas} CTAs x {rgeo.threads} threads, {rgeo.ctas_per_sm} "
+          f"CTA(s) per SM on {rgeo.n_sms} SMs, {rgeo.waves} wave(s), "
+          f"{rgeo.smem_bytes} B of shared memory a CTA, "
+          f"{rgeo.in_flight_per_sm} B in flight a SM, {rgeo.hbm_bytes} B "
+          f"through HBM, {16 if rgeo.vec else 4}-byte copies")
     errs = []
     for label, init in (("zero state", None), ("h0", h0)):
         y, hl = RK.rglru_scan(x, ag, ig, lam, init)
         torch.cuda.synchronize()
+        check(RK.last_launch() == rgeo.plan,
+              f"rglru_scan launched {RK.last_launch()}, its geometry says "
+              f"{rgeo.plan}")
         yp, hp = RK.plain(x, ag, ig, lam, init)
         errs.append(_close(f"rglru_scan (B,S,W)={(1, RG_S, W)}, {label}, y",
                            y, yp, TOL_RGLRU))
         errs.append(_close(f"rglru_scan {label}, h_last", hl, hp, TOL_RGLRU))
+    del y, hl, yp, hp
+    # the decode step's shape, and rows that are not 16-byte aligned, drawn
+    # from a generator of their own so that the later phases see the same
+    # numbers as before these checks existed
+    extra = np.random.default_rng(SEED + 1)
+
+    def extra_randn(*shape, shift=0.0):
+        a = extra.standard_normal(shape, dtype=np.float32) + shift
+        return torch.from_numpy(a).to(dev)
+
+    for b_, s_, w_ in ((RG_DEC_B, 1, W), (2, 65, 203)):
+        args = (extra_randn(b_, s_, w_),
+                torch.sigmoid(extra_randn(b_, s_, w_)),
+                torch.sigmoid(extra_randn(b_, s_, w_)),
+                extra_randn(w_, shift=3.0), extra_randn(b_, w_))
+        y, hl = RK.rglru_scan(*args)
+        torch.cuda.synchronize()
+        want = RK.launch_geometry(b_, s_, w_, with_h0=True, device=dev)
+        check(RK.last_launch() == want.plan,
+              f"rglru_scan launched {RK.last_launch()} at {(b_, s_, w_)}, "
+              f"its geometry says {want.plan}")
+        yp, hp = RK.plain(*args)
+        errs.append(_close(f"rglru_scan (B,S,W)={(b_, s_, w_)}, h0, "
+                           f"{16 if want.vec else 4}-byte copies, y", y, yp,
+                           TOL_RGLRU))
+        errs.append(_close(f"rglru_scan {(b_, s_, w_)}, h_last", hl, hp,
+                           TOL_RGLRU))
+        if s_ == 1:
+            dargs = args                  # the decode step's, timed below
     n_el = RG_S * W
+    y_out = torch.empty_like(x)
     kernels["rglru_scan"] = dict(
         name="rglru_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/rglru_scan.cu",
         replaces="src/repro/kernels/rglru_scan.py:25",
         max_abs_err=max(errs),
         ms=cuda_ms(lambda: RK.rglru_scan(x, ag, ig, lam), 20),
+        graph_ms=graph_ms(lambda: RK.rglru_scan(x, ag, ig, lam), 20),
+        stream_ms=graph_ms(lambda: torch.addcmul(x, ag, ig, out=y_out), 20),
         plain_ms=cuda_ms(lambda: RK.plain(x, ag, ig, lam), 5),
         library_ms=None)
     # per element: 3 inputs read, y written; ~10 flops of gate algebra and
     # recurrence; lambda read and h_last written once per channel
-    kernels["rglru_scan"]["bound_ms"], kernels["rglru_scan"]["bound_by"] = \
-        bound(10.0 * n_el, 16.0 * n_el + 8.0 * W)
-    del x, ag, ig, lam, h0, y, hl, yp, hp
+    kr = kernels["rglru_scan"]
+    kr["bound_ms"], kr["bound_by"] = bound(10.0 * n_el, rgeo.hbm_bytes)
+    print(f"  rglru_scan (B,S,W)={(1, RG_S, W)}: kernel {kr['ms']:.4f} ms by "
+          f"events, {kr['graph_ms']:.4f} ms by graph replay, "
+          f"{rgeo.hbm_bytes / kr['graph_ms'] / 1e9:.3f} TB/s; byte "
+          f"yardstick torch.addcmul(x, a_gate, i_gate) "
+          f"{kr['stream_ms']:.4f} ms by graph replay, "
+          f"{16 * n_el / kr['stream_ms'] / 1e9:.3f} TB/s; bound "
+          f"{kr['bound_ms']:.4f} ms ({kr['bound_by']})")
+    dgeo = RK.launch_geometry(RG_DEC_B, 1, W, with_h0=True, device=dev)
+    d_ms = cuda_ms(lambda: RK.rglru_scan(*dargs), 100)
+    d_graph = graph_ms(lambda: RK.rglru_scan(*dargs), 100)
+    print(f"  rglru_scan decode step (B,S,W)={(RG_DEC_B, 1, W)}, h0: "
+          f"{dgeo.ctas} CTAs x {dgeo.threads} threads, {dgeo.smem_bytes} B "
+          f"of shared memory a CTA; kernel {d_ms:.4f} ms by events, "
+          f"{d_graph:.4f} ms by graph replay; bound "
+          f"{bound(10.0 * RG_DEC_B * W, dgeo.hbm_bytes)[0]:.4f} ms (bytes)")
+    del x, ag, ig, lam, h0, y, hl, yp, hp, y_out, args, dargs
 
     # q, k, v as the model holds them: (B,S,H,D) projections viewed as
     # (B,H,S,D)
@@ -476,11 +570,13 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
                      f"{RG_DEC_LENGTHS}", out, DK.plain(q, kd, vd, lengths),
                      TOL_ATTN[dtype])
         ms = cuda_ms(lambda: DK.decode_attention(q, kd, vd, lengths), 50)
+        g_ms = graph_ms(lambda: DK.decode_attention(q, kd, vd, lengths), 100)
         plain_ms = cuda_ms(lambda: DK.plain(q, kd, vd, lengths), 10)
         b_ms, b_by = bound(4.0 * valid * H * HD,
                            2.0 * valid * KV * HD * kd.element_size()
                            + 8.0 * RG_DEC_B * H * HD + 4.0 * RG_DEC_B)
-        print(f"  decode_attention {dtype} cache: kernel {ms:.4f} ms, plain "
+        print(f"  decode_attention {dtype} cache: kernel {ms:.4f} ms by "
+              f"events, {g_ms:.4f} ms by graph replay, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if dtype == "float32":       # the Server's cache type
             kmask = (torch.arange(win, device=dev)[None, :]
@@ -489,7 +585,7 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
                 name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:27",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
                     attn_mask=kmask, enable_gqa=True), 50),
@@ -497,7 +593,9 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     del q, kc, vc, kd, vd, out
     for name in ("rglru_scan", "flash_attention", "decode_attention"):
         kr = kernels[name]
-        print(f"  {name}: kernel {kr['ms']:.4f} ms, plain "
+        graph = f" ({kr['graph_ms']:.4f} by graph replay)" \
+            if "graph_ms" in kr else ""
+        print(f"  {name}: kernel {kr['ms']:.4f} ms{graph}, plain "
               f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
               f"({kr['bound_by']}), library {kr['library_ms']}")
 

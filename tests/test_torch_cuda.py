@@ -130,7 +130,13 @@ def test_mlstm_kernel_rejects_unsupported_head_dim(cuda_device):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("b,s,w,with_h0", [
     (2, 128, 256, False), (2, 300, 200, True), (4, 1, 4096, True),
-    (1, 4096, 4096, False)])
+    (1, 4096, 4096, False),
+    (2, 300, 203, True),      # rows not 16-byte aligned: 4-byte copies
+    (1, 203, 203, False),
+    (1, 65, 256, True),       # a last tile of one step
+    (1, 4097, 4096, False),   # the same, at the prefill width
+    (3, 9, 5, True),          # one short tile, a stripe of 5 channels
+    (1, 4096, 4096, True)])   # the prefill shape from a state
 def test_rglru_kernel_matches_plain_on_card(cuda_device, b, s, w, with_h0):
     args = [None if a is None else t(a, cuda_device)
             for a in rglru_inputs(3, b, s, w, with_h0)]
@@ -138,6 +144,39 @@ def test_rglru_kernel_matches_plain_on_card(cuda_device, b, s, w, with_h0):
     y, hl = ops.rglru_scan(*args)
     torch.cuda.synchronize()
     assert RK.launches == before + 1
+    assert RK.last_launch()[-1] == (w % 4 == 0)   # the copy path
+    yw, hw = RK.plain(*args)
+    np.testing.assert_allclose(n(y), n(yw), **RGLRU_TOL)
+    np.testing.assert_allclose(n(hl), n(hw), **RGLRU_TOL)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,s,w,offset", [
+    (1, 4096, 4096, 0), (4, 1, 4096, 0), (2, 300, 203, 0), (1, 65, 256, 0),
+    (2, 300, 200, 1)])        # W a multiple of 4, base 4 bytes off 16
+def test_rglru_launch_geometry_on_card(cuda_device, b, s, w, offset):
+    """The kernel launches what launch_geometry says: CTAs, threads, shared
+    memory, tile, stages and copy path, the last from W and the base
+    addresses; the prefill shape is one wave."""
+    arrays = rglru_inputs(5, b, s, w, True)
+    args = []
+    for a in arrays:
+        buf = torch.zeros(a.size + offset, device=cuda_device)
+        buf[offset:] = t(a.ravel(), cuda_device)
+        args.append(buf[offset:].view(a.shape))
+    geo = RK.launch_geometry(b, s, w, aligned=offset == 0, with_h0=True,
+                             device=cuda_device)
+    assert geo.n_sms == torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    assert geo.ctas_per_sm >= 1
+    before = RK.launches
+    y, hl = ops.rglru_scan(*args)
+    torch.cuda.synchronize()
+    assert RK.launches == before + 1
+    assert RK.last_launch() == geo.plan
+    assert geo.vec == (w % 4 == 0 and offset == 0)
+    if (b, s, w) == (1, 4096, 4096):
+        assert (geo.ctas, geo.waves) == (128, 1)
     yw, hw = RK.plain(*args)
     np.testing.assert_allclose(n(y), n(yw), **RGLRU_TOL)
     np.testing.assert_allclose(n(hl), n(hw), **RGLRU_TOL)

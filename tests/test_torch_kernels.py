@@ -382,6 +382,79 @@ def test_rglru_plain_decode_step_continues_the_scan():
 
 
 # --------------------------------------------------------------------------
+# the RG-LRU kernel's launch geometry (plain Python, no card)
+# --------------------------------------------------------------------------
+
+def test_rglru_geometry_fills_the_card_in_one_wave():
+    """The RecurrentGemma prefill: 128 stripes of 32 channels, one wave on
+    132 SMs, a ring of 5 stages of 64 steps and two y tiles that fit a
+    CTA's shared memory and keep at least 24 KB in flight a SM; a scan warp
+    and 16 workers."""
+    geo = RK.geometry(1, 4096, 4096)
+    assert (geo.stripe, geo.tile, geo.stages, geo.threads) == (32, 64, 5, 544)
+    assert (geo.ctas, geo.n_sms, geo.ctas_per_sm, geo.waves) == \
+        (128, 132, 1, 1)
+    assert geo.vec and geo.n_tiles == 64
+    assert geo.smem_bytes == 4 * (5 * 3 + 2) * 64 * 32 <= RK.SMEM_LIMIT
+    assert geo.in_flight_per_sm == 3 * 4 * 3 * 64 * 32 >= 24 * 1024
+    assert geo.plan == (128, 1, 544, 139264, 64, 5, 1)
+
+
+@pytest.mark.parametrize("b,s,w,with_h0,want", [
+    (1, 4096, 4096, False, 268_468_224),      # each input read once
+    (1, 4096, 4096, True, 268_468_224 + 16_384),
+    (4, 1, 4096, True, 4 * 16 * 4096 + 4 * 4096 + 2 * 4 * 4 * 4096),
+    (2, 300, 203, False, 16 * 2 * 300 * 203 + 4 * 203 + 4 * 2 * 203)])
+def test_rglru_geometry_counts_each_byte_once(b, s, w, with_h0, want):
+    """12 B S W read, 4 B S W written, lambda, h_last and h0 once each:
+    268.5 MB at the prefill shape, where the two-pass kernel moved ~470."""
+    geo = RK.geometry(b, s, w, with_h0=with_h0)
+    assert geo.hbm_bytes == want == (12 * b * s * w + 4 * b * s * w + 4 * w
+                                     + 4 * b * w + 4 * b * w * with_h0)
+
+
+@pytest.mark.parametrize("b,s,w", [
+    (2, 300, 200), (1, 65, 203), (4, 1, 4096), (1, 4097, 96), (3, 9, 5),
+    (2, 64, 32), (1, 130, 33)])
+def test_rglru_tiles_cover_every_step_and_channel_once(b, s, w):
+    """Ragged S (a partial last tile) and W (a partial last stripe), and
+    the decode step, are covered exactly once, each block inside one tile
+    of one stripe."""
+    geo = RK.geometry(b, s, w)
+    seen = np.zeros((b, s, w), dtype=np.int32)
+    for bb, t0, t1, w0, w1 in geo.tiles():
+        assert 0 < t1 - t0 <= geo.tile and 0 < w1 - w0 <= geo.stripe
+        seen[bb, t0:t1, w0:w1] += 1
+    assert (seen == 1).all()
+    assert len(geo.tiles()) == geo.ctas * geo.n_tiles
+
+
+@pytest.mark.parametrize("b,s,w,vec,plan", [
+    (4, 1, 4096, True, (128, 4, 64, 640, 1, 1, 1)),     # the decode step
+    (2, 300, 200, True, (7, 2, 544, 139264, 64, 5, 1)),
+    (2, 300, 203, False, (7, 2, 544, 139264, 64, 5, 0)),  # 4-byte copies
+    (1, 65, 256, True, (8, 1, 544, 65536, 64, 2, 1)),    # two tiles
+    (1, 20, 64, True, (2, 1, 192, 12800, 20, 1, 1)),     # one short tile
+    (1, 4097, 4096, True, (128, 1, 544, 139264, 64, 5, 1))])
+def test_rglru_geometry_shrinks_for_short_launches(b, s, w, vec, plan):
+    """The tile shrinks to S, the ring to the tiles there are and the
+    workers to one warp for every 4 steps of a tile; rows of W not a
+    multiple of 4 take the 4-byte path."""
+    geo = RK.geometry(b, s, w)
+    assert geo.vec == vec and geo.plan == plan
+    assert geo.threads % 32 == 0 and 64 <= geo.threads <= RK.MAX_THREADS
+    assert geo.smem_bytes == 4 * (3 * geo.stages + 2) * geo.tile * 32
+    assert RK.geometry(b, s, w, vec=False).plan == plan[:-1] + (0,)
+
+
+@pytest.mark.parametrize("b,s,w", [(0, 8, 32), (1, 0, 32), (1, 8, 0),
+                                   (65536, 1, 32)])
+def test_rglru_geometry_rejects_empty_shapes(b, s, w):
+    with pytest.raises(ValueError, match="rglru_scan needs"):
+        RK.geometry(b, s, w)
+
+
+# --------------------------------------------------------------------------
 # the sLSTM kernel's launch geometry (plain Python, no card)
 # --------------------------------------------------------------------------
 
