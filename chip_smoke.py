@@ -26,6 +26,12 @@ Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
   2b. the RG-LRU scan, windowed flash attention and split-S decode
       attention against their plain versions at its full-width shapes,
       with times, bounds and, for attention, one PyTorch library call;
+      for decode attention also its launch geometry (chunks, CTAs and
+      those with work, CTAs a SM, waves, shared memory, bytes in flight,
+      partial and HBM bytes), checked against the launch the kernel made,
+      and its time by CUDA-graph replay both warm (one cache, in L2) and
+      cold (the 12 attention layers' caches of a decode step in turn,
+      201 MB in fp32);
       for the RG-LRU scan also its launch geometry (stripe, tile, stages,
       CTAs, waves, shared memory, bytes in flight a SM, HBM bytes), checked
       against the launch the kernel made, the decode step's shape and
@@ -560,23 +566,56 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     lengths = torch.tensor(RG_DEC_LENGTHS, dtype=torch.int32, device=dev)
     q = randn(RG_DEC_B, H, HD)
     kc, vc = randn(RG_DEC_B, win, KV, HD), randn(RG_DEC_B, win, KV, HD)
-    valid = int(sum(RG_DEC_LENGTHS))      # cache positions this run reads
+    # one cache for each attention layer of a decode step (201 MB in fp32,
+    # more than the 50 MB L2), so that each call finds its cache cold, as a
+    # step between weight GEMMs does; drawn by a generator of their own
+    n_a = sum(kind == "lattn" for kind in cfg.layer_pattern)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    layer_caches = [tuple(torch.randn(RG_DEC_B, win, KV, HD, generator=gen,
+                                      device=dev) for _ in range(2))
+                    for _ in range(n_a)]
     for dtype in ("float32", "bfloat16"):
-        kd, vd = kc.to(getattr(torch, dtype)), vc.to(getattr(torch, dtype))
+        tdt = getattr(torch, dtype)
+        kd, vd = kc.to(tdt), vc.to(tdt)
+        caches = [(a.to(tdt), b.to(tdt)) for a, b in layer_caches]
+        geo = DK.launch_geometry(RG_DEC_B, H, KV, win, HD, tdt,
+                                 RG_DEC_LENGTHS)
+        print(f"  decode_attention geometry, {dtype} cache: chunks of "
+              f"{geo.ch} positions, {geo.ctas} split CTAs x {geo.threads} "
+              f"threads ({geo.ctas_with_work} with work for lengths "
+              f"{RG_DEC_LENGTHS}), {geo.ctas_per_sm} CTA(s) per SM by shared "
+              f"memory on {geo.n_sms} SMs, {geo.waves} wave(s), "
+              f"{geo.smem_bytes} B of shared memory a CTA, "
+              f"{geo.in_flight_per_sm} B in flight a SM, "
+              f"{geo.partial_bytes} B of partials, {geo.hbm_bytes} B through "
+              f"HBM, {16 if geo.vec else 8}-byte copies, "
+              f"{geo.combine_ctas} combine CTAs")
         out = DK.decode_attention(q, kd, vd, lengths)
         torch.cuda.synchronize()
+        check(DK.last_launch() == geo.plan,
+              f"decode_attention launched {DK.last_launch()}, its geometry "
+              f"says {geo.plan}")
         err = _close(f"decode_attention (B,S,KV,D)="
                      f"{(RG_DEC_B, win, KV, HD)} {dtype} cache, lengths "
                      f"{RG_DEC_LENGTHS}", out, DK.plain(q, kd, vd, lengths),
                      TOL_ATTN[dtype])
-        ms = cuda_ms(lambda: DK.decode_attention(q, kd, vd, lengths), 50)
-        g_ms = graph_ms(lambda: DK.decode_attention(q, kd, vd, lengths), 100)
+
+        def warm():
+            DK.decode_attention(q, kd, vd, lengths)
+
+        def cold():
+            for kk, vv in caches:
+                DK.decode_attention(q, kk, vv, lengths)
+
+        ms = cuda_ms(warm, 50)
         plain_ms = cuda_ms(lambda: DK.plain(q, kd, vd, lengths), 10)
-        b_ms, b_by = bound(4.0 * valid * H * HD,
-                           2.0 * valid * KV * HD * kd.element_size()
-                           + 8.0 * RG_DEC_B * H * HD + 4.0 * RG_DEC_B)
+        g_ms, cold_ms = graph_ms(warm, 100), graph_ms(cold, 10) / n_a
+        b_ms, b_by = bound(4.0 * geo.kv * sum(geo.valid(i)
+                                              for i in range(geo.b))
+                           * geo.g * HD, geo.hbm_bytes)
         print(f"  decode_attention {dtype} cache: kernel {ms:.4f} ms by "
-              f"events, {g_ms:.4f} ms by graph replay, plain "
+              f"events; by graph replay warm (one cache) {g_ms:.4f} ms, "
+              f"cold ({n_a} caches in turn) {cold_ms:.4f} ms; plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         if dtype == "float32":       # the Server's cache type
             kmask = (torch.arange(win, device=dev)[None, :]
@@ -585,16 +624,20 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
                 name="decode_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:27",
-                max_abs_err=err, ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                max_abs_err=err, ms=ms, graph_ms=g_ms,
+                cold_graph_ms=cold_ms, plain_ms=plain_ms,
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[:, :, None], kd.transpose(1, 2), vd.transpose(1, 2),
                     attn_mask=kmask, enable_gqa=True), 50),
                 bound_ms=b_ms, bound_by=b_by)
-    del q, kc, vc, kd, vd, out
+    del q, kc, vc, kd, vd, out, caches, layer_caches
     for name in ("rglru_scan", "flash_attention", "decode_attention"):
         kr = kernels[name]
         graph = f" ({kr['graph_ms']:.4f} by graph replay)" \
             if "graph_ms" in kr else ""
+        if "cold_graph_ms" in kr:
+            graph = (f" ({kr['graph_ms']:.4f} warm, {kr['cold_graph_ms']:.4f} "
+                     f"cold by graph replay)")
         print(f"  {name}: kernel {kr['ms']:.4f} ms{graph}, plain "
               f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
               f"({kr['bound_by']}), library {kr['library_ms']}")

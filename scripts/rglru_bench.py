@@ -25,7 +25,6 @@ is a JSON object with every number, also written to ``--out`` if given.
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import subprocess
@@ -65,17 +64,7 @@ def main() -> int:
 
     builds = {"this": RK._lib()}
     if args.parent:                 # built with the same flags, bound raw
-        src = os.path.abspath(args.parent)
-        with open(src, "rb") as fh:
-            digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-        out = _build.BUILD_DIR / f"rglru_scan-parent-{digest}.so"
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                               str(out), src], capture_output=True, text=True)
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
-                               f"{proc.stderr}")
-        lib = ctypes.CDLL(str(out))
+        lib = _build.load_copy(args.parent, "parent")
         lib.rglru_scan_fwd.argtypes = [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.rglru_scan_fwd.restype = ctypes.c_int

@@ -112,3 +112,24 @@ def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
             _finish(name, _start(name, defines))
             lib = _libs[key] = ctypes.CDLL(str(_target(name, defines)))
         return lib
+
+
+def load_copy(src: "str | os.PathLike", tag: str) -> ctypes.CDLL:
+    """Another copy of a kernel source (say, an older commit's, from a
+    ``git archive``), built with the same flags into ``BUILD_DIR`` as
+    ``<stem>-<tag>-<hash>.so`` and loaded, to time one build against
+    another; the caller declares its C interface."""
+    src = Path(src).resolve()
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}-{tag}-{digest}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(src)], capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))

@@ -241,7 +241,12 @@ def test_flash_kernel_refuses_bf16(cuda_device):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,kv,g,s,d,lengths", [
     (4, 1, 16, 2048, 256, [1, 700, 2048, 2048]),
-    (2, 2, 4, 300, 128, [0, 299]), (3, 8, 1, 100, 64, None)])
+    (2, 2, 4, 300, 128, [0, 299]), (3, 8, 1, 100, 64, None),
+    (2, 1, 16, 2049, 256, [2049, 33]),   # a partial last chunk
+    (1, 1, 16, 1, 256, [1]),             # one position
+    (3, 1, 4, 512, 128, [512, 512, 512]),  # every length is S
+    (2, 1, 16, 200, 68, [200, 77]),      # bf16 rows of 136 B: 8-byte copies
+    (2, 2, 16, 300, 64, None)])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
                                              d, lengths):
     q, k, v, ln = decode_inputs(3, b, kv, g, s, d, lengths)
@@ -252,10 +257,69 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
     got = ops.decode_attention(*args)
     torch.cuda.synchronize()
     assert DK.launches == before + 1
+    assert DK.last_launch()[5] == (16 if d * args[1].element_size() % 16 == 0
+                                   else 8)
     want = DK.plain(*args)
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL[dtype])
     if lengths is not None and lengths[0] == 0:
         assert torch.all(got[0] == 0)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,kv,s,d,lengths", [
+    (4, 16, 1, 2048, 256, (1, 700, 2048, 2048)),
+    (2, 16, 1, 200, 68, (200, 0)), (3, 8, 2, 33, 64, (33, 1, 32))])
+def test_decode_launch_geometry_on_card(cuda_device, dtype, b, h, kv, s, d,
+                                        lengths):
+    """The kernel launches what launch_geometry says: split CTAs, threads,
+    shared memory, copy path and combine CTAs; the card's occupancy is at
+    least the 2 CTAs a SM that one wave at the RecurrentGemma shape
+    needs."""
+    tdt = getattr(torch, dtype)
+    q, k, v, ln = decode_inputs(4, b, kv, h // kv, s, d, lengths)
+    args = (t(q, cuda_device), t(k, cuda_device).to(tdt),
+            t(v, cuda_device).to(tdt), t(ln, cuda_device))
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    geo = DK.launch_geometry(b, h, kv, s, d, tdt, lengths, n_sms=sms)
+    before = DK.launches
+    got = DK.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert DK.launches == before + 1
+    assert DK.last_launch() == geo.plan
+    per_sm = DK.max_active(h, kv, d, tdt, geo.vec, cuda_device)
+    assert 2 <= per_sm <= geo.ctas_per_sm
+    if (b, s, d) == (4, 2048, 256):
+        assert (geo.ctas, geo.ctas_with_work, geo.waves) == (256, 151, 1)
+        assert per_sm == geo.ctas_per_sm
+    np.testing.assert_allclose(n(got), n(DK.plain(*args)), **ATTN_TOL[dtype])
+
+
+@pytest.mark.requires_cuda
+def test_decode_kernel_replays_in_a_cuda_graph_with_new_lengths(cuda_device):
+    """One call captured in a CUDA graph reads the lengths on the device:
+    replayed after they change in place, it gives the new result, so no
+    call reads them to the host."""
+    q, k, v, ln = (t(a, cuda_device)
+                   for a in decode_inputs(6, 3, 1, 16, 300, 256,
+                                          [300, 5, 0]))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        DK.decode_attention(q, k, v, ln)          # builds and warms up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DK.decode_attention(q, k, v, ln)
+    for lengths in ([300, 5, 0], [1, 0, 299], [33, 300, 64]):
+        ln.copy_(torch.tensor(lengths, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(n(out), n(DK.plain(q, k, v, ln)),
+                                   **ATTN_TOL["float32"])
+        for row, length in enumerate(lengths):
+            if length == 0:
+                assert torch.all(out[row] == 0)
 
 
 # --------------------------------------------------------------------------

@@ -3,6 +3,8 @@
 tolerances of tests/test_kernels.py. The CUDA kernels are held against
 their plain versions in test_torch_cuda.py."""
 
+import math
+
 import numpy as np
 import pytest
 
@@ -328,6 +330,142 @@ def test_decode_plain_gives_zeros_at_length_zero():
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
     assert np.isnan(np.asarray(jref.decode_attention_ref(
         *(jnp.asarray(a) for a in (q, k, v, lengths)))[0])).all()
+
+
+# the decode kernel's launch geometry and its split / combine (plain
+# Python, no card)
+
+RG_DECODE = (4, 16, 1, 2048, 256)          # b, h, kv, s, d of RG-9B decode
+RG_LENGTHS = (1, 700, 2048, 2048)
+
+
+@pytest.mark.parametrize("dtype,hbm,smem", [
+    (torch.float32, 9_955_344, 106_240), (torch.bfloat16, 5_043_216, 73_472)])
+def test_decode_geometry_at_the_recurrentgemma_shape(dtype, hbm, smem):
+    """256 split CTAs of 32 positions, 151 with work for lengths (1, 700,
+    2048, 2048), at least 2 a SM, one wave on 132 SMs; HBM bytes are the
+    valid K and V rows, q, the output and the lengths, each once."""
+    geo = DK.launch_geometry(*RG_DECODE, dtype, RG_LENGTHS)
+    assert (geo.ch, geo.threads, geo.ctas, geo.ctas_with_work) == \
+        (32, 256, 256, 151)
+    assert geo.smem_bytes == smem <= DK.SMEM_LIMIT
+    assert geo.ctas_per_sm >= 2 and geo.waves == 1
+    assert geo.hbm_bytes == hbm == (2 * 4797 * 256 * geo.el
+                                    + 8 * 4 * 16 * 256 + 16)
+    assert geo.partial_bytes == 4 * 258 * 16 * 151
+    assert geo.in_flight_per_sm == 2 * 32 * 256 * geo.el * geo.ctas_per_sm
+    assert geo.plan == (64, 1, 4, 256, smem, 16, 256)
+    # without lengths every position counts
+    full = DK.launch_geometry(*RG_DECODE, dtype)
+    assert full.ctas_with_work == 256
+    assert full.hbm_bytes == 2 * 4 * 2048 * 256 * geo.el + 8 * 4 * 16 * 256 \
+        + 16
+
+
+@pytest.mark.parametrize("s", [1, 33, 2049])
+@pytest.mark.parametrize("kv", [1, 2])
+def test_decode_chunks_cover_every_valid_position_once(s, kv):
+    """Ragged S and lengths 0, 1, S and past S: the split CTAs with work
+    cover each valid (row, KV head, position) exactly once, each inside one
+    chunk of at most CH positions; every other CTA has none."""
+    lengths = (0, 1, s, s + 7)
+    geo = DK.launch_geometry(len(lengths), 4 * kv, kv, s, 64, torch.float32,
+                             lengths)
+    seen = np.zeros((len(lengths), kv, s), dtype=np.int32)
+    for bb, kvh, x, s0, s1 in geo.chunks():
+        assert 0 < s1 - s0 <= geo.ch and s0 == x * geo.ch
+        seen[bb, kvh, s0:s1] += 1
+    want = np.zeros_like(seen)
+    for bb, ln in enumerate(lengths):
+        want[bb, :, :min(ln, s)] = 1
+    np.testing.assert_array_equal(seen, want)
+    assert len(geo.chunks()) == geo.ctas_with_work <= geo.ctas
+    assert geo.ctas == math.ceil(s / 32) * kv * len(lengths)
+
+
+@pytest.mark.parametrize("d,dtype,vec,smem", [
+    (68, torch.bfloat16, False, 37_376),    # 136-byte rows: 8-byte copies
+    (68, torch.float32, True, 2 * 32 * 288 + 16 * 288 + 20_480 + 2_560),
+    (64, torch.bfloat16, True, 2 * 32 * 144 + 16 * 272 + 20_480 + 2_560)])
+def test_decode_geometry_picks_the_copy_path_from_the_row(d, dtype, vec,
+                                                          smem):
+    geo = DK.launch_geometry(1, 16, 1, 100, d, dtype)
+    assert geo.vec == vec and geo.smem_bytes == smem
+    assert geo.plan[5] == (16 if vec else 8)
+    if dtype == torch.float32:   # every fp32 row is 16-byte aligned
+        with pytest.raises(ValueError, match="16-byte"):
+            DK.launch_geometry(1, 16, 1, 100, d, dtype, vec=False)
+    else:
+        assert DK.launch_geometry(1, 16, 1, 100, d, dtype,
+                                  vec=False).plan[5] == 8
+
+
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 16])
+def test_decode_geometry_pads_the_group_to_whole_tiles(g):
+    """P is kept for round4(G) heads (rows padded by 4), the score slices
+    for G (rows of 40)."""
+    geo = DK.launch_geometry(2, 2 * g, 2, 64, 64)
+    assert geo.smem_bytes == (2 * 32 * 272 + g * 272 + 4 * 8 * g * 40
+                              + 4 * 32 * (-(-g // 4) * 4 + 4))
+    assert geo.ctas_per_sm >= 2
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((1, 17, 1, 8, 64), "group"), ((1, 6, 4, 8, 64), "group"),
+    ((1, 4, 1, 8, 66), "head dim"), ((1, 4, 1, 8, 260), "head dim"),
+    ((1, 4, 1, 0, 64), "needs"), ((0, 4, 1, 8, 64), "needs")])
+def test_decode_geometry_rejects_shapes(shape, match):
+    with pytest.raises(ValueError, match=match):
+        DK.launch_geometry(*shape)
+
+
+def _split_combine(q, k, v, lengths, geo):
+    """The kernel's two passes in plain PyTorch at its geometry: each split
+    CTA with work gives (max, sum, accumulator) per head over its chunk;
+    the combine reads only the blocks a row has and gives zeros without
+    any."""
+    b, h, d = q.shape
+    g = geo.g
+    qg = q.float().reshape(b, geo.kv, g, d) * d ** -0.5
+    parts = {}
+    for bb, kvh, x, s0, s1 in geo.chunks():
+        sc = qg[bb, kvh] @ k[bb, s0:s1, kvh].float().T        # (G, n)
+        m = sc.max(-1).values
+        e = torch.exp(sc - m[:, None])
+        parts[bb, kvh, x] = (m, e.sum(-1), e @ v[bb, s0:s1, kvh].float())
+    out = torch.zeros(b, h, d)
+    for bb in range(b):
+        for kvh in range(geo.kv):
+            blocks = [parts[bb, kvh, x] for x in range(geo.blocks(bb))]
+            if not blocks:
+                continue
+            m = torch.stack([p[0] for p in blocks])               # (nb, G)
+            w = torch.exp(m - m.max(0).values)
+            den = (w * torch.stack([p[1] for p in blocks])).sum(0)
+            num = (w[..., None] * torch.stack([p[2] for p in blocks])).sum(0)
+            out[bb, kvh * g:(kvh + 1) * g] = num / den[:, None]
+    return out
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,dtype", DECODE_CASES + [
+    (2, 1, 4, 256, 64, "float32")])
+def test_decode_split_combine_matches_jax_kernel(b, kv, g, s, d, dtype):
+    """The split / combine at CH = 32 against the TPU kernel (interpret
+    mode, 128-position blocks); the last case has a row of length 0, which
+    gives zeros."""
+    lengths = [0, 37] if s == 256 else None
+    q, k, v, ln = decode_inputs(b + s + d + 2, b, kv, g, s, d, lengths)
+    jargs, targs = _decode_args((q, k, v, ln), dtype)
+    geo = DK.launch_geometry(b, kv * g, kv, s, d, targs[1].dtype, ln)
+    got = _split_combine(*targs, geo)
+    want = jax_decode_attention(*jargs, bs=128, interpret=True)
+    np.testing.assert_allclose(n(got), n(want.astype(jnp.float32)),
+                               **ATTN_TOL[dtype])
+    if lengths is not None:
+        assert torch.all(got[0] == 0)
+    np.testing.assert_allclose(n(got),
+                               n(ops.decode_attention(*targs).float()),
+                               **ATTN_TOL[dtype])
 
 
 # --------------------------------------------------------------------------
