@@ -20,7 +20,17 @@ Phases, each printing its own lines; any failure exits non-zero:
   4. the decode Server at full width answering 6 short requests and one
      512-token request submitted as futures under plan("threads"); the
      long request's first token and its logits are held against the
-     prefill step on the same prompt.
+     prefill step on the same prompt;
+  5. xLSTM-125M training at full width (B=8, S=512, fp32, remat "none"):
+     one train step's loss and every grad leaf with the kernels (their
+     backward a recompute through the plain versions) against the plain
+     path from the same params and batch, with the launch counts read after
+     the forward (10 mLSTM, 2 sLSTM) and after the backward (none); the
+     Trainer for 4 steps under plan("threads") with checkpoints at steps 2
+     and 4, its loss curve held against the plain path's and the step-4
+     checkpoint restored bit for bit; then the train step's times (forward
+     with loss, backward with the optimiser), tokens/s, peak memory and the
+     share of the backward spent recomputing each kernel's plain version.
 Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
 4096, 10.4 B fp32 parameters, random from the seed) takes the card:
   2b. the RG-LRU scan, windowed flash attention and split-S decode
@@ -86,6 +96,21 @@ TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
 RG_S = 4096                      # prefill length, twice the window
 RG_DEC_B = 4                     # decode batch
 RG_DEC_LENGTHS = (1, 700, 2048, 2048)
+# training (phase 5): examples/train_lm.py --full's batch and length;
+# limits: the loss within 1e-4 relative, each grad leaf within 1e-3 of
+# that leaf's largest plain grad (the mLSTM input-gate bias b_i on its
+# block's w_i scale, see test_torch_train.py), the 4-step loss curve
+# within 1e-3 relative at every step. The curve runs
+# at lr 3e-5 (warmup 1), not train_lm.py's 6e-4: from the reference's
+# init (loss ~300) the plain path against itself with the embeddings moved
+# by one ulp drifts past 1e-3 by step 4 at 6e-4 and at 1e-4, so no
+# implementation with other rounding could meet the limit there; at 3e-5
+# that yardstick stays near 5e-5 while a zeroed or 10% scaled mLSTM
+# backward moves the curve by 1e-2 and 2e-3 (scripts/train_divergence.py)
+TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 8, 512, 3e-5, 4
+TOL_TRAIN_LOSS_REL = 1e-4
+TOL_TRAIN_GRAD_REL = 1e-3
+TOL_TRAIN_CURVE_REL = 1e-3
 
 
 def check(ok: bool, what: str) -> None:
@@ -372,9 +397,14 @@ def main() -> int:
     else:
         print("  top-2 margin below the tolerance: logits compared only")
 
-    # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
-    del model, params, server, step, cache, tok, first, tokens, prefill
+    del server, step, cache, tok, first, tokens, prefill
     del dec_logits, pre_logits, long_toks
+
+    # -- 5. xLSTM-125M training at full width --------------------------------
+    training_phase(dev, cfg, params, smi)
+
+    # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
     recurrentgemma_phases(dev, rng, kernels)
@@ -384,6 +414,248 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def mlstm_b_i_scales(cfg, names) -> dict:
+    """{b_i path: w_i path} for the mLSTM blocks: b_i's grad is the sum of
+    dL/d i_raw over positions, which cancels to 1e-4 or less of w_i's
+    (the same terms weighted by the conv output), so it is held on that
+    scale."""
+    kinds = dict(enumerate(cfg.layer_pattern))
+    return {name: name[:-len("b_i")] + "w_i" for name in names
+            if name.endswith("/b_i")
+            and kinds[int(name.split("/")[2][1:])] == "mlstm"}
+
+
+def training_phase(dev, cfg, params, smi: str) -> None:
+    import tempfile
+
+    import torch
+
+    import repro_torch.core as rc
+    from repro_torch.data import synth_batch
+    from repro_torch.kernels import mlstm_scan as MK
+    from repro_torch.kernels import slstm_scan as SK
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import (Trainer, TrainerConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.tree import leaves, map_with_path, tree_map
+
+    B_, S_ = TRAIN_B, TRAIN_S
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synth_batch(cfg, batch=B_, seq=S_, seed=SEED, step=0).items()}
+    names = []
+    map_with_path(lambda path, _: names.append(path), params)
+    n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
+    n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
+
+    # one train step with the kernels against the same step on the plain
+    # path: the loss, every grad leaf, the launches forward and backward
+    runs = {}
+    for impl in ("hopper", "plain"):
+        model = Model(cfg, kernel_impl=impl)
+        leafs = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        MK.launches = SK.launches = 0
+        loss, _ = model.loss(leafs, batch)
+        torch.cuda.synchronize()
+        fwd = {"mlstm_scan": MK.launches, "slstm_scan": SK.launches}
+        grads = torch.autograd.grad(loss, list(leaves(leafs)))
+        torch.cuda.synchronize()
+        bwd = {"mlstm_scan": MK.launches - fwd["mlstm_scan"],
+               "slstm_scan": SK.launches - fwd["slstm_scan"]}
+        runs[impl] = (loss.item(), grads, fwd, bwd)
+        del leafs, loss
+    k_loss, k_grads, fwd, bwd = runs["hopper"]
+    p_loss, p_grads, p_fwd, _ = runs.pop("plain")
+    print(f"train step (B,S)={(B_, S_)} launches with the kernels: forward "
+          f"{fwd}, backward {bwd}; plain path: forward {p_fwd}")
+    check(fwd == {"mlstm_scan": n_m, "slstm_scan": n_s}
+          and bwd == {"mlstm_scan": 0, "slstm_scan": 0},
+          f"a train step must launch mlstm_scan {n_m}x and slstm_scan "
+          f"{n_s}x in the forward and nothing in the backward")
+    check(p_fwd == {"mlstm_scan": 0, "slstm_scan": 0},
+          "the plain path launches no kernel")
+    rel = abs(k_loss - p_loss) / abs(p_loss)
+    ok = np.isfinite(k_loss) and rel <= TOL_TRAIN_LOSS_REL
+    print(f"train step loss, kernels vs plain: {k_loss:.6f} vs {p_loss:.6f}, "
+          f"relative {rel:.3e} (tolerance {TOL_TRAIN_LOSS_REL}) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "the train step's loss with the kernels disagrees with the "
+              "plain path")
+    p_by = dict(zip(names, p_grads))
+    scale_of = mlstm_b_i_scales(cfg, names)
+    errs = []
+    for name, g, w in zip(names, k_grads, p_grads):
+        diff = (g - w).abs().max().item()
+        own = w.abs().max().item()
+        scale = p_by[scale_of.get(name, name)].abs().max().item()
+        errs.append((diff / max(scale, 1e-30), name, diff, own, scale))
+    errs.sort(reverse=True)
+    worst = errs[0]
+    ok = all(torch.isfinite(g).all() for g in k_grads) and \
+        worst[0] <= TOL_TRAIN_GRAD_REL
+    print(f"train step grads, kernels vs plain, {len(names)} leaves: worst "
+          f"{worst[1]}, max abs diff {worst[2]:.3e} over its scale "
+          f"{worst[4]:.3e} = {worst[0]:.3e} (tolerance "
+          f"{TOL_TRAIN_GRAD_REL}) {'ok' if ok else 'FAIL'}")
+    for r, name, diff, own, scale in errs[1:4]:
+        print(f"  next: {name} {r:.3e}")
+    for r, name, diff, own, scale in errs:
+        if name in scale_of:
+            print(f"  {name}: max abs diff {diff:.3e}, {diff / own:.3e} of "
+                  f"its own largest grad {own:.3e}, {r:.3e} of "
+                  f"{scale_of[name].split('/')[-1]}'s {scale:.3e}")
+    check(ok, "the train step's grads with the kernels disagree with the "
+              "plain path")
+    # yardstick for that limit: the plain path's grads with the embedding
+    # table moved by one ulp, i.e. how far rounding alone carries them
+    moved = dict(params, embed={
+        "table": params["embed"]["table"] * (1 + 2 ** -23)})
+    leafs = tree_map(lambda p: p.detach().requires_grad_(True), moved)
+    loss, _ = Model(cfg, kernel_impl="plain").loss(leafs, batch)
+    y_grads = torch.autograd.grad(loss, list(leaves(leafs)))
+    y_worst = max(((g - w).abs().max().item()
+                   / max(p_by[scale_of.get(name, name)].abs().max().item(),
+                         1e-30), name)
+                  for name, g, w in zip(names, y_grads, p_grads))
+    print(f"  yardstick: plain path with the embeddings moved by 1 ulp, "
+          f"worst {y_worst[1]} {y_worst[0]:.3e}")
+    del runs, k_grads, p_grads, p_by, moved, leafs, loss, y_grads
+
+    # the Trainer for 4 steps, kernels and plain from the same params
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    rc.plan("threads", workers=2)
+    curves = {}
+    with tempfile.TemporaryDirectory() as ckdir:
+        for run in ("hopper", "plain", "plain, embeddings moved by 1 ulp"):
+            impl = run.split(",")[0]
+            trainer = Trainer(cfg, TrainerConfig(
+                steps=TRAIN_STEPS, batch=B_, seq=S_, seed=SEED, log_every=1,
+                ckpt_every=2, ckpt_dir=ckdir if run == "hopper" else None,
+                device=dev, kernel_impl=impl), opt)
+            state, _ = trainer.init_or_restore()
+            if run != impl:
+                table = state.params["embed"]["table"]
+                state.params["embed"] = {"table": table * (1 + 2 ** -23)}
+            MK.launches = SK.launches = 0
+            t0 = time.perf_counter()
+            state, history = trainer.run(state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            curves[run] = [h["loss"] for h in history]
+            print(f"Trainer, {run}: {TRAIN_STEPS} steps in {wall:.2f} s, "
+                  f"losses {curves[run]}, launches mlstm_scan "
+                  f"{MK.launches}, slstm_scan {SK.launches}")
+            if run == "hopper":
+                check((MK.launches, SK.launches)
+                      == (TRAIN_STEPS * n_m, TRAIN_STEPS * n_s),
+                      "the Trainer's steps launch the kernels")
+                kept = sorted(os.listdir(ckdir))
+                check(kept == ["step_00000002", "step_00000004"],
+                      f"checkpoints at steps 2 and 4, found {kept}")
+                template = init_train_state(Model(cfg).init(
+                    torch.Generator(device=dev).manual_seed(SEED + 1),
+                    device=dev))
+                restored, step = trainer.ckpt.restore(template, 4)
+                same = step == 4 and all(
+                    a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b)
+                    for a, b in zip(leaves(restored), leaves(state)))
+                print(f"  checkpoint of step 4 restored into a fresh "
+                      f"template: params, m, v and step bit for bit "
+                      f"{'ok' if same else 'FAIL'}")
+                check(same, "the step-4 checkpoint restores the live state")
+                del restored, template
+            del trainer, state
+    rc.shutdown()
+    k_c, p_c = np.array(curves["hopper"]), np.array(curves["plain"])
+    rel = np.abs(k_c - p_c) / np.abs(p_c)
+    y_rel = np.abs(np.array(curves["plain, embeddings moved by 1 ulp"])
+                   - p_c) / np.abs(p_c)
+    ok = bool(np.isfinite(k_c).all() and np.isfinite(p_c).all()
+              and (rel <= TOL_TRAIN_CURVE_REL).all())
+    print(f"Trainer loss curves at lr {TRAIN_LR}, kernels vs plain, "
+          f"relative per step {[float(f'{r:.3e}') for r in rel]} (tolerance "
+          f"{TOL_TRAIN_CURVE_REL}) {'ok' if ok else 'FAIL'}; yardstick, "
+          f"plain moved by 1 ulp: {[float(f'{r:.3e}') for r in y_rel]}")
+    check(ok, "the Trainer's loss curve with the kernels disagrees with the "
+              "plain path")
+
+    # times: CUDA events, a warm-up step first
+    state0 = init_train_state(params)
+
+    def split_step(model):
+        """The train step's parts as make_train_step runs them, timed:
+        (forward with loss ms, backward and optimiser ms)."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        leafs = tree_map(lambda p: p.detach().requires_grad_(True),
+                         state0.params)
+        loss, _ = model.loss(leafs, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(leaves(leafs)))
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), leafs)
+        adamw.apply_updates(opt, state0.params, grads, state0.opt)
+        ev[2].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+    times = {}
+    for impl in ("hopper", "plain"):
+        model = Model(cfg, kernel_impl=impl)
+        step_fn = make_train_step(model, opt)
+        torch.cuda.reset_peak_memory_stats()
+        step_fn(state0, batch)                      # warm-up
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        iters = 3
+        ms = cuda_ms(lambda: step_fn(state0, batch), iters, warmup=0)
+        parts = [split_step(model) for _ in range(iters)]
+        fwd_ms = sum(p[0] for p in parts) / iters
+        bwd_ms = sum(p[1] for p in parts) / iters
+        times[impl] = (ms, fwd_ms, bwd_ms)
+        print(f"train step (B,S)={(B_, S_)}, {impl}: {ms:.1f} ms "
+              f"({B_ * S_ / ms * 1e3:.0f} tokens/s); forward with loss "
+              f"{fwd_ms:.1f} ms, backward and optimiser {bwd_ms:.1f} ms; "
+              f"peak memory {peak / 1e9:.2f} GB ({smi})")
+
+    # the share of the kernels' backward spent in the recompute through
+    # each plain version, at the train step's shapes
+    H, D = cfg.xlstm.n_heads, cfg.xlstm.head_dim
+    NH, HD = cfg.xlstm.n_heads, cfg.d_model // cfg.xlstm.n_heads
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rand(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).requires_grad_(True)
+
+    cases = {
+        "mlstm_scan": (MK, n_m, [rand(B_, H, S_, D) for _ in range(3)]
+                       + [rand(B_, H, S_), rand(B_, H, S_, shift=2.0)]),
+        "slstm_scan": (SK, n_s, [rand(B_, NH, S_, HD) for _ in range(4)]
+                       + [rand(NH, HD, HD, scale=HD ** -0.5)
+                          for _ in range(4)])}
+    recompute_ms = 0.0
+    for name, (mod, count, args) in cases.items():
+        out = getattr(mod, name)(*args)
+        g = torch.randn(out.shape, generator=gen, device=dev)
+        ms = cuda_ms(lambda: torch.autograd.grad(out, args, g,
+                                                 retain_graph=True), 2)
+        recompute_ms += count * ms
+        print(f"  {name} backward (recompute through the plain version and "
+              f"its autograd) at {tuple(args[0].shape)}: {ms:.2f} ms a "
+              f"call, {count} calls a step = {count * ms:.1f} ms, "
+              f"{count * ms / times['hopper'][2]:.3f} of the kernel step's "
+              f"backward and optimiser ({smi})")
+        del out, g, args
+    print(f"  recompute share of the kernel step's backward and optimiser: "
+          f"{recompute_ms / times['hopper'][2]:.3f} "
+          f"({recompute_ms:.1f} of {times['hopper'][2]:.1f} ms)")
+    del state0, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _close(name: str, got, want, tol: float) -> float:

@@ -6,6 +6,8 @@ JAX's names and ``(in, out)`` layouts, and a stage with repeat > 1 is
 stacked on a leading axis in both, so its leaves map one to one too. Every leaf's shape is checked against
 the port's own parameters for the same config, and a leaf that either side
 lacks is an error, so nothing is silently dropped or left at random.
+:func:`train_state_from_jax` maps a JAX ``TrainState`` (params and AdamW's
+step, m and v) the same way.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .device import resolve_device
 from .models.model import Model
+from .train.state import TrainState
 
 
 def _to_tensor(leaf: Any) -> torch.Tensor:
@@ -56,3 +59,19 @@ def params_from_jax(tree: Any, cfg, *, device=None) -> dict:
     dev = resolve_device(device)
     want = Model(cfg).init(torch.Generator(), device="meta")
     return _convert(tree, want, "", dev)
+
+
+def train_state_from_jax(state_tree: Any, cfg, *, device=None) -> TrainState:
+    """The port's ``TrainState`` for ``cfg`` from a JAX ``TrainState`` whose
+    leaves are numpy arrays: params, ``opt["m"]`` and ``opt["v"]`` through
+    the same checked walk as :func:`params_from_jax`, ``opt["step"]`` as an
+    int32 scalar; all on ``device`` (the GPU by default)."""
+    dev = resolve_device(device)
+    want = Model(cfg).init(torch.Generator(), device="meta")
+    opt = state_tree.opt
+    return TrainState(
+        params=_convert(state_tree.params, want, "params", dev),
+        opt={"step": torch.tensor(int(np.asarray(opt["step"])),
+                                  dtype=torch.int32, device=dev),
+             "m": _convert(opt["m"], want, "opt/m", dev),
+             "v": _convert(opt["v"], want, "opt/v", dev)})

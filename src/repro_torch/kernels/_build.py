@@ -88,19 +88,6 @@ def build_all() -> dict[str, str]:
             for name in sources()}
 
 
-def refuse_grad(name: str, *tensors) -> None:
-    """Raise if autograd would have to differentiate through kernel
-    ``name``: the kernels have no backward yet, and the outputs they write
-    carry no ``grad_fn``, so a backward would silently drop every gradient
-    through them."""
-    import torch
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward yet; "
-                           f"call it under torch.no_grad() or on inputs "
-                           f"that do not require grad")
-
-
 def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed;
     ``defines`` (macro names, passed as ``-D``) select an instrumented

@@ -27,6 +27,7 @@ from typing import Sequence
 import torch
 
 from . import _build
+from .autograd import recompute
 from .ref import decode_attention as plain
 
 __all__ = ["decode_attention", "plain", "launches", "bind", "declare",
@@ -299,7 +300,13 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode attention on the card. q: (B,H,D) fp32 CUDA, contiguous;
     k, v: (B,S,KV,D) fp32 or bf16 (one type for both), any strides with the
     last dim contiguous; lengths: (B,) int32 on the same device, never read
-    to the host. Returns (B,H,D) fp32."""
+    to the host. Returns (B,H,D) fp32. Differentiable in q, k and v: the
+    backward recomputes through :func:`plain` and differentiates that
+    (``autograd.py``)."""
+    return recompute(_launch, plain, q, k, v, lengths)
+
+
+def _launch(q, k, v, lengths) -> torch.Tensor:
     global launches
     out = call(q, k, v, lengths)
     launches += 1
@@ -311,8 +318,8 @@ def call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          lib: "ctypes.CDLL | None" = None) -> torch.Tensor:
     """:func:`decode_attention` through ``lib``, a build of
     ``decode_attention.cu`` given by :func:`declare` (by default this
-    tree's; an older copy to time against it), counting no launch."""
-    _build.refuse_grad("decode_attention", q, k, v)
+    tree's; an older copy to time against it), counting no launch and
+    recording no gradient."""
     b, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     if not q.is_cuda or q.dtype != torch.float32 or not q.is_contiguous():

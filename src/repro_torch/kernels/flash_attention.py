@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .autograd import recompute
 from .ref import flash_attention as plain
 
 __all__ = ["flash_attention", "plain", "launches", "bind", "Geometry",
@@ -207,9 +208,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention on the card. q: (B,H,Sq,D); k, v: (B,KV,Skv,D), fp32
     CUDA, any strides with the last dim contiguous and 16-byte aligned
     rows; H a multiple of KV; D in ``HEAD_DIMS``. Returns (B,H,Sq,D) in
-    q's layout."""
+    q's layout. Differentiable: the backward recomputes through
+    :func:`plain` and differentiates that (``autograd.py``)."""
+    return recompute(
+        functools.partial(_launch, causal=causal, window=window),
+        functools.partial(plain, causal=causal, window=window), q, k, v)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: "int | None") -> torch.Tensor:
     global launches
-    _build.refuse_grad("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, kv, skv, d)),

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .autograd import recompute
 from .ref import mlstm_chunkwise as plain
 
 __all__ = ["mlstm_scan", "plain", "launches", "bind", "Geometry", "geometry",
@@ -175,9 +176,13 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunkwise mLSTM from zero state on the card. q,k,v: (B,H,S,D) fp32
     CUDA, contiguous, D a multiple of 64 up to ``MAX_D``; i_raw,f_raw:
     (B,H,S). S must be a multiple of ``CHUNK`` (16). Returns h: (B,H,S,D).
-    No backward: raises under grad for inputs that require it."""
+    Differentiable: the backward recomputes through :func:`plain`
+    (``cs=256``) and differentiates that (``autograd.py``)."""
+    return recompute(_launch, plain, q, k, v, i_raw, f_raw)
+
+
+def _launch(q, k, v, i_raw, f_raw) -> torch.Tensor:
     global launches
-    _build.refuse_grad("mlstm_scan", q, k, v, i_raw, f_raw)
     b, h, s, d = q.shape
     for name, t, shape in (("q", q, (b, h, s, d)), ("k", k, (b, h, s, d)),
                            ("v", v, (b, h, s, d)), ("i_raw", i_raw, (b, h, s)),

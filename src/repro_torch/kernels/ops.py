@@ -7,9 +7,10 @@ version on any device; it exists so that the same model can be held
 against its own kernel-free run on the card.
 
 The kernels take a narrower set of shapes than the TPU kernels (the CUDA
-``mlstm_scan``: D a multiple of 64 up to 512, S a multiple of 16) and have
-no backward yet: each wrapper raises under grad for inputs that require
-it, rather than return a result that autograd cannot see through.
+``mlstm_scan``: D a multiple of 64 up to 512, S a multiple of 16). Each
+wrapper is differentiable: its forward is the kernel and its backward
+recomputes the plain version from the saved inputs and differentiates that
+(``autograd.py``), so a gradient through a kernel is the plain path's.
 """
 
 from __future__ import annotations

@@ -27,6 +27,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .autograd import recompute
 from .ref import rglru_scan as plain
 
 __all__ = ["rglru_scan", "plain", "launches", "bind", "Geometry",
@@ -248,9 +249,14 @@ def rglru_scan(x: torch.Tensor, a_gate: torch.Tensor, i_gate: torch.Tensor,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """RG-LRU on the card. x, a_gate, i_gate: (B,S,W) fp32 CUDA,
     contiguous, any B <= 65535, S, W >= 1; lam: (W,); h0: (B,W) or None
-    for a zero state. Returns (y (B,S,W), h_last (B,W))."""
+    for a zero state. Returns (y (B,S,W), h_last (B,W)). Differentiable in
+    both outputs: the backward recomputes through :func:`plain` and
+    differentiates that (``autograd.py``)."""
+    return recompute(_launch, plain, x, a_gate, i_gate, lam, h0)
+
+
+def _launch(x, a_gate, i_gate, lam, h0) -> tuple[torch.Tensor, torch.Tensor]:
     global launches
-    _build.refuse_grad("rglru_scan", x, a_gate, i_gate, lam, h0)
     b, s, w = x.shape
     checks = [("x", x, (b, s, w)), ("a_gate", a_gate, (b, s, w)),
               ("i_gate", i_gate, (b, s, w)), ("lam", lam, (w,))]

@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .autograd import recompute
 from .ref import slstm_scan_ref as plain
 
 __all__ = ["slstm_scan", "plain", "launches", "Geometry", "cluster_size",
@@ -145,9 +146,14 @@ def launch_geometry(b: int, nh: int, hd: int,
 def slstm_scan(z, i, f, o, rz, ri, rf, ro) -> torch.Tensor:
     """sLSTM from zero state on the card. z,i,f,o: (B,NH,S,HD) fp32 CUDA
     pre-activations, contiguous; r*: (NH,HD,HD) indexed [in, out]; HD a
-    multiple of 16 up to 256. Returns h: (B,NH,S,HD)."""
+    multiple of 16 up to 256. Returns h: (B,NH,S,HD). Differentiable: the
+    backward recomputes through :func:`plain` and differentiates that
+    (``autograd.py``)."""
+    return recompute(_launch, plain, z, i, f, o, rz, ri, rf, ro)
+
+
+def _launch(z, i, f, o, rz, ri, rf, ro) -> torch.Tensor:
     global launches
-    _build.refuse_grad("slstm_scan", z, i, f, o, rz, ri, rf, ro)
     b, nh, s, hd = z.shape
     seq, rec = (b, nh, s, hd), (nh, hd, hd)
     for name, t, shape in (("z", z, seq), ("i", i, seq), ("f", f, seq),

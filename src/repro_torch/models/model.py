@@ -12,17 +12,22 @@ Parameters are a plain nested dict with the JAX pytree's paths
 maps one onto the other leaf by leaf. A stage with repeat > 1 has its
 parameters (and its decode caches) stacked on a leading axis, exactly as
 the JAX package stacks them for ``lax.scan``; here a Python loop runs the
-repeats over views ``p[r]``. Activation checkpointing comes with training.
+repeats over views ``p[r]``. ``Model.loss`` is the training loss;
+``remat`` checkpoints each unit of a stage's repeat as the JAX model's
+``_maybe_remat`` does (``none``, ``full``, ``dots``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import TYPE_CHECKING, Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
 from ..kernels.ops import KERNEL_IMPLS
+from ..tree import leaves, tree_map
 from . import layers as L
 from . import rglru as RG
 from . import xlstm as XL
@@ -52,22 +57,12 @@ def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
     return L.AttnDims(cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
-def _tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts/lists of tensors."""
-    t0 = trees[0]
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
-    if isinstance(t0, (list, tuple)):
-        return [_tree_map(fn, *xs) for xs in zip(*trees)]
-    return fn(*trees)
-
-
 def _repeats(tree, repeat: int) -> list:
     """A stage's tree for each repeat: views ``t[r]`` of a stacked stage,
     the tree itself for an unstacked one."""
     if repeat == 1:
         return [tree]
-    return [_tree_map(lambda t: t[r], tree) for r in range(repeat)]
+    return [tree_map(lambda t: t[r], tree) for r in range(repeat)]
 
 
 def _write_back(dst, src) -> None:
@@ -168,14 +163,42 @@ def block_cache_init(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
 # Model
 # --------------------------------------------------------------------------
 
+REMATS = ("none", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
+    """Keep the outputs of matrix products without batch dims, recompute
+    the rest: ``dots_with_no_batch_dims_saveable``. A kernel launched
+    through ctypes is no aten op, so it is recomputed."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, remat: str):
+    """Activation-checkpoint policies: none | full | dots. A checkpointed
+    unit runs its forward again in the backward, kernels included."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        ckpt.checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots))
+
+
 class Model:
     """``kernel_impl="hopper"`` runs each kernel of the path on a CUDA
     tensor and its plain version on a CPU tensor; ``"plain"`` runs the
-    plain versions on any device."""
+    plain versions on any device. ``remat`` is one of ``REMATS``."""
 
-    def __init__(self, cfg: ArchConfig, kernel_impl: str = "hopper"):
+    def __init__(self, cfg: ArchConfig, kernel_impl: str = "hopper",
+                 remat: str = "none"):
         if kernel_impl not in KERNEL_IMPLS:
             raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}")
+        if remat not in REMATS:
+            raise ValueError(f"unknown remat policy {remat!r}")
         for pattern, _ in cfg.stages:
             for kind in pattern:
                 if kind not in _KINDS:
@@ -189,6 +212,7 @@ class Model:
                 f"slice")
         self.cfg = cfg
         self.kernel_impl = kernel_impl
+        self.remat = remat
 
     # -- params ---------------------------------------------------------------
 
@@ -236,11 +260,26 @@ class Model:
         cfg = self.cfg
         x = L.embed(params["embed"], batch["tokens"])
         for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
+            def unit(xx, lp, _pattern=pattern):
+                for bi, kind in enumerate(_pattern):
+                    xx, _ = block_apply(lp[f"b{bi}"], xx, cfg, kind,
+                                        kernel_impl=self.kernel_impl)
+                return xx
             for lp in _repeats(sp, repeat):
-                for bi, kind in enumerate(pattern):
-                    x, _ = block_apply(lp[f"b{bi}"], x, cfg, kind,
-                                       kernel_impl=self.kernel_impl)
+                x = _maybe_remat(unit, self.remat)(x, lp)
         return self._logits(params, x), x.new_zeros((), dtype=torch.float32)
+
+    def loss(self, params: Params, batch: dict
+             ) -> tuple[torch.Tensor, dict]:
+        """Mean next-token cross-entropy over the positions whose label is
+        >= 0, plus the aux loss. Returns (total, {"ce", "aux"})."""
+        logits, aux = self.apply(params, batch)
+        labels = batch["labels"]
+        logp = torch.log_softmax(logits, -1)
+        nll = -logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # -- decode ---------------------------------------------------------------
 
@@ -286,7 +325,7 @@ class Model:
 
     def param_count(self) -> int:
         shapes = self.init(torch.Generator(), device="meta")
-        return sum(t.numel() for t in _leaves(shapes))
+        return sum(t.numel() for t in leaves(shapes))
 
 
 def _stack_filled(make_unit, repeat: int):
@@ -295,20 +334,10 @@ def _stack_filled(make_unit, repeat: int):
     allocated once and filled a unit at a time, so the peak is the stack
     plus one unit (a full-width stage would not fit twice)."""
     first = make_unit()
-    stacked = _tree_map(lambda t: t.new_empty((repeat, *t.shape)), first)
+    stacked = tree_map(lambda t: t.new_empty((repeat, *t.shape)), first)
     for r in range(repeat):
         unit = first if r == 0 else make_unit()
-        _tree_map(lambda dst, src: dst[r].copy_(src), stacked, unit)
+        tree_map(lambda dst, src: dst[r].copy_(src), stacked, unit)
         del unit
     return stacked
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree

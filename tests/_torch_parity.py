@@ -118,3 +118,15 @@ def jax_params(cfg, seed: int = 0):
 def torch_params(np_tree, cfg, device="cpu"):
     from repro_torch.convert import params_from_jax
     return params_from_jax(np_tree, cfg, device=device)
+
+
+def mlstm_b_i_scales(cfg, names) -> dict:
+    """{b_i path: w_i path} for the mLSTM blocks of ``cfg``. The input-gate
+    bias b_i's grad is the sum of dL/d i_raw over positions, which cancels
+    to 1e-4 or less of its sibling w_i's (the same terms weighted by the
+    conv output), so a grad comparison holds b_i on w_i's scale
+    (test_torch_train.py's docstring has the measurement)."""
+    kinds = dict(enumerate(cfg.layer_pattern))
+    return {name: name[:-len("b_i")] + "w_i" for name in names
+            if name.endswith("/b_i")
+            and kinds[int(name.split("/")[2][1:])] == "mlstm"}

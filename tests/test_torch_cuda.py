@@ -5,13 +5,15 @@ Python has no JAX for tests/conftest.py to import):
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 from _torch_parity import (ATTN_TOL, MLSTM_TOL, RGLRU_TOL,  # noqa: F401
                            SLSTM_TOL, _reset_port, cuda_device,
-                           decode_inputs, flash_inputs, mlstm_inputs, n,
-                           rglru_inputs, slstm_inputs, t)
+                           decode_inputs, flash_inputs, mlstm_b_i_scales,
+                           mlstm_inputs, n, rglru_inputs, slstm_inputs, t)
 
 from repro_torch.kernels import decode_attention as DK
 from repro_torch.kernels import flash_attention as FK
@@ -66,22 +68,6 @@ def test_mlstm_kernel_rejects_sequence_off_the_chunk(cuda_device):
     with pytest.raises(ValueError, match="multiple of 16"):
         MK.mlstm_scan(*args)
     assert MK.launches == before
-
-
-@pytest.mark.requires_cuda
-def test_kernel_refuses_grad_on_card(cuda_device):
-    """Under grad an input that requires it is refused and nothing is
-    launched; under no_grad the same call runs."""
-    args = [t(a, cuda_device) for a in mlstm_inputs(0, 1, 1, 64, 64)]
-    args[0].requires_grad_(True)
-    before = MK.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.mlstm_scan(*args)
-    assert MK.launches == before
-    with torch.no_grad():
-        ops.mlstm_scan(*args)
-    torch.cuda.synchronize()
-    assert MK.launches == before + 1
 
 
 @pytest.mark.requires_cuda
@@ -320,6 +306,129 @@ def test_decode_kernel_replays_in_a_cuda_graph_with_new_lengths(cuda_device):
         for row, length in enumerate(lengths):
             if length == 0:
                 assert torch.all(out[row] == 0)
+
+
+# --------------------------------------------------------------------------
+# on the card: the kernels' backward and the train step through them
+# --------------------------------------------------------------------------
+
+_BACKWARD_CASES = {
+    "mlstm_scan": (MK, lambda: mlstm_inputs(4, 2, 2, 256, 64)),
+    "slstm_scan": (SK, lambda: slstm_inputs(4, 2, 2, 64, 64)),
+    "rglru_scan": (RK, lambda: rglru_inputs(4, 2, 64, 128, True)),
+    "flash_attention": (FK, lambda: flash_inputs(4, 1, 1, 2, 128, 64)),
+    "decode_attention": (DK, lambda: decode_inputs(4, 2, 1, 2, 64, 64)),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kernel", sorted(_BACKWARD_CASES))
+def test_kernel_backward_is_plain_autograd_on_card(cuda_device, kernel):
+    """Under grad each wrapper launches its kernel once in the forward and
+    not at all in the backward, and each input's grad equals autograd's
+    through the plain version at the same inputs and grad_output (the
+    same operations on the same inputs; at most 1e-6 relative, for
+    atomics in index backward)."""
+    mod, make = _BACKWARD_CASES[kernel]
+    args = [t(a, cuda_device) for a in make()]
+    args = [a.requires_grad_(True) if a.is_floating_point() else a
+            for a in args]
+    before = mod.launches
+    out = getattr(mod, kernel)(*args)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(o.grad_fn is not None for o in outs)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    grad_outs = [torch.randn(o.shape, generator=gen, device=cuda_device)
+                 for o in outs]
+    got = torch.autograd.grad(outs, [a for a in args if a.requires_grad],
+                              grad_outs)
+    torch.cuda.synchronize()
+    assert mod.launches == before + 1
+    fresh = [a.detach().clone().requires_grad_(a.requires_grad)
+             for a in args]
+    ref = mod.plain(*fresh)
+    want = torch.autograd.grad(ref if isinstance(ref, tuple) else (ref,),
+                               [a for a in fresh if a.requires_grad],
+                               grad_outs)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
+
+
+@pytest.mark.requires_cuda
+def test_train_step_with_kernels_matches_plain_on_card(cuda_device):
+    """Smoke xLSTM at S=512 (mLSTM head dim 64, sLSTM head dim 32): one
+    train step's loss and grads with the kernels against the plain path,
+    to chip_smoke.py phase 5's limits; the kernels launch in the forward
+    only (2 mlstm_scan, 1 slstm_scan)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synth_batch
+    from repro_torch.models import Model
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import leaves, map_with_path
+
+    cfg = get_arch("xlstm-125m", smoke=True)
+    params = Model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in
+             synth_batch(cfg, batch=2, seq=512, seed=0, step=0).items()}
+    runs = {}
+    for impl in ("hopper", "plain"):
+        MK.launches = SK.launches = 0
+        runs[impl] = value_and_grad(Model(cfg, kernel_impl=impl), params,
+                                     batch)
+        torch.cuda.synchronize()
+        runs[impl + " launches"] = (MK.launches, SK.launches)
+    assert runs["hopper launches"] == (2, 1)
+    assert runs["plain launches"] == (0, 0)
+    (loss, _), grads = runs["hopper"]
+    (want_loss, _), want = runs["plain"]
+    assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
+    names = []
+    map_with_path(lambda path, _: names.append(path), params)
+    scale_of = mlstm_b_i_scales(cfg, names)
+    want_by = dict(zip(names, leaves(want)))
+    for name, g, w in zip(names, leaves(grads), leaves(want)):
+        scale = want_by[scale_of.get(name, name)].abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-3 * scale, name
+
+
+@pytest.mark.requires_cuda
+def test_trainer_on_card_with_checkpoint_round_trip(cuda_device, tmp_path):
+    """Two steps of the Trainer on the card through the kernels, a
+    checkpoint at each, and the last restored bit for bit."""
+    import repro_torch.core as rc
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig, init_train_state
+    from repro_torch.tree import leaves
+
+    rc.plan("threads", workers=2)
+    cfg = get_arch("xlstm-125m", smoke=True)
+    tcfg = TrainerConfig(steps=2, batch=2, seq=512, log_every=1,
+                         ckpt_every=1, ckpt_dir=str(tmp_path))
+    trainer = Trainer(cfg, tcfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                             total_steps=2))
+    MK.launches = SK.launches = 0
+    state, history = trainer.run()
+    rc.shutdown()
+    assert (MK.launches, SK.launches) == (4, 2)
+    assert [h["step"] for h in history] == [1, 2]
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert sorted(os.listdir(tmp_path)) == ["step_00000001",
+                                            "step_00000002"]
+    template = init_train_state(Model(cfg).init(
+        torch.Generator(device=cuda_device), device=cuda_device))
+    restored, step = trainer.ckpt.restore(template, 2)
+    assert step == 2
+    for a, b in zip(leaves(restored), leaves(state)):
+        assert a.device == b.device and a.dtype == b.dtype
+        assert torch.equal(a, b)
 
 
 # --------------------------------------------------------------------------

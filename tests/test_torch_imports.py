@@ -43,7 +43,11 @@ def test_importing_every_module_leaves_jax_out():
     assert {"repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.kernels.rglru_scan",
             "repro_torch.kernels.flash_attention",
-            "repro_torch.kernels.decode_attention"} <= set(_port_modules())
+            "repro_torch.kernels.decode_attention",
+            "repro_torch.kernels.autograd", "repro_torch.optim.adamw",
+            "repro_torch.train.state", "repro_torch.train.trainer",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
+            "repro_torch.tree"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
@@ -54,6 +58,8 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT.rglob("*.py")]
     + [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
+       ROOT / "examples" / "train_lm_torch.py",
+       ROOT / "scripts" / "train_divergence.py",
        ROOT / "scripts" / "profile_torch.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_repro_or_jax(path):
@@ -76,7 +82,10 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.convert import params_from_jax
     from repro_torch.device import resolve_device
     from repro_torch.models import Model
+    from repro_torch.convert import train_state_from_jax
+    from repro_torch.data import Prefetcher
     from repro_torch.serve import Server
+    from repro_torch.train import Trainer, TrainerConfig
 
     cfg = get_arch("xlstm-125m", smoke=True)
     model = Model(cfg)
@@ -85,7 +94,10 @@ def test_entry_points_raise_without_cuda(no_cuda):
                  lambda: model.init_cache(2),
                  lambda: resolve_device(None),
                  lambda: resolve_device("cuda"),
-                 lambda: params_from_jax({}, cfg)):
+                 lambda: params_from_jax({}, cfg),
+                 lambda: train_state_from_jax(None, cfg),
+                 lambda: Trainer(cfg, TrainerConfig()),
+                 lambda: Prefetcher(cfg, batch=1, seq=8)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 

@@ -742,36 +742,92 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def _grad_inputs(kernel):
-    """CPU inputs of one CUDA wrapper, the first of them requiring grad."""
-    args = {"mlstm_scan": lambda: mlstm_inputs(0, 1, 1, 64, 64),
-            "slstm_scan": lambda: slstm_inputs(0, 1, 1, 8, 32),
-            "rglru_scan": lambda: rglru_inputs(0, 1, 8, 32, True),
+    """CPU inputs of one CUDA wrapper; every float input requires grad."""
+    args = {"mlstm_scan": lambda: mlstm_inputs(0, 1, 2, 64, 64),
+            "slstm_scan": lambda: slstm_inputs(0, 2, 1, 8, 32),
+            "rglru_scan": lambda: rglru_inputs(0, 2, 8, 32, True),
             "flash_attention": lambda: flash_inputs(0, 1, 1, 2, 16, 64),
-            "decode_attention": lambda: decode_inputs(0, 1, 1, 2, 16,
+            "decode_attention": lambda: decode_inputs(0, 2, 1, 2, 16,
                                                       64)}[kernel]()
     args = [t(a) for a in args]
-    args[0].requires_grad_(True)
-    return args
+    return [a.requires_grad_(True) if a.is_floating_point() else a
+            for a in args]
 
 
 _WRAPPERS = {"mlstm_scan": MK.mlstm_scan, "slstm_scan": SK.slstm_scan,
              "rglru_scan": RK.rglru_scan,
              "flash_attention": FK.flash_attention,
              "decode_attention": DK.decode_attention}
+_PLAIN = {"mlstm_scan": MK.plain, "slstm_scan": SK.plain,
+          "rglru_scan": RK.plain, "flash_attention": FK.plain,
+          "decode_attention": DK.plain}
 
 
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _grads_by_plain_autograd(kernel, args, grad_outs):
+    """Gradients of the plain version by autograd alone, from fresh copies
+    of ``args``."""
+    fresh = [a.detach().clone().requires_grad_(a.requires_grad) for a in args]
+    outs = _outputs(_PLAIN[kernel](*fresh))
+    return torch.autograd.grad(outs, [a for a in fresh if a.requires_grad],
+                               grad_outs)
+
+
+@pytest.mark.parametrize("forward", ["plain", "perturbed"])
 @pytest.mark.parametrize("kernel", sorted(_WRAPPERS))
-def test_kernel_wrappers_refuse_grad(kernel):
-    """No kernel has a backward yet: under grad, an input that requires it
-    is refused before anything else is checked, so the refusal shows on
-    the CPU; under no_grad the same call reaches the device check."""
+def test_kernel_backward_is_plain_autograd(kernel, forward):
+    """The shared helper with a stand-in forward on the CPU (the plain
+    version, or its result moved by 1): the output carries a grad_fn and
+    every input's grad equals plain autograd's bit for bit, whatever the
+    forward returned. The CUDA wrapper itself still refuses CPU tensors,
+    with grad and without, and launches nothing."""
+    from repro_torch.kernels.autograd import recompute
+    plain = _PLAIN[kernel]
+
+    def stand_in(*a):
+        out = plain(*a)
+        if forward == "plain":
+            return out
+        return tuple(o + 1 for o in out) if isinstance(out, tuple) \
+            else out + 1
+
     args = _grad_inputs(kernel)
+    outs = _outputs(recompute(stand_in, plain, *args))
+    assert all(o.grad_fn is not None for o in outs)
+    rng = np.random.default_rng(1)
+    grad_outs = [torch.from_numpy(rng.standard_normal(o.shape)
+                                  .astype(np.float32)) for o in outs]
+    got = torch.autograd.grad(outs, [a for a in args if a.requires_grad],
+                              grad_outs)
+    want = _grads_by_plain_autograd(kernel, args, grad_outs)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
     before = _all_launches()
-    with pytest.raises(RuntimeError, match=f"{kernel}: .*no backward"):
+    with pytest.raises(ValueError, match="CUDA"):
         _WRAPPERS[kernel](*args)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
         _WRAPPERS[kernel](*args)
     assert _all_launches() == before
+
+
+def test_recompute_gives_no_grad_to_absent_inputs():
+    """rglru_scan without h0: None passes through the helper, both outputs
+    carry grads back to x, the gates and lambda."""
+    from repro_torch.kernels.autograd import recompute
+    x, ag, ig, lam, _ = [None if a is None else t(a).requires_grad_(True)
+                         for a in rglru_inputs(2, 2, 8, 16, False)]
+    y, h_last = recompute(RK.plain, RK.plain, x, ag, ig, lam, None)
+    (y.sum() + 2 * h_last.sum()).backward()
+    fresh = [a.detach().clone().requires_grad_(True) for a in (x, ag, ig, lam)]
+    y2, h2 = RK.plain(*fresh, None)
+    (y2.sum() + 2 * h2.sum()).backward()
+    for a, b in zip((x, ag, ig, lam), fresh):
+        assert torch.equal(a.grad, b.grad)
 
 
 def test_unknown_kernel_impl_raises():
