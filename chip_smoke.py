@@ -30,7 +30,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      and 4, its loss curve held against the plain path's and the step-4
      checkpoint restored bit for bit; then the train step's times (forward
      with loss, backward with the optimiser), tokens/s, peak memory and the
-     share of the backward spent recomputing each kernel's plain version.
+     share of the backward spent recomputing each kernel's plain version;
+  6. the Future API on the card, with phase 3's params: three prefills
+     (B=8, S=2048) as futures under plan("cuda_async"), each with the host
+     ms until future() returns, resolved() right then, the ms until
+     value() against the direct call, its launch counts (10 mLSTM, 2
+     sLSTM) and its tokens bit for bit phase 3's; a watcher waiting on
+     device work while the main thread runs Python (the GIL is free); the
+     same future_map of the prefill over 4 batches of B=2 on sequential,
+     threads (2 workers), cuda_async and asyncio, each with its wall ms, 40
+     mLSTM and 8 sLSTM launches and the sequential tokens bit for bit; a
+     stream pipeline under cuda_async at max_in_flight=2 giving the same
+     tokens; and the shared state: an exact state.add fold from 8 futures
+     on threads, and state.get returning the live params.
 Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
 4096, 10.4 B fp32 parameters, random from the seed) takes the card:
   2b. the RG-LRU scan, windowed flash attention and split-S decode
@@ -313,6 +325,7 @@ def main() -> int:
     for name, n in launches.items():
         kernels[name]["launches"] = n
     ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 3)
+    prefill_ms = ms
     print(f"prefill (B,S)={(B, S)}: {ms:.1f} ms, "
           f"{B * S / ms * 1e3:.0f} tokens/s")
     with torch.no_grad():
@@ -397,11 +410,16 @@ def main() -> int:
     else:
         print("  top-2 margin below the tolerance: logits compared only")
 
-    del server, step, cache, tok, first, tokens, prefill
+    del server, step, cache, tok
     del dec_logits, pre_logits, long_toks
 
     # -- 5. xLSTM-125M training at full width --------------------------------
     training_phase(dev, cfg, params, smi)
+
+    # -- 6. the Future API on the card ---------------------------------------
+    future_api_phase(dev, cfg, params, prefill, tokens, first, prefill_ms,
+                     smi)
+    del first, tokens, prefill
 
     # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
     del model, params
@@ -667,6 +685,152 @@ def _close(name: str, got, want, tol: float) -> float:
           f"{'ok' if ok else 'FAIL'}")
     check(ok, f"{name}: the kernel disagrees with its plain version")
     return err.max().item()
+
+
+def future_api_phase(dev, cfg, params, prefill, tokens, first,
+                     prefill_ms: float, smi: str) -> None:
+    """Phase 6: the xLSTM prefill driven through the port's Future API on
+    the card — one prefill as a cuda_async future, the same future_map on
+    the four backends, a stream pipeline, and the shared state."""
+    import torch
+
+    import repro_torch.core as rc
+    from repro_torch.core import state
+    from repro_torch.kernels import mlstm_scan as MK
+    from repro_torch.kernels import slstm_scan as SK
+    from repro_torch.tree import leaves
+
+    n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
+    n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
+
+    def launches():
+        return {"mlstm_scan": MK.launches, "slstm_scan": SK.launches}
+
+    # 1. one prefill (B=8, S=2048) as a future under plan("cuda_async")
+    batch = {"tokens": tokens}
+    rc.plan("cuda_async")
+    direct = []
+    for _ in range(3):              # the direct call on the host's clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(params, batch)
+        torch.cuda.synchronize()
+        direct.append((time.perf_counter() - t0) * 1e3)
+    overheads = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        MK.launches = SK.launches = 0
+        t0 = time.perf_counter()
+        f = rc.future(lambda: prefill(params, batch))
+        submit_ms = (time.perf_counter() - t0) * 1e3
+        at_submit = rc.resolved(f)
+        got = rc.value(f)
+        value_ms = (time.perf_counter() - t0) * 1e3
+        counts = launches()
+        print(f"cuda_async prefill future {i} (B,S)={(B, S)}: future() "
+              f"returned in {submit_ms:.3f} ms, resolved() then "
+              f"{at_submit}, value() at {value_ms:.3f} ms; direct call "
+              f"{direct[i]:.3f} ms on the host's clock, {prefill_ms:.3f} ms "
+              f"by events in phase 3; launches {counts}")
+        check(counts == {"mlstm_scan": n_m, "slstm_scan": n_s},
+              f"the prefill future launches mlstm_scan {n_m}x and "
+              f"slstm_scan {n_s}x")
+        check(torch.equal(got, first),
+              "the cuda_async prefill's tokens are phase 3's bit for bit")
+        overheads.append(value_ms - direct[i])
+    print(f"  Future layer overhead, value() against the direct call: "
+          f"{', '.join(f'{o:.3f}' for o in overheads)} ms ({smi})")
+    del got, f
+
+    # the watcher parks in event.synchronize(): the main thread keeps
+    # running Python meanwhile (the GIL is released)
+    f = rc.future(lambda: torch.cuda._sleep(600_000_000))
+    fired = threading.Event()
+    rc.active_backend().add_done_callback(f._handle, lambda h: fired.set())
+    gaps, last, n = [], time.perf_counter(), 0
+    while not fired.is_set():
+        now = time.perf_counter()
+        gaps.append(now - last)
+        last, n = now, n + 1
+    print(f"  watcher waiting on ~0.3 s of device work: the main thread ran "
+          f"{n} loop iterations, longest gap {max(gaps) * 1e3:.3f} ms")
+    check(max(gaps) < 0.05 and n > 1000,
+          "the main thread runs Python while a watcher waits")
+    rc.value(f)
+    rc.shutdown()
+
+    # 2. the same future_map on every backend: 4 batches of B=2, S=2048
+    rng6 = np.random.default_rng(SEED)
+    batches = [{"tokens": torch.from_numpy(rng6.integers(
+        0, cfg.vocab_size, size=(2, S))).to(dev)} for _ in range(4)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        prefill(params, b)
+    torch.cuda.synchronize()
+    print(f"future_map of the prefill over 4 batches (B,S)={(2, S)}; four "
+          f"direct calls take {(time.perf_counter() - t0) * 1e3:.3f} ms")
+    maps = {}
+    for name, kw in (("sequential", {}), ("threads", {"workers": 2}),
+                     ("cuda_async", {}), ("asyncio", {})):
+        rc.plan(name, **kw)
+        rc.value(rc.future(lambda: None))      # start the backend's thread
+        torch.cuda.synchronize()
+        MK.launches = SK.launches = 0
+        t0 = time.perf_counter()
+        toks = rc.future_map(lambda b: prefill(params, b), batches)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = launches()
+        rc.shutdown()
+        maps[name] = toks
+        same = all(torch.equal(a, b)
+                   for a, b in zip(toks, maps["sequential"]))
+        print(f"  {name}: {wall:.3f} ms, launches {counts}, tokens bit for "
+              f"bit the sequential ones: {same}")
+        check(counts == {"mlstm_scan": 4 * n_m, "slstm_scan": 4 * n_s},
+              f"future_map on {name} launches each kernel once a block a "
+              f"batch")
+        check(len(toks) == 4 and same,
+              f"future_map on {name} gives the sequential tokens")
+
+    # 3. a stream pipeline under cuda_async, at most 2 in flight
+    rc.plan("cuda_async")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = rc.stream(batches, max_in_flight=2)
+    toks = s.map(lambda b: prefill(params, b)).collect()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    rc.shutdown()
+    same = all(torch.equal(a, b) for a, b in zip(toks, maps["sequential"]))
+    print(f"stream(batches, max_in_flight=2).map(prefill).collect() under "
+          f"cuda_async: {wall:.3f} ms, peak_in_flight "
+          f"{s.stats['peak_in_flight']}, {s.stats['dispatched']} chunks, "
+          f"tokens equal the map's: {same}")
+    check(len(toks) == 4 and same and s.stats["peak_in_flight"] <= 2,
+          "the stream gives the map's tokens within its in-flight bound")
+
+    # 4. shared state: an exact fold from 8 futures, and the live params
+    rc.plan("threads", workers=4)
+    state.reset()
+    fs = [rc.future(lambda: state.add("tokens", 2 * S)) for _ in range(8)]
+    rc.value(fs)
+    folded = state.read("tokens")
+    print(f"state.add from 8 futures on threads: {folded} "
+          f"(value, version); want ({8 * 2 * S}, 8)")
+    check(folded == (8 * 2 * S, 8), "the state fold is exact")
+    state.put("params", params)
+    live = rc.value(rc.future(lambda: state.get("params")))
+    print(f"state.get('params') is the live dict of "
+          f"{sum(p.numel() for p in leaves(params)) / 1e6:.1f} M "
+          f"parameters, on the driver and in a future: "
+          f"{state.get('params') is params and live is params}")
+    check(state.get("params") is params and live is params,
+          "state.get returns the live params")
+    state.reset()
+    rc.shutdown()
+    del maps, toks, batches, live
 
 
 def recurrentgemma_phases(dev, rng, kernels: dict) -> None:

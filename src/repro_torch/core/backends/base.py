@@ -39,6 +39,11 @@ class Backend(abc.ABC):
     #: whether immediateConditions can be relayed before value()
     supports_immediate: bool = False
 
+    @classmethod
+    def validate_spec(cls, **kwargs) -> None:
+        """Raise if a plan level with these constructor kwargs cannot run
+        on this host; ``plan()`` calls it before installing the level."""
+
     @abc.abstractmethod
     def submit(self, task: TaskSpec) -> Any:
         """Begin resolving; returns an opaque handle. May block when all

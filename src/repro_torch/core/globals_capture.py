@@ -42,6 +42,8 @@ import dis
 import types
 from typing import Any, Callable
 
+import torch
+
 from .errors import GlobalsError
 
 _GLOBAL_OPS = {"LOAD_GLOBAL", "LOAD_NAME", "STORE_GLOBAL", "DELETE_GLOBAL"}
@@ -62,11 +64,30 @@ def _code_global_names(code: types.CodeType) -> set[str]:
     return names
 
 
+def _tensor_memo(value: Any) -> dict:
+    """``copy.deepcopy`` memo mapping every tensor inside the containers of
+    ``value`` to itself, so the copy keeps them by reference."""
+    memo: dict = {}
+    seen: set = set()                     # containers may hold themselves
+    stack = [value]
+    while stack:
+        v = stack.pop()
+        if isinstance(v, torch.Tensor):
+            memo[id(v)] = v
+        elif isinstance(v, (dict, list, tuple, set, frozenset)) \
+                and id(v) not in seen:
+            seen.add(id(v))
+            stack.extend(v.values() if isinstance(v, dict) else v)
+    return memo
+
+
 def _snapshot_value(value: Any) -> Any:
     """Creation-time snapshot. Mutable python containers are copied; arrays,
-    scalars, functions and modules are captured by reference (immutables)."""
+    scalars, functions and modules are captured by reference (immutables).
+    Tensors stay references inside a copied container too: a dict of CUDA
+    parameters is a new dict of the same tensors, not a clone on the card."""
     if isinstance(value, (list, dict, set, bytearray)):
-        return copy.deepcopy(value)
+        return copy.deepcopy(value, _tensor_memo(value))
     return value
 
 

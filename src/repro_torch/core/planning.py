@@ -174,7 +174,9 @@ def plan(levels: "str | BackendSpec | Sequence[BackendSpec | str]" = "sequential
 
     ``plan("threads", workers=4)`` is sugar for ``plan(spec("threads",
     workers=4))``. Changing the plan shuts the previously active backend
-    down once its running futures finish.
+    down once its running futures finish. A level that cannot run on this
+    host (``cuda_async`` without a card) raises here, not at the first
+    future.
     """
     global _global_stack
     if kwargs:
@@ -183,6 +185,8 @@ def plan(levels: "str | BackendSpec | Sequence[BackendSpec | str]" = "sequential
         levels = tweak(levels if isinstance(levels, BackendSpec)
                        else spec(levels), **kwargs)
     new = _normalize(levels)
+    for lv in new:            # refuse a level that cannot run here, now
+        BACKEND_REGISTRY[lv.name].validate_spec(**dict(lv.kwargs))
     doomed: list = []
     with _lock:
         prev = _global_stack

@@ -28,13 +28,15 @@ MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
 
 @pytest.fixture(autouse=True)
 def _reset_port():
-    """The port's plan and seed per test (tests/conftest.py resets only
-    repro.core)."""
+    """The port's plan, seed and shared state per test (tests/conftest.py
+    resets only repro.core)."""
     prc.plan("sequential")
     prc.set_session_seed(0)
+    prc.state.reset()              # fresh shared-state service per test
     yield
     prc.shutdown()
     prc.plan("sequential")
+    prc.state.reset()
 
 
 @pytest.fixture
@@ -43,6 +45,26 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (runs on the H100 host)")
     return torch.device("cuda")
+
+
+#: the port's backend matrix for the Future-API mirrors: (id, name, kwargs)
+BACKENDS = [
+    ("sequential", "sequential", {}),
+    ("threads", "threads", {"workers": 2}),
+    # the synchronous form: on the card it records a CUDA event instead
+    ("cuda_async", "cuda_async", {"device": "cpu"}),
+    ("asyncio", "asyncio", {}),
+]
+BACKEND_IDS = [b[0] for b in BACKENDS]
+
+
+@pytest.fixture(params=BACKENDS, ids=BACKEND_IDS)
+def backend(request):
+    """Each test of a backend-parametrised mirror runs once a backend."""
+    _id, name, kw = request.param
+    prc.plan(name, **kw)
+    yield name
+    prc.shutdown()
 
 
 def randn(rng: np.random.Generator, *shape, scale=1.0, shift=0.0):

@@ -171,9 +171,36 @@ def test_cancel_unlaunched():
 
 
 def test_only_in_process_backends_are_registered():
-    assert sorted(BACKEND_REGISTRY) == ["sequential", "threads"]
+    assert sorted(BACKEND_REGISTRY) == ["asyncio", "cuda_async",
+                                        "sequential", "threads"]
     with pytest.raises(ValueError, match="unknown backend"):
         rc.plan("cluster")
+
+
+def test_public_names_are_the_references_but_the_out_of_process_ones():
+    """``__all__`` is the JAX package's, less the launchers and the errors
+    of the out-of-process backends (a later slice of the port)."""
+    import repro.core as ref_core
+    later = {"Launcher", "LocalLauncher", "SSHLauncher", "CommandLauncher",
+             "WorkerProc", "WorkerDiedError", "ChannelError",
+             "LineageExhaustedError", "NonExportableObjectError"}
+    assert sorted(rc.__all__) == sorted(set(ref_core.__all__) - later)
+    assert all(hasattr(rc, name) for name in rc.__all__)
+
+
+def test_snapshot_keeps_tensors_in_containers_by_reference():
+    """A captured dict is copied, its tensors are not: a dict of CUDA
+    parameters must not be cloned on the card at every future."""
+    params = {"w": torch.ones(3), "layers": [torch.zeros(2), 5]}
+    f = future(lambda: (params["w"], params["layers"][0], params))
+    params["layers"].append("later")
+    w, z, snap = value(f)
+    assert w is params["w"] and z is params["layers"][0]
+    assert snap is not params and snap["layers"] == [z, 5]
+    loop = [torch.ones(1)]
+    loop.append(loop)                    # a container that holds itself
+    got = value(future(lambda: loop))
+    assert got is not loop and got[1] is got and got[0] is loop[0]
 
 
 # --------------------------------------------------------------------------
@@ -435,9 +462,11 @@ def test_session_seed_changes_draws():
     assert not torch.equal(a, b)
 
 
-@pytest.mark.parametrize("plan", ["sequential", "threads"])
+@pytest.mark.parametrize("plan", ["sequential", "threads", "cuda_async",
+                                  "asyncio"])
 def test_rng_misuse_warning(plan):
-    rc.plan(plan, workers=2) if plan == "threads" else rc.plan(plan)
+    kw = {"threads": {"workers": 2}, "cuda_async": {"device": "cpu"}}
+    rc.plan(plan, **kw.get(plan, {}))
     key = rng_mod.stream_key(0)
     with pytest.warns(rc.RNGMisuseWarning):
         value(future(lambda: rng_mod.normal(key, (2,))))

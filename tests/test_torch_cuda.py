@@ -432,6 +432,130 @@ def test_trainer_on_card_with_checkpoint_round_trip(cuda_device, tmp_path):
 
 
 # --------------------------------------------------------------------------
+# plan("cuda_async") on the card: futures resolved by CUDA events
+# --------------------------------------------------------------------------
+
+#: cycles of torch.cuda._sleep for ~50 ms at the H100's ~1.98 GHz
+_SLEEP_50MS = 100_000_000
+
+
+@pytest.mark.requires_cuda
+def test_cuda_async_resolves_with_the_stream_on_card(cuda_device):
+    """The body only enqueues: right after submit the future is not
+    resolved (its ~50 ms of device work is queued), and value() waits for
+    the event."""
+    import repro_torch.core as rc
+    rc.plan("cuda_async")
+    x = torch.ones(4, device=cuda_device)
+    x * 2                   # load the kernel first: a lazy module load syncs
+    torch.cuda.synchronize()
+    f = rc.future(lambda: torch.cuda._sleep(_SLEEP_50MS) or x * 2)
+    assert rc.resolved(f) is False
+    torch.testing.assert_close(rc.value(f), torch.full_like(x, 2.0))
+    assert rc.resolved(f) is True
+
+
+@pytest.mark.requires_cuda
+def test_cuda_async_callback_exactly_once_under_races_on_card(cuda_device):
+    """S4 with real events: four threads register callbacks while the
+    device work completes; each fires exactly once in all 30 rounds."""
+    import threading
+    import time
+
+    import repro_torch.core as rc
+    rc.plan("cuda_async")
+    be = rc.active_backend()
+    for r in range(30):
+        cycles = (0, 20_000, 2_000_000)[r % 3]
+        f = rc.future(lambda c=cycles: torch.cuda._sleep(c) or
+                      torch.arange(16, device=cuda_device).sum())
+        fired = []
+        lock = threading.Lock()
+
+        def register(k, _f=f, _fired=fired, _lock=lock):
+            def cb(_h, _k=k):
+                with _lock:
+                    _fired.append(_k)
+            be.add_done_callback(_f._handle, cb)
+
+        ts = [threading.Thread(target=register, args=(k,)) for k in range(4)]
+        for th in ts:
+            th.start()
+        for th in ts:
+            th.join()
+        deadline = time.monotonic() + 5
+        while time.monotonic() < deadline:
+            with lock:
+                if len(fired) >= 4:
+                    break
+            time.sleep(0.001)
+        time.sleep(0.002)
+        with lock:
+            assert sorted(fired) == [0, 1, 2, 3], r
+        assert int(rc.value(f)) == 120
+
+
+@pytest.mark.requires_cuda
+def test_cuda_async_watcher_leaves_the_gil_free_on_card(cuda_device):
+    """While a watcher thread waits on ~300 ms of device work, the main
+    thread keeps running Python: no gap between its loop iterations comes
+    near the wait (the watcher's synchronize() releases the GIL)."""
+    import threading
+    import time
+
+    import repro_torch.core as rc
+    rc.plan("cuda_async")
+    f = rc.future(lambda: torch.cuda._sleep(6 * _SLEEP_50MS))
+    fired = threading.Event()
+    rc.active_backend().add_done_callback(f._handle,
+                                          lambda h: fired.set())
+    gaps, last, n = [], time.perf_counter(), 0
+    while not fired.is_set():
+        now = time.perf_counter()
+        gaps.append(now - last)
+        last, n = now, n + 1
+    assert rc.resolved(f) and n > 1000
+    assert max(gaps) < 0.05, max(gaps)
+
+
+@pytest.mark.requires_cuda
+def test_future_map_prefill_cuda_async_equals_sequential_on_card(
+        cuda_device):
+    """future_map of the smoke xLSTM prefill over 4 batches of S=512
+    (where the chunkwise mLSTM, the kernel's form, begins): cuda_async's
+    tokens are sequential's bit for bit (the same kernels on the same
+    inputs on one stream), with one kernel launch a block a batch."""
+    import repro_torch.core as rc
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step
+
+    cfg = get_arch("xlstm-125m", smoke=True)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device)
+    prefill = make_prefill_step(model)
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(2, 512))).to(cuda_device)}
+        for _ in range(4)]
+    runs = {}
+    for name in ("sequential", "cuda_async"):
+        rc.plan(name)
+        MK.launches = SK.launches = 0
+        runs[name] = rc.future_map(lambda b: prefill(params, b), batches)
+        torch.cuda.synchronize()
+        runs[name + " launches"] = (MK.launches, SK.launches)
+        rc.shutdown()
+    n_m = sum(k == "mlstm" for k in cfg.layer_pattern)
+    n_s = sum(k == "slstm" for k in cfg.layer_pattern)
+    for name in ("sequential", "cuda_async"):
+        assert runs[name + " launches"] == (4 * n_m, 4 * n_s)
+    for a, b in zip(runs["sequential"], runs["cuda_async"]):
+        assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
 # the build, on any host
 # --------------------------------------------------------------------------
 

@@ -47,7 +47,10 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.kernels.autograd", "repro_torch.optim.adamw",
             "repro_torch.train.state", "repro_torch.train.trainer",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager",
-            "repro_torch.tree"} <= set(_port_modules())
+            "repro_torch.tree", "repro_torch.core.mapreduce",
+            "repro_torch.core.stream", "repro_torch.core.state",
+            "repro_torch.core.backends.asyncio_loop",
+            "repro_torch.core.backends.cuda_async"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
@@ -59,6 +62,9 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
     [p for p in PORT.rglob("*.py")]
     + [ROOT / "chip_smoke.py", ROOT / "examples" / "serve_torch.py",
        ROOT / "examples" / "train_lm_torch.py",
+       ROOT / "examples" / "quickstart_torch.py",
+       ROOT / "examples" / "param_server_torch.py",
+       ROOT / "examples" / "async_hyperband_torch.py",
        ROOT / "scripts" / "train_divergence.py",
        ROOT / "scripts" / "profile_torch.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
@@ -78,6 +84,7 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_raise_without_cuda(no_cuda):
+    import repro_torch.core as rc
     from repro_torch.configs import get_arch
     from repro_torch.convert import params_from_jax
     from repro_torch.device import resolve_device
@@ -97,7 +104,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
                  lambda: params_from_jax({}, cfg),
                  lambda: train_state_from_jax(None, cfg),
                  lambda: Trainer(cfg, TrainerConfig()),
-                 lambda: Prefetcher(cfg, batch=1, seq=8)):
+                 lambda: Prefetcher(cfg, batch=1, seq=8),
+                 lambda: rc.plan("cuda_async")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
