@@ -70,9 +70,28 @@ Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
       one decode step at B=4 (26 rglru_scan and 12 decode_attention
       launches) is timed, and the 512-token request's decode-path logits
       are held against the prefill step.
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero and prints no result.
+Then RecurrentGemma is freed and Yi-9B (48 attn layers, d_model 4096, 32
+heads over 4 KV heads of 128, d_ff 11008, vocab 64000; 8.83 B fp32
+parameters, random from the seed on the card) takes it:
+  2c. both attention kernels against their plain versions at its shapes:
+      flash at B=1, S=4096, causal with no window; decode at B=4, S=4096,
+      lengths (1, 1000, 4096, 4096), fp32 and bf16 caches; decode at
+      yi-34b's grouping (56 heads over 8 KV heads, G=7); each with its
+      launch geometry checked against the launch, its time (decode also
+      warm and cold by graph replay, cold over the 48 layers' caches),
+      its bounds and one PyTorch library call;
+  3c. the prefill step at B=1, S=4096 (48 flash_attention launches and no
+      other kernel), held against the plain path within 1e-4 of the
+      largest logit, beside the 1-ulp yardstick;
+  4c. the decode Server for yi-9b answering 6 short requests and one
+      512-token request; one decode step at B=4 with every cache holding
+      4096 positions (48 decode_attention launches) with its device time,
+      wall time and idle share; the 512-token request's decode-path logits
+      held against the prefill step.
+Each phase prints its seconds. The line before the last is a JSON object
+with one entry per kernel, and one more for each attention kernel at
+Yi-9B's shapes; the last line is ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits non-zero and prints no result.
 """
 
 import gc
@@ -108,6 +127,13 @@ TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
 RG_S = 4096                      # prefill length, twice the window
 RG_DEC_B = 4                     # decode batch
 RG_DEC_LENGTHS = (1, 700, 2048, 2048)
+# Yi-9B: prefill length; decode batch and cache lengths; yi-34b's grouping
+# (56 heads over 8 KV heads) for decode attention at a shorter cache
+YI_S = 4096
+YI_DEC_B = 4
+YI_DEC_LENGTHS = (1, 1000, 4096, 4096)
+YI34_H, YI34_KV, YI34_S = 56, 8, 1024
+YI34_LENGTHS = (1, 300, 1024, 1024)
 # training (phase 5): examples/train_lm.py --full's batch and length;
 # limits: the loss within 1e-4 relative, each grad leaf within 1e-3 of
 # that leaf's largest plain grad (the mLSTM input-gate bias b_i on its
@@ -128,6 +154,16 @@ TOL_TRAIN_CURVE_REL = 1e-3
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+_last_mark = [time.perf_counter()]
+
+
+def phase_done(name: str) -> None:
+    """Prints the seconds since the previous phase ended."""
+    now = time.perf_counter()
+    print(f"phase {name}: {now - _last_mark[0]:.1f} s")
+    _last_mark[0] = now
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -189,7 +225,6 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
-    import repro_torch.core as rc
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.kernels import mlstm_scan as MK
@@ -215,6 +250,7 @@ def main() -> int:
     reports = _build.build_all()
     print(f"build: {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.1f} s")
+    phase_done("1")
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -304,6 +340,7 @@ def main() -> int:
         print(f"  {kr['name']}: kernel {kr['ms']:.3f} ms, plain "
               f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.3f} ms "
               f"({kr['bound_by']})")
+    phase_done("2")
 
     # -- 3. prefill step at full width ---------------------------------------
     model = Model(cfg)
@@ -341,17 +378,65 @@ def main() -> int:
     print("kernels: " + json.dumps([{"name": n, "launches": kr["launches"]}
                                     for n, kr in kernels.items()]))
     del got, want
+    phase_done("3")
 
     # -- 4. the Server at full width -----------------------------------------
-    rc.plan("threads", workers=4)
     server = Server(smoke=False, slots=4, max_new=16, device=dev,
                     params=params)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+
+    step = server.step
+    cache = model.init_cache(4, device=dev)
+    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
+    ms = cuda_ms(lambda: step(params, cache, tok), 32)
+    print(f"decode step (B=4): {ms:.2f} ms, {4 / ms * 1e3:.0f} tokens/s")
+
+    hold_long_request(model, params, long_prompt, replies[6][0],
+                      model.init_cache(1, device=dev))
+    del server, step, cache, tok
+    phase_done("4")
+
+    # -- 5. xLSTM-125M training at full width --------------------------------
+    training_phase(dev, cfg, params, smi)
+    phase_done("5")
+
+    # -- 6. the Future API on the card ---------------------------------------
+    future_api_phase(dev, cfg, params, prefill, tokens, first, prefill_ms,
+                     smi)
+    del first, tokens, prefill
+    phase_done("6")
+
+    # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrentgemma_phases(dev, rng, kernels)
+
+    # -- Yi-9B: free RecurrentGemma first ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"after RecurrentGemma is freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    gqa_phases(dev, rng, kernels, smi)
+
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def serve_traffic(server, rng, vocab: int) -> tuple[dict, list]:
+    """Six 4-token requests and one of 512 tokens (drawn from ``rng``),
+    submitted as futures under plan("threads") to ``server``'s running
+    loop, each printed as it resolves; checks that each gets 16 tokens.
+    Returns the replies by request and the long prompt."""
+    import repro_torch.core as rc
+    rc.plan("threads", workers=4)
     loop = threading.Thread(target=server.serve_loop, daemon=True)
     loop.start()
-    prompts = [rng.integers(0, cfg.vocab_size, size=4).tolist()
-               for _ in range(6)]
-    long_prompt = rng.integers(0, cfg.vocab_size, size=512).tolist()
-    prompts.append(long_prompt)
+    prompts = [rng.integers(0, vocab, size=4).tolist() for _ in range(6)]
+    prompts.append(rng.integers(0, vocab, size=512).tolist())
     t0 = time.perf_counter()
     pending = {i: (server.submit(p), time.perf_counter())
                for i, p in enumerate(prompts)}
@@ -367,26 +452,32 @@ def main() -> int:
         time.sleep(0.005)
     wall = time.perf_counter() - t0
     server.stop()
-    loop.join(timeout=30)
+    loop.join(timeout=60)
     check(not loop.is_alive(), "serve loop stopped")
     rc.shutdown()
     check(len(replies) == 7 and all(len(r) == 16 for r in replies.values())
-          and all(0 <= t < cfg.vocab_size
-                  for r in replies.values() for t in r),
+          and all(0 <= t < vocab for r in replies.values() for t in r),
           "the Server answers all 7 requests with 16 tokens each")
     print(f"server: 7 requests in {wall:.3f} s, "
           f"{7 * 16 / wall:.1f} generated tokens/s")
+    return replies, prompts[-1]
 
-    step = server.step
-    cache = model.init_cache(4, device=dev)
-    tok = torch.zeros(4, 1, dtype=torch.int64, device=dev)
-    ms = cuda_ms(lambda: step(params, cache, tok), 32)
-    print(f"decode step (B=4): {ms:.2f} ms, {4 / ms * 1e3:.0f} tokens/s")
 
-    long_toks = torch.tensor([long_prompt], device=dev)
+def hold_long_request(model, params, long_prompt: list, server_first: int,
+                      cache) -> None:
+    """The long request's decode-path logits (its prompt fed a token at a
+    time into ``cache``) against the prefill step's, within
+    TOL_DECODE_REL of the largest logit; where the top-2 margin exceeds
+    that, the Server's first token and the decode path's are the prefill
+    step's."""
+    import torch
+
+    from repro_torch.train import make_prefill_step
+    long_toks = torch.tensor([long_prompt],
+                             device=params["embed"]["table"].device)
     with torch.no_grad():
-        pre_logits = model.apply(params, {"tokens": long_toks})[0][0, -1]
-        cache = model.init_cache(1, device=dev)
+        pre_logits = model.apply(params,
+                                 {"tokens": long_toks})[0][0, -1].clone()
         for t in range(len(long_prompt)):
             dec_logits, cache = model.decode_step(params, cache,
                                                   long_toks[:, t:t + 1])
@@ -397,41 +488,18 @@ def main() -> int:
     top2 = pre_logits.topk(2).values
     margin = (top2[0] - top2[1]).item()
     ok = diff <= TOL_DECODE_REL * scale
-    print(f"512-token request: decode-path vs prefill logits max abs diff "
-          f"{diff:.3e} (relative {diff / scale:.3e}, tolerance "
+    print(f"{len(long_prompt)}-token request: decode-path vs prefill logits "
+          f"max abs diff {diff:.3e} (relative {diff / scale:.3e}, tolerance "
           f"{TOL_DECODE_REL}) {'ok' if ok else 'FAIL'}; first token: "
-          f"server {replies[6][0]}, prefill {pre_tok}, top-2 margin "
+          f"server {server_first}, prefill {pre_tok}, top-2 margin "
           f"{margin:.3e}")
     check(ok, "decode-path logits disagree with the prefill step")
     if margin > TOL_DECODE_REL * scale:
-        check(replies[6][0] == pre_tok
+        check(server_first == pre_tok
               and int(dec_logits.argmax()) == pre_tok,
               "the Server's first token matches the prefill step")
     else:
         print("  top-2 margin below the tolerance: logits compared only")
-
-    del server, step, cache, tok
-    del dec_logits, pre_logits, long_toks
-
-    # -- 5. xLSTM-125M training at full width --------------------------------
-    training_phase(dev, cfg, params, smi)
-
-    # -- 6. the Future API on the card ---------------------------------------
-    future_api_phase(dev, cfg, params, prefill, tokens, first, prefill_ms,
-                     smi)
-    del first, tokens, prefill
-
-    # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
-    del model, params
-    gc.collect()
-    torch.cuda.empty_cache()
-    recurrentgemma_phases(dev, rng, kernels)
-
-    print(json.dumps({"kernels": list(kernels.values())}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 def mlstm_b_i_scales(cfg, names) -> dict:
@@ -837,7 +905,6 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    import repro_torch.core as rc
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels import flash_attention as FK
@@ -1077,6 +1144,7 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
         print(f"  {name}: kernel {kr['ms']:.4f} ms{graph}, plain "
               f"{kr['plain_ms']:.4f} ms, bound {kr['bound_ms']:.4f} ms "
               f"({kr['bound_by']}), library {kr['library_ms']}")
+    phase_done("2b")
 
     # -- 3b. the prefill step at full width ----------------------------------
     model = Model(cfg)
@@ -1137,41 +1205,12 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del got, want, first
     torch.cuda.empty_cache()
+    phase_done("3b")
 
     # -- 4b. the Server at full width ----------------------------------------
-    rc.plan("threads", workers=4)
     server = Server("recurrentgemma-9b", smoke=False, slots=4, max_new=16,
                     device=dev, params=params)
-    loop = threading.Thread(target=server.serve_loop, daemon=True)
-    loop.start()
-    prompts = [rng.integers(0, cfg.vocab_size, size=4).tolist()
-               for _ in range(6)]
-    long_prompt = rng.integers(0, cfg.vocab_size, size=512).tolist()
-    prompts.append(long_prompt)
-    t0 = time.perf_counter()
-    pending = {i: (server.submit(p), time.perf_counter())
-               for i, p in enumerate(prompts)}
-    replies = {}
-    while pending:
-        for i, (f, t_sub) in list(pending.items()):
-            if rc.resolved(f):
-                replies[i] = rc.value(f)
-                print(f"request {i} (prompt {len(prompts[i])} tokens): "
-                      f"{time.perf_counter() - t_sub:.3f} s -> "
-                      f"{replies[i][:8]}")
-                del pending[i]
-        time.sleep(0.005)
-    wall = time.perf_counter() - t0
-    server.stop()
-    loop.join(timeout=60)
-    check(not loop.is_alive(), "serve loop stopped")
-    rc.shutdown()
-    check(len(replies) == 7 and all(len(r) == 16 for r in replies.values())
-          and all(0 <= t < cfg.vocab_size
-                  for r in replies.values() for t in r),
-          "the Server answers all 7 requests with 16 tokens each")
-    print(f"server: 7 requests in {wall:.3f} s, "
-          f"{7 * 16 / wall:.1f} generated tokens/s")
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
 
     # one decode step at B=4 with every local-attention ring buffer full
     step = server.step
@@ -1197,34 +1236,304 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
           f"{RG_DEC_B / ms * 1e3:.0f} tokens/s")
     del cache
 
-    long_toks = torch.tensor([long_prompt], device=dev)
+    hold_long_request(model, params, long_prompt, replies[6][0],
+                      model.init_cache(1, max_seq=len(long_prompt),
+                                       device=dev, dtype=torch.float32))
+    phase_done("4b")
+
+
+def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
+    """Phases 2c, 3c and 4c: Yi-9B at full width and full depth."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as DK
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import mlstm_scan as MK
+    from repro_torch.kernels import rglru_scan as RK
+    from repro_torch.kernels import slstm_scan as SK
+    from repro_torch.models import Model
+    from repro_torch.serve import Server
+    from repro_torch.train import make_prefill_step
+
+    counters = {"mlstm_scan": MK, "slstm_scan": SK, "rglru_scan": RK,
+                "flash_attention": FK, "decode_attention": DK}
+
+    def zero_counts():
+        for mod in counters.values():
+            mod.launches = 0
+
+    def read_counts():
+        return {name: mod.launches for name, mod in counters.items()}
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    cfg = get_arch("yi-9b")
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_a = sum(kind == "attn" for kind in cfg.layer_pattern)
+
+    # -- 2c. both attention kernels at Yi-9B's shapes ------------------------
+    print(f"yi-9b kernels at full width (S={YI_S}, H={H}, KV={KV}, G="
+          f"{H // KV}, D={HD}, causal, no window):")
+    q = randn(1, YI_S, H, HD).transpose(1, 2)
+    k = randn(1, YI_S, KV, HD).transpose(1, 2)
+    v = randn(1, YI_S, KV, HD).transpose(1, 2)
+    fgeo = FK.launch_geometry(1, H, KV, YI_S, YI_S, HD, True, None)
+    print(f"  flash_attention geometry: {fgeo.rows} query rows a CTA, "
+          f"{fgeo.ctas} CTAs x {fgeo.threads} threads, {fgeo.ctas_per_sm} "
+          f"CTA(s) per SM on {fgeo.n_sms} SMs, {fgeo.waves} wave(s), "
+          f"{fgeo.smem_bytes} B of shared memory a CTA, tiles in the order "
+          f"{fgeo.order[:3]}...; {fgeo.key_rows} K and as many V rows, "
+          f"{fgeo.l2_bytes} B, read from L2")
+    out = FK.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    check(FK.last_launch() == fgeo.plan,
+          f"flash_attention launched {FK.last_launch()}, its geometry says "
+          f"{fgeo.plan}")
+    ref = FK.plain(q, k, v, causal=True)
+    err = _close(f"flash_attention (B,H,S,D)={(1, H, YI_S, HD)}, KV={KV}, "
+                 f"causal, no window", out, ref, TOL_ATTN["float32"])
+    del out, ref
+    pairs = YI_S * (YI_S + 1) // 2        # visible (q, k) pairs per head
+    flops, nbytes = 4.0 * HD * pairs * H, 4.0 * (2 * H + 2 * KV) * YI_S * HD
+    fp32_ms, fp32_by = bound(flops, nbytes)
+    fa = kernels["flash_attention@yi-9b"] = dict(
+        name="flash_attention@yi-9b", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:28",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: FK.flash_attention(q, k, v, causal=True), 5),
+        plain_ms=cuda_ms(lambda: FK.plain(q, k, v, causal=True), 2),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 5))
+    fa["bound_ms"], fa["bound_by"] = bound(3 * flops, nbytes,
+                                           PEAK_TF32_FLOPS)
+    print(f"  flash_attention: {pairs} visible (q, k) pairs per head, "
+          f"{flops / 1e9:.1f} GFLOP; kernel {fa['ms']:.4f} ms, plain "
+          f"{fa['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
+          f", is_causal) {fa['library_ms']:.4f} ms; bound as fp32 SIMT "
+          f"{fp32_ms:.4f} ms ({fp32_by}), as 3xTF32 on tensor cores "
+          f"{fa['bound_ms']:.4f} ms ({fa['bound_by']}) ({smi})")
+    del q, k, v
+
+    def decode_case(b, h, kv, s, lengths, dtype, n_caches):
+        """One decode shape: the launch against its geometry, the error,
+        times by events and by graph replay (warm: one cache; cold: each
+        of ``n_caches`` caches in turn), the byte bound; returns a kernel
+        entry."""
+        tdt = getattr(torch, dtype)
+        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        qd = randn(b, h, HD)
+        kd = randn(b, s, kv, HD).to(tdt)
+        vd = randn(b, s, kv, HD).to(tdt)
+        geo = DK.launch_geometry(b, h, kv, s, HD, tdt, lengths)
+        print(f"  decode_attention geometry (B,H,KV,S,D)="
+              f"{(b, h, kv, s, HD)}, G={geo.g}, {dtype} cache: {geo.ctas} "
+              f"split CTAs x {geo.threads} threads ({geo.ctas_with_work} "
+              f"with work for lengths {lengths}), {geo.ctas_per_sm} CTA(s) "
+              f"per SM by shared memory on {geo.n_sms} SMs, {geo.waves} "
+              f"wave(s), {geo.smem_bytes} B of shared memory a CTA, "
+              f"{geo.hbm_bytes} B through HBM, {geo.combine_ctas} combine "
+              f"CTAs")
+        out = DK.decode_attention(qd, kd, vd, ln)
+        torch.cuda.synchronize()
+        check(DK.last_launch() == geo.plan,
+              f"decode_attention launched {DK.last_launch()}, its geometry "
+              f"says {geo.plan}")
+        per_sm = DK.max_active(h, kv, HD, tdt, geo.vec)
+        check(1 <= per_sm <= geo.ctas_per_sm,
+              f"decode_attention: {per_sm} CTAs a SM on the card, the "
+              f"geometry's shared memory allows {geo.ctas_per_sm}")
+        e = _close(f"decode_attention (B,S,KV,D)={(b, s, kv, HD)}, H={h}, "
+                   f"{dtype} cache, lengths {lengths}", out,
+                   DK.plain(qd, kd, vd, ln), TOL_ATTN[dtype])
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        caches = [tuple(torch.randn(b, s, kv, HD, generator=gen,
+                                    device=dev).to(tdt) for _ in range(2))
+                  for _ in range(n_caches)]
+
+        def warm():
+            DK.decode_attention(qd, kd, vd, ln)
+
+        def cold():
+            for kk, vv in caches:
+                DK.decode_attention(qd, kk, vv, ln)
+
+        kmask = (torch.arange(s, device=dev)[None, :]
+                 < ln[:, None])[:, None, None, :]
+        # the library call takes one dtype: a bf16 cache is widened first,
+        # outside its time
+        kf, vf = (c.transpose(1, 2).to(torch.float32) for c in (kd, vd))
+        entry = dict(
+            max_abs_err=e, ms=cuda_ms(warm, 50),
+            graph_ms=graph_ms(warm, 100),
+            cold_graph_ms=graph_ms(cold, 4) / n_caches,
+            plain_ms=cuda_ms(lambda: DK.plain(qd, kd, vd, ln), 10),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qd[:, :, None], kf, vf, attn_mask=kmask, enable_gqa=True),
+                20))
+        entry["bound_ms"], entry["bound_by"] = bound(
+            4.0 * kv * sum(geo.valid(i) for i in range(b)) * geo.g * HD,
+            geo.hbm_bytes)
+        print(f"  decode_attention (B,H,KV,S)={(b, h, kv, s)} {dtype} "
+              f"cache: kernel {entry['ms']:.4f} ms by events; by graph "
+              f"replay warm (one cache) {entry['graph_ms']:.4f} ms, cold "
+              f"({n_caches} caches in turn) {entry['cold_graph_ms']:.4f} "
+              f"ms; plain {entry['plain_ms']:.4f} ms, library "
+              f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
+              f"ms ({entry['bound_by']}) ({smi})")
+        return entry
+
+    for dtype in ("float32", "bfloat16"):
+        entry = decode_case(YI_DEC_B, H, KV, YI_S, YI_DEC_LENGTHS, dtype,
+                            n_a)
+        if dtype == "float32":         # the Server's cache type
+            kernels["decode_attention@yi-9b"] = dict(
+                name="decode_attention@yi-9b", route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:27",
+                **entry)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        decode_case(YI_DEC_B, YI34_H, YI34_KV, YI34_S, YI34_LENGTHS, dtype,
+                    4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("2c")
+
+    # -- 3c. the prefill step at full width and full depth -------------------
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"yi-9b: {model.param_count() / 1e9:.3f} B parameters drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(1, YI_S))).to(dev)
+    prefill = make_prefill_step(model)
+    zero_counts()
+    first = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"prefill launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0) | {"flash_attention": n_a},
+          f"prefill must launch flash_attention {n_a}x and nothing else")
+    check(tuple(first.shape) == (1, 1) and first.dtype == torch.int32,
+          "prefill returns (1, 1) int32 tokens")
+    kernels["flash_attention@yi-9b"]["launches"] = n_a
+    ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 2)
+    print(f"prefill (B,S)={(1, YI_S)}: {ms:.1f} ms, "
+          f"{YI_S / ms * 1e3:.0f} tokens/s ({smi})")
+    plain = Model(cfg, kernel_impl="plain")
     with torch.no_grad():
-        pre_logits = model.apply(params,
-                                 {"tokens": long_toks})[0][0, -1].clone()
-        cache = model.init_cache(1, max_seq=len(long_prompt), device=dev,
-                                 dtype=torch.float32)
-        for t in range(len(long_prompt)):
-            dec_logits, cache = model.decode_step(params, cache,
-                                                  long_toks[:, t:t + 1])
-    dec_logits = dec_logits[0, -1]
-    pre_tok = int(make_prefill_step(model)(params, {"tokens": long_toks}))
-    scale = pre_logits.abs().max().item()
-    diff = (dec_logits - pre_logits).abs().max().item()
-    top2 = pre_logits.topk(2).values
+        # clones, so that the 1 GB logits of each run are freed
+        got = model.apply(params, {"tokens": tokens})[0][0, -1].clone()
+        want = plain.apply(params, {"tokens": tokens})[0][0, -1].clone()
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    top2 = want.topk(2).values
     margin = (top2[0] - top2[1]).item()
-    ok = diff <= TOL_DECODE_REL * scale
-    print(f"512-token request: decode-path vs prefill logits max abs diff "
-          f"{diff:.3e} (relative {diff / scale:.3e}, tolerance "
-          f"{TOL_DECODE_REL}) {'ok' if ok else 'FAIL'}; first token: "
-          f"server {replies[6][0]}, prefill {pre_tok}, top-2 margin "
+    ok = bool(torch.isfinite(got).all()) and rel <= TOL_PREFILL_REL
+    print(f"prefill last-position logits, kernels vs plain: max abs diff "
+          f"{(got - want).abs().max().item():.3e}, relative {rel:.3e} "
+          f"(tolerance {TOL_PREFILL_REL}, {rel / TOL_PREFILL_REL:.3f} of "
+          f"it) {'ok' if ok else 'FAIL'}; first token: kernels "
+          f"{int(first)}, plain {int(want.argmax())}, top-2 margin "
           f"{margin:.3e}")
-    check(ok, "decode-path logits disagree with the prefill step")
-    if margin > TOL_DECODE_REL * scale:
-        check(replies[6][0] == pre_tok
-              and int(dec_logits.argmax()) == pre_tok,
-              "the Server's first token matches the prefill step")
+    check(ok, "prefill with the kernels disagrees with the plain path")
+    if margin > TOL_PREFILL_REL * scale:
+        check(int(first) == int(want.argmax()) == int(got.argmax()),
+              "the prefill step's first token is the plain path's")
     else:
         print("  top-2 margin below the tolerance: logits compared only")
+    # yardstick for that tolerance: the plain path against itself with the
+    # embedding table moved by one ulp, i.e. how far 48 random fp32
+    # layers carry a rounding difference on their own
+    with torch.no_grad():
+        moved = dict(params, embed={
+            "table": params["embed"]["table"] * (1 + 2 ** -23)})
+        alt = plain.apply(moved, {"tokens": tokens})[0][0, -1].clone()
+        del moved
+    moved_rel = (alt - want).abs().max().item() / scale
+    print(f"  yardstick: plain path with the embeddings moved by 1 ulp, "
+          f"relative {moved_rel:.3e} ({moved_rel / TOL_PREFILL_REL:.3f} of "
+          f"the tolerance)")
+    print(f"peak device memory so far: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del got, want, alt, first, tokens
+    torch.cuda.empty_cache()
+    phase_done("3c")
+
+    # -- 4c. the Server for yi-9b at full width ------------------------------
+    server = Server("yi-9b", smoke=False, slots=4, max_new=16, device=dev,
+                    params=params)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+
+    # one decode step at B=4 with every cache holding YI_S positions
+    step = server.step
+    cache = model.init_cache(YI_DEC_B, max_seq=YI_S, device=dev,
+                             dtype=torch.float32)
+    for stage in cache:
+        for block in stage.values():
+            block["pos"].fill_(YI_S)
+    tok = torch.zeros(YI_DEC_B, 1, dtype=torch.int64, device=dev)
+    zero_counts()
+    step(params, cache, tok)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"decode step launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0) | {"decode_attention": n_a},
+          f"a decode step must launch decode_attention {n_a}x and nothing "
+          f"else")
+    kernels["decode_attention@yi-9b"]["launches"] = n_a
+    for _ in range(2):
+        step(params, cache, tok)
+    torch.cuda.synchronize()
+    steps = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    rows = [(e.key, max(getattr(e, "self_device_time_total", 0.0),
+                        getattr(e, "self_cuda_time_total", 0.0)))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    device = sum(us for _, us in rows) / steps / 1e3
+    del prof
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(params, cache, tok)
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) / steps * 1e3
+    if device > 0:
+        print(f"decode step (B={YI_DEC_B}, caches of {YI_S} full): device "
+              f"{device:.3f} ms; wall {wall:.3f} ms under the profiler "
+              f"(idle share {1 - device / wall:.3f}), {bare:.3f} ms "
+              f"without it (idle share {1 - device / bare:.3f}), "
+              f"{YI_DEC_B / bare * 1e3:.0f} tokens/s ({smi})")
+        for key, us in sorted(rows, key=lambda r: -r[1])[:4]:
+            print(f"  {us / steps / 1e3:9.3f} ms a step  {key[:80]}")
+    else:
+        print(f"decode step (B={YI_DEC_B}, caches of {YI_S} full): wall "
+              f"{bare:.3f} ms, {YI_DEC_B / bare * 1e3:.0f} tokens/s; device "
+              f"time not measured (the profiler saw no kernels) ({smi})")
+    del cache
+
+    hold_long_request(model, params, long_prompt, replies[6][0],
+                      model.init_cache(1, max_seq=len(long_prompt),
+                                       device=dev, dtype=torch.float32))
+    phase_done("4c")
 
 
 if __name__ == "__main__":

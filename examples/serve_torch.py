@@ -10,8 +10,8 @@ Future API as a serving front door.
 Run on the GPU:  PYTHONPATH=src python examples/serve_torch.py
 On the CPU:      PYTHONPATH=src python examples/serve_torch.py --device cpu
 Full width:      add --full
-Another arch:    add --arch recurrentgemma-9b (full width: 41.8 GB of fp32
-                 parameters, drawn on the card)
+Another arch:    add --arch recurrentgemma-9b or --arch yi-9b (full width:
+                 41.8 GB and 35.3 GB of fp32 parameters, drawn on the card)
 """
 
 import argparse

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path on one GPU.
 
-    python3 scripts/profile_torch.py [--arch recurrentgemma-9b]
+    python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b]
 
 Runs an arch at full width with random weights (seed 0) and, under
 ``torch.profiler``, one prefill step and 16 decode steps at B=4:
-xLSTM-125M (the default) prefills B=8, S=2048; RecurrentGemma-9B prefills
-B=1, S=4096 and decodes with every local-attention ring buffer full. For
+xLSTM-125M (the default) prefills B=8, S=2048; RecurrentGemma-9B and
+Yi-9B prefill B=1, S=4096 and decode with every attention cache full
+(RecurrentGemma's ring buffers, Yi's 4096-position global caches). For
 each it prints the wall time (host clock around work that ends in
 ``torch.cuda.synchronize()``), the device time summed over the kernels
 that ran, the device's idle share (1 - device / wall), and the kernels
@@ -52,7 +53,8 @@ def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
 
 
 #: full-width prefill shape (batch, sequence) of each arch
-PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096)}
+PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096),
+           "yi-9b": (1, 4096)}
 
 
 def main() -> int:
@@ -102,7 +104,7 @@ def main() -> int:
 
     step = make_serve_step(model)
     cache = model.init_cache(4, max_seq=s, device=dev, dtype=torch.float32)
-    for stage in cache:                # local attention: ring buffers full
+    for stage in cache:                # every attention cache full
         for block in stage.values():
             if "pos" in block:
                 block["pos"].fill_(s)

@@ -2,8 +2,9 @@
 
 Every architecture file in this package registers exactly one full-size
 config (the published numbers) plus a ``smoke`` reduced config of the same
-family for CPU tests. The port registers xLSTM-125M and RecurrentGemma-9B;
-the other families' configs (and their ``*Dims`` types, typed
+family for CPU tests. The port registers xLSTM-125M, RecurrentGemma-9B
+and the GQA family (Yi-9B, Yi-34B, Nemotron-4-340B, Qwen2-VL-72B); the
+MoE, MLA and audio configs (and the MoE and MLA ``*Dims`` types, typed
 ``Optional[object]`` below until their models arrive) come with their
 models in later slices.
 """
@@ -167,5 +168,6 @@ def _ensure_loaded():
     global _loaded
     if _loaded:
         return
-    from . import recurrentgemma_9b, xlstm_125m  # noqa: F401
+    from . import (nemotron_4_340b, qwen2_vl_72b,  # noqa: F401
+                   recurrentgemma_9b, xlstm_125m, yi_9b, yi_34b)
     _loaded = True

@@ -487,6 +487,9 @@ int max_active() {
   return err == cudaSuccess ? n : -(int)err;
 }
 
+// The last launch: CTAs, threads, shared bytes.
+int last_launch[3] = {};
+
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o,
            Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
@@ -499,7 +502,13 @@ int launch(const float* q, const float* k, const float* v, float* o,
   flash_attention_kernel<D><<<(unsigned)ctas, NT, smem, stream>>>(
       q, k, v, o, sq, sk, sv, so, H, G, B, Sq, Skv, causal, window,
       scale_log2);
-  return (int)cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    last_launch[0] = (int)ctas;
+    last_launch[1] = NT;
+    last_launch[2] = (int)smem;
+  }
+  return (int)err;
 }
 
 template <typename F>
@@ -525,6 +534,11 @@ int flash_attention_threads(void) { return NT; }
 // Shared memory of one CTA at head dim d.
 int flash_attention_smem_bytes(int d) {
   return (int)(sizeof(float) * smem_floats(d));
+}
+
+// The last launch's CTAs, threads and shared bytes, into out[3].
+void flash_attention_last_launch(int* out) {
+  for (int i = 0; i < 3; ++i) out[i] = last_launch[i];
 }
 
 // Resident CTAs per SM at head dim d, or minus a CUDA error (-1 for a head

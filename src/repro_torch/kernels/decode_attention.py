@@ -64,7 +64,8 @@ _PLAN = ctypes.c_int * 7
 _PLAN_CHECKS = [(4, 16, 1, 2048, 256, 0, 1), (4, 16, 1, 2048, 256, 1, 1),
                 (2, 4, 2, 300, 128, 1, 1), (3, 8, 8, 100, 64, 0, 1),
                 (1, 16, 1, 1, 68, 1, 0), (2, 32, 2, 2049, 64, 1, 0),
-                (1, 3, 1, 33, 4, 0, 1)]
+                (1, 3, 1, 33, 4, 0, 1), (4, 32, 4, 4096, 128, 0, 1),
+                (2, 56, 8, 300, 128, 1, 1), (2, 56, 8, 300, 128, 0, 1)]
 
 
 @functools.cache

@@ -30,7 +30,8 @@ from .autograd import recompute
 from .ref import flash_attention as plain
 
 __all__ = ["flash_attention", "plain", "launches", "bind", "Geometry",
-           "geometry", "launch_geometry", "smem_bytes", "split_tf32",
+           "geometry", "launch_geometry", "last_launch", "smem_bytes",
+           "split_tf32",
            "flash_attention_3xtf32", "HEAD_DIMS", "ROWS", "KEY_BLOCK",
            "THREADS", "SMEM_LIMIT"]
 
@@ -72,6 +73,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("flash_attention_rows", "flash_attention_key_block",
                  "flash_attention_threads"):
         getattr(lib, name).restype = _I
+    lib.flash_attention_last_launch.argtypes = [_P]
+    lib.flash_attention_last_launch.restype = None
     if ((lib.flash_attention_rows(), lib.flash_attention_key_block(),
          lib.flash_attention_threads()) != (ROWS, KEY_BLOCK, THREADS)
             or any(lib.flash_attention_smem_bytes(d) != smem_bytes(d)
@@ -122,6 +125,12 @@ class Geometry:
     @property
     def smem_bytes(self) -> int:
         return smem_bytes(self.d)
+
+    @property
+    def plan(self) -> tuple[int, int, int]:
+        """As the kernel records its launch: CTAs, threads, shared
+        bytes."""
+        return (self.ctas, THREADS, self.smem_bytes)
 
     @property
     def order(self) -> tuple[int, ...]:
@@ -200,6 +209,14 @@ def launch_geometry(b: int, h: int, kv: int, sq: int, skv: int, d: int,
     card = _geometries[d, index]
     return geometry(b, h, kv, sq, skv, d, causal, window, n_sms=card.n_sms,
                     ctas_per_sm=card.ctas_per_sm)
+
+
+def last_launch() -> tuple[int, int, int]:
+    """The kernel's last launch in this process, laid out as
+    :attr:`Geometry.plan`."""
+    out = (ctypes.c_int * 3)()
+    _lib().flash_attention_last_launch(out)
+    return tuple(out)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,11 +1,11 @@
-"""Core model layers in PyTorch: what the xLSTM and RecurrentGemma stacks
-use of ``repro/models/layers.py`` (norms, embedding, RoPE, GQA/MQA and
-local attention with its ring-buffer cache, the SwiGLU MLP).
+"""Core model layers in PyTorch: what the xLSTM, RecurrentGemma and GQA
+stacks use of ``repro/models/layers.py`` (norms, embedding, RoPE and
+Qwen2-VL's M-RoPE, GQA/MQA attention with qk-norm, a global cache or a
+local ring-buffer one, the SwiGLU and squared-ReLU MLPs).
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts, so a JAX pytree converts leaf by leaf (``repro_torch.convert``).
-M-RoPE, qk-norm, explicit positions, the other MLP kinds and the
-conv-position layer come with the model families that use them.
+The GELU MLP and the conv-position layer come with hubert.
 """
 
 from __future__ import annotations
@@ -79,16 +79,41 @@ def _rope_table(head_dim: int, theta: float,
         device=device, dtype=torch.float32)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 1e6) -> torch.Tensor:
-    """x: (B, S, H, D); positions: (B, S) int."""
-    freqs = _rope_table(x.shape[-1], theta, x.device)          # (D/2,)
-    ang = positions[..., None].float() * freqs                 # (B,S,D/2)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """x (B,S,H,D) rotated by the angles ang (B,S,D/2), in fp32."""
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, -1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e6) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int."""
+    freqs = _rope_table(x.shape[-1], theta, x.device)          # (D/2,)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple, theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. positions: (3, B, S), the (t, h, w)
+    ids; ``sections`` partitions the half-dim among them, e.g. (16, 24,
+    24) for D=128: frequency i turns with the axis whose section holds
+    it."""
+    freqs = _rope_table(x.shape[-1], theta, x.device)          # (D/2,)
+    ang_thw = positions[..., None].float() * freqs             # (3,B,S,D/2)
+    axis = _mrope_axis(tuple(sections), x.device)              # (D/2,)
+    ang = ang_thw.gather(0, axis.expand(1, *ang_thw.shape[1:]))[0]
+    return _rotate(x, ang)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_axis(sections: tuple, device: torch.device) -> torch.Tensor:
+    """The axis (0, 1, 2 for t, h, w) that drives each frequency, on
+    ``device`` once."""
+    return torch.from_numpy(np.repeat(np.arange(len(sections)),
+                                      sections)).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -104,16 +129,20 @@ class AttnDims:
 
 
 def attention_init(gen: torch.Generator, dims: AttnDims, dtype=torch.float32,
-                   device="cpu") -> Params:
+                   device="cpu", qk_norm: bool = False) -> Params:
     dev = torch.device(device)
     d, h, kvh, hd = dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim
     s = d ** -0.5
-    return {
+    p = {
         "wq": _he(gen, (d, h * hd), s, dtype, dev),
         "wk": _he(gen, (d, kvh * hd), s, dtype, dev),
         "wv": _he(gen, (d, kvh * hd), s, dtype, dev),
         "wo": _he(gen, (h * hd, d), (h * hd) ** -0.5, dtype, dev),
     }
+    if qk_norm:
+        p["q_norm"] = rmsnorm_init(hd, dtype, dev)
+        p["k_norm"] = rmsnorm_init(hd, dtype, dev)
+    return p
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -148,47 +177,74 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_apply(p: Params, x: torch.Tensor, dims: AttnDims, *,
+                    positions: "torch.Tensor | None" = None,
+                    rope_kind: str = "rope",
+                    mrope_sections: tuple = (16, 24, 24),
                     rope_theta: float = 1e6, causal: bool = True,
                     window: "int | None" = None,
                     cache: "Params | None" = None,
+                    norm_eps: float = 1e-6,
                     kernel_impl: str = "hopper",
                     ) -> tuple[torch.Tensor, "Params | None"]:
-    """Full attention block with RoPE. Without a cache, the whole sequence
-    goes through ``ops.flash_attention``. With one, x is (B, 1, d) and the
-    cache is {"k": (B,Smax,KV,D), "v": ..., "pos": (B,) int32}: the new key
-    and value are written in place at slot ``pos % Smax`` (a ring buffer
-    for local attention, which the softmax does not mind; for a global
-    cache pos < Smax, so the slot is pos), and the token attends through
+    """Full attention block: projections, qk-norm when the params have it,
+    RoPE or M-RoPE, attention, output projection.
+
+    Without a cache, the whole sequence goes through
+    ``ops.flash_attention``, rotated at ``positions`` ((B,S), or (3,B,S)
+    for M-RoPE; by default 0..S-1 on every axis). With one, x is (B, 1, d)
+    and the cache is {"k": (B,Smax,KV,D), "v": ..., "pos": (B,) int32}: the
+    token is rotated at ``pos`` (on all three M-RoPE axes), its key and
+    value are written in place at slot ``pos % Smax`` of a local cache
+    (``window`` set: a ring buffer, which the softmax does not mind) or at
+    slot ``pos`` of a global one, where a write at ``pos >= Smax`` is
+    dropped, as JAX's scatter drops it; then the token attends through
     ``ops.decode_attention`` to the first ``min(pos + 1, Smax)`` slots.
     Returns (out, new_cache)."""
-    if "q_norm" in p:
-        raise NotImplementedError("qk-norm comes with the GQA attention "
-                                  "slice")
     b, s, _ = x.shape
     h, kvh, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     q = (x @ p["wq"]).reshape(b, s, h, hd)
     k = (x @ p["wk"]).reshape(b, s, kvh, hd)
     v = (x @ p["wv"]).reshape(b, s, kvh, hd)
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q, norm_eps)
+        k = rmsnorm(p["k_norm"], k, norm_eps)
+
+    def rotate(t, pos):
+        if rope_kind == "rope":
+            return apply_rope(t, pos, rope_theta)
+        if rope_kind == "mrope":
+            if pos.dim() == 2:                   # text positions: all axes
+                pos = pos.expand(3, *pos.shape)
+            return apply_mrope(t, pos, mrope_sections, rope_theta)
+        return t
 
     if cache is not None:
         pos = cache["pos"]                                       # (B,)
-        q = apply_rope(q, pos[:, None], rope_theta)
-        k = apply_rope(k, pos[:, None], rope_theta)
+        q, k = rotate(q, pos[:, None]), rotate(k, pos[:, None])
         ck, cv = cache["k"], cache["v"]
         smax = ck.shape[1]
-        slot = (pos % smax).long()
         rows = torch.arange(b, device=x.device)
-        ck[rows, slot] = k[:, 0].to(ck.dtype)                   # in place
-        cv[rows, slot] = v[:, 0].to(cv.dtype)
+        k_new, v_new = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+        if window is not None:
+            slot = (pos % smax).long()
+        else:
+            # past the end the slot's old contents are written back, so
+            # nothing changes and pos never leaves the device
+            slot = pos.clamp(max=smax - 1).long()
+            keep = (pos >= smax)[:, None, None]
+            k_new = torch.where(keep, ck[rows, slot], k_new)
+            v_new = torch.where(keep, cv[rows, slot], v_new)
+        ck[rows, slot] = k_new                                   # in place
+        cv[rows, slot] = v_new
         lengths = torch.clamp(pos + 1, max=smax).to(torch.int32)
         out = ops.decode_attention(q[:, 0].to(torch.float32), ck, cv,
                                    lengths, kernel_impl=kernel_impl)
         out = out.to(x.dtype)[:, None]                           # (B,1,H,D)
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
     else:
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        q, k = rotate(q, positions), rotate(k, positions)
         # (B,H,S,D) views of the (B,S,H,D) projections; the output keeps
         # that layout, so the reshape below is free
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -212,10 +268,15 @@ def attention_cache_init(batch: int, max_seq: int, dims: AttnDims,
 # MLPs
 # --------------------------------------------------------------------------
 
+_MLP_KINDS = ("swiglu", "squared_relu")
+
+
 def _mlp_kind(kind: str) -> None:
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp_kind {kind!r} comes with the model "
-                                  f"family that uses it")
+    if kind == "gelu":
+        raise NotImplementedError("mlp_kind 'gelu' comes with the hubert "
+                                  "slice")
+    if kind not in _MLP_KINDS:
+        raise ValueError(f"unknown mlp kind {kind!r}")
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str,
@@ -223,16 +284,23 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str,
     _mlp_kind(kind)
     dev = torch.device(device)
     s_in, s_out = d ** -0.5, d_ff ** -0.5
-    return {"w_gate": _he(gen, (d, d_ff), s_in, dtype, dev),
-            "w_up": _he(gen, (d, d_ff), s_in, dtype, dev),
+    if kind == "swiglu":
+        return {"w_gate": _he(gen, (d, d_ff), s_in, dtype, dev),
+                "w_up": _he(gen, (d, d_ff), s_in, dtype, dev),
+                "w_down": _he(gen, (d_ff, d), s_out, dtype, dev)}
+    return {"w_up": _he(gen, (d, d_ff), s_in, dtype, dev),
             "w_down": _he(gen, (d_ff, d), s_out, dtype, dev)}
 
 
 def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """SwiGLU, the kind of every ported config; the JAX package's
-    ``squared_relu`` and ``gelu`` come with the families that use them."""
+    """SwiGLU, or Nemotron-4's squared ReLU, relu(x w_up)^2 w_down, which
+    has no gate; the JAX package's ``gelu`` comes with hubert."""
     _mlp_kind(kind)
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = torch.relu(x @ p["w_up"]) ** 2
+    return h @ p["w_down"]
 
 
 # --------------------------------------------------------------------------

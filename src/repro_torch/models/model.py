@@ -2,6 +2,8 @@
 Counterpart of ``repro/models/model.py``.
 
 Block kinds of the port so far:
+  attn    pre-norm GQA/MQA attention + pre-norm MLP (yi, nemotron, qwen2-vl)
+  dense   like attn with an MLP of width ``moe_dense_ff or d_ff``
   mlstm   self-contained mLSTM block (xLSTM)
   slstm   self-contained sLSTM block (xLSTM)
   rglru   RG-LRU recurrent temporal mixing + MLP (recurrentgemma)
@@ -40,9 +42,9 @@ else:
 Params = dict
 
 #: block kinds of the JAX package that later slices of the port bring
-_LATER = {"attn": "the GQA attention slice", "dense": "the GQA attention slice",
-          "moe": "the MoE slice", "mla": "the MLA slice"}
-_KINDS = ("mlstm", "slstm", "rglru", "lattn")
+_LATER = {"moe": "the MoE slice", "mla": "the MLA slice"}
+_KINDS = ("attn", "dense", "mlstm", "slstm", "rglru", "lattn")
+_ATTN_KINDS = ("attn", "dense", "lattn")
 
 
 def _unsupported(kind: str) -> NotImplementedError:
@@ -84,12 +86,13 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
     norm_init = (L.layernorm_init if cfg.norm == "layernorm"
                  else L.rmsnorm_init)
     d = cfg.d_model
-    if kind == "lattn":
+    if kind in _ATTN_KINDS:
+        d_ff = (cfg.moe_dense_ff or cfg.d_ff) if kind == "dense" else cfg.d_ff
         return {"ln1": norm_init(d, dtype, device),
-                "attn": L.attention_init(gen, _attn_dims(cfg), dtype, device),
+                "attn": L.attention_init(gen, _attn_dims(cfg), dtype, device,
+                                         qk_norm=cfg.qk_norm),
                 "ln2": norm_init(d, dtype, device),
-                "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
-                                  device)}
+                "mlp": L.mlp_init(gen, d, d_ff, cfg.mlp_kind, dtype, device)}
     if kind == "rglru":
         return {"ln1": norm_init(d, dtype, device),
                 "rec": RG.rglru_block_init(gen, cfg.rglru, dtype, device),
@@ -110,14 +113,18 @@ def _norm(cfg: ArchConfig, p: Params, x):
     return L.rmsnorm(p, x, cfg.norm_eps)
 
 
-def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *, cache=None,
-                kernel_impl: str = "hopper"):
-    """Returns (x_out, new_cache)."""
-    if kind == "lattn":
+def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
+                positions=None, cache=None, kernel_impl: str = "hopper"):
+    """Returns (x_out, new_cache). ``positions`` (the batch's, or None)
+    reach the attention blocks' RoPE."""
+    if kind in _ATTN_KINDS:
         h, new_cache = L.attention_apply(
             p["attn"], _norm(cfg, p["ln1"], x), _attn_dims(cfg),
-            rope_theta=cfg.rope_theta, causal=cfg.causal,
-            window=cfg.attn_window, cache=cache, kernel_impl=kernel_impl)
+            positions=positions, rope_kind=cfg.rope_kind,
+            mrope_sections=cfg.mrope_sections, rope_theta=cfg.rope_theta,
+            causal=cfg.causal,
+            window=cfg.attn_window if kind == "lattn" else None,
+            cache=cache, norm_eps=cfg.norm_eps, kernel_impl=kernel_impl)
         x = x + h
         y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
         return x + y, new_cache
@@ -144,8 +151,9 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *, cache=None,
 def block_cache_init(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                      dtype, device) -> Params:
     # the recurrent caches are fp32 whatever dtype the attention caches take
-    if kind == "lattn":
-        smax = min(max_seq, cfg.attn_window or max_seq)
+    if kind in _ATTN_KINDS:
+        smax = (min(max_seq, cfg.attn_window or max_seq) if kind == "lattn"
+                else max_seq)
         if smax < 1:
             raise ValueError("an attention cache needs max_seq >= 1")
         return L.attention_cache_init(batch, smax, _attn_dims(cfg), dtype,
@@ -203,13 +211,9 @@ class Model:
             for kind in pattern:
                 if kind not in _KINDS:
                     raise _unsupported(kind)
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"the {cfg.frontend} frontend comes with its model family")
-        if "lattn" in cfg.layer_pattern and cfg.rope_kind != "rope":
-            raise NotImplementedError(
-                f"rope_kind {cfg.rope_kind!r} comes with the GQA attention "
-                f"slice")
+        if cfg.frontend == "audio":
+            raise NotImplementedError("the audio frontend comes with the "
+                                      "hubert slice")
         self.cfg = cfg
         self.kernel_impl = kernel_impl
         self.remat = remat
@@ -253,16 +257,29 @@ class Model:
             logits = torch.tanh(logits / c) * c
         return logits
 
+    def _frontend(self, params: Params, batch: dict) -> torch.Tensor:
+        """Token embeddings; under the vision stub the batch's
+        ``vision_embeds`` (B, P, d) replace the first P of them."""
+        x = L.embed(params["embed"], batch["tokens"])
+        if self.cfg.frontend == "vision" and "vision_embeds" in batch:
+            ve = batch["vision_embeds"].to(x.dtype)
+            x = torch.cat([ve, x[:, ve.shape[1]:]], 1)
+        return x
+
     def apply(self, params: Params, batch: dict
               ) -> tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward. Returns (logits fp32, aux_loss); none of
-        the ported blocks adds an auxiliary loss, so aux is 0."""
+        the ported blocks adds an auxiliary loss, so aux is 0. The batch's
+        ``positions`` ((B,S), or (3,B,S) under M-RoPE), when given, are
+        where the attention blocks apply RoPE."""
         cfg = self.cfg
-        x = L.embed(params["embed"], batch["tokens"])
+        x = self._frontend(params, batch)
+        positions = batch.get("positions")
         for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
             def unit(xx, lp, _pattern=pattern):
                 for bi, kind in enumerate(_pattern):
                     xx, _ = block_apply(lp[f"b{bi}"], xx, cfg, kind,
+                                        positions=positions,
                                         kernel_impl=self.kernel_impl)
                 return xx
             for lp in _repeats(sp, repeat):
@@ -288,8 +305,9 @@ class Model:
         """Per-block decode state, stacked like the parameters. The
         recurrent states are fp32; attention caches take ``dtype`` and hold
         ``max_seq`` positions (``min(max_seq, attn_window)`` for local
-        attention), as in the JAX package. The xLSTM state does not grow
-        with ``max_seq``."""
+        attention), as in the JAX package; a global cache past ``max_seq``
+        keeps its first ``max_seq`` positions. The xLSTM state does not
+        grow with ``max_seq``."""
         dev = resolve_device(device)
         caches = []
         for pattern, repeat in self.cfg.stages:

@@ -175,7 +175,10 @@ def test_rglru_launch_geometry_on_card(cuda_device, b, s, w, offset):
     (1, 1, 16, 1100, 256, True, 300),    # RecurrentGemma's heads, ragged
     (1, 2, 2, 300, 128, True, 5),        # a window inside one key block
     (2, 2, 2, 130, 256, True, None),     # Sq past the 128-row tile by 2
-    (1, 1, 2, 77, 64, False, None)])     # non-causal, no window
+    (1, 1, 2, 77, 64, False, None),      # non-causal, no window
+    (1, 4, 8, 1000, 128, True, None),    # yi-9b's grouping, no window
+    (1, 8, 7, 300, 128, True, None),     # yi-34b's
+    (2, 4, 8, 200, 64, False, None)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
                                             causal, window):
     q, k, v = (t(a, cuda_device) for a in flash_inputs(3, b, kv, g, s, d))
@@ -183,6 +186,8 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert FK.launches == before + 1
+    assert FK.last_launch() == FK.launch_geometry(
+        b, kv * g, kv, s, s, d, causal, window, cuda_device).plan
     want = FK.plain(q, k, v, causal=causal, window=window)
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
 
@@ -232,7 +237,10 @@ def test_flash_kernel_refuses_bf16(cuda_device):
     (1, 1, 16, 1, 256, [1]),             # one position
     (3, 1, 4, 512, 128, [512, 512, 512]),  # every length is S
     (2, 1, 16, 200, 68, [200, 77]),      # bf16 rows of 136 B: 8-byte copies
-    (2, 2, 16, 300, 64, None)])
+    (2, 2, 16, 300, 64, None),
+    (4, 4, 8, 4096, 128, [1, 1000, 4096, 4096]),   # a Yi-9B decode step
+    (2, 8, 7, 300, 128, [300, 77]),      # yi-34b's G=7: P padded to 8
+    (3, 8, 7, 33, 64, [1, 33, 32])])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
                                              d, lengths):
     q, k, v, ln = decode_inputs(3, b, kv, g, s, d, lengths)
@@ -255,7 +263,9 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,h,kv,s,d,lengths", [
     (4, 16, 1, 2048, 256, (1, 700, 2048, 2048)),
-    (2, 16, 1, 200, 68, (200, 0)), (3, 8, 2, 33, 64, (33, 1, 32))])
+    (2, 16, 1, 200, 68, (200, 0)), (3, 8, 2, 33, 64, (33, 1, 32)),
+    (4, 32, 4, 4096, 128, (1, 1000, 4096, 4096)),   # Yi-9B, G=8
+    (2, 56, 8, 300, 128, (300, 77))])               # yi-34b, G=7
 def test_decode_launch_geometry_on_card(cuda_device, dtype, b, h, kv, s, d,
                                         lengths):
     """The kernel launches what launch_geometry says: split CTAs, threads,
@@ -395,6 +405,50 @@ def test_train_step_with_kernels_matches_plain_on_card(cuda_device):
     for name, g, w in zip(names, leaves(grads), leaves(want)):
         scale = want_by[scale_of.get(name, name)].abs().max().item()
         assert (g - w).abs().max().item() <= 1e-3 * scale, name
+
+
+@pytest.mark.requires_cuda
+def test_narrow_gqa_model_with_kernels_matches_plain_on_card(cuda_device):
+    """A narrow GQA model at Yi's head shape (2 attn layers, 16 heads over
+    2 KV heads of 128, G=8): the prefill launches flash_attention once a
+    layer and its logits agree with the plain path; 8 decode steps launch
+    decode_attention once a layer each and agree with the plain path's
+    steps, and the last with the prefill."""
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models import Model
+
+    cfg = ArchConfig(name="gqa-narrow", family="dense", n_layers=2,
+                     d_model=256, n_heads=16, n_kv_heads=2, head_dim=128,
+                     d_ff=512, vocab_size=512, rope_theta=1e4)
+    params = Model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 200))).to(cuda_device)
+    kern, plain = Model(cfg), Model(cfg, kernel_impl="plain")
+    FK.launches = DK.launches = 0
+    with torch.no_grad():
+        got, _ = kern.apply(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert (FK.launches, DK.launches) == (2, 0)
+        want, _ = plain.apply(params, {"tokens": toks})
+    assert (FK.launches, DK.launches) == (2, 0)
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+    caches = [m.init_cache(2, max_seq=16, device=cuda_device,
+                           dtype=torch.float32) for m in (kern, plain)]
+    for i in range(8):
+        DK.launches = 0
+        step_k, caches[0] = kern.decode_step(params, caches[0],
+                                             toks[:, i:i + 1])
+        torch.cuda.synchronize()
+        assert DK.launches == 2
+        step_p, caches[1] = plain.decode_step(params, caches[1],
+                                              toks[:, i:i + 1])
+        assert (step_k - step_p).abs().max().item() <= 1e-4 * scale
+    with torch.no_grad():
+        short, _ = plain.apply(params, {"tokens": toks[:, :8]})
+    assert (step_k[:, 0] - short[:, -1]).abs().max().item() <= 1e-3 * scale
 
 
 @pytest.mark.requires_cuda

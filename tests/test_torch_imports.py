@@ -50,7 +50,10 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.tree", "repro_torch.core.mapreduce",
             "repro_torch.core.stream", "repro_torch.core.state",
             "repro_torch.core.backends.asyncio_loop",
-            "repro_torch.core.backends.cuda_async"} <= set(_port_modules())
+            "repro_torch.core.backends.cuda_async",
+            "repro_torch.configs.yi_9b", "repro_torch.configs.yi_34b",
+            "repro_torch.configs.nemotron_4_340b",
+            "repro_torch.configs.qwen2_vl_72b"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"

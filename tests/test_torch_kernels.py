@@ -99,6 +99,12 @@ FLASH_CASES = [  # b, kv, g, s, d, causal, window, dtype
     (2, 1, 2, 256, 64, False, None, "bfloat16"),
     (1, 2, 2, 128, 128, True, None, "bfloat16"),
     (1, 1, 4, 256, 64, True, 64, "float32"),
+    # the GQA family's groupings: G=8 over 4 KV heads (yi-9b, qwen2-vl),
+    # G=7 over 8 (yi-34b)
+    (1, 4, 8, 128, 128, True, None, "float32"),
+    (1, 8, 7, 64, 64, True, None, "float32"),
+    (1, 4, 8, 64, 64, False, None, "bfloat16"),
+    (1, 8, 7, 64, 128, True, None, "bfloat16"),
 ]
 
 
@@ -208,7 +214,9 @@ FLASH_GEOMETRIES = [  # b, h, kv, sq, skv, d, causal, window
     (1, 4, 1, 500, 500, 128, False, 100),
     (1, 2, 2, 77, 77, 64, False, None),
     (1, 2, 1, 300, 300, 128, True, 5),
-    (1, 8, 2, 1000, 700, 128, True, None)]     # Sq != Skv
+    (1, 8, 2, 1000, 700, 128, True, None),     # Sq != Skv
+    (1, 32, 4, 4096, 4096, 128, True, None),   # Yi-9B prefill
+    (1, 56, 8, 700, 700, 128, True, None)]     # yi-34b's grouping
 
 
 @pytest.mark.parametrize("b,h,kv,sq,skv,d,causal,window", FLASH_GEOMETRIES)
@@ -248,6 +256,7 @@ def test_flash_geometry_counts_l2_bytes():
     geo = FK.geometry(1, 16, 1, 4096, 4096, 256, True, 2048)
     assert (geo.rows, geo.threads, geo.ctas, geo.waves, geo.smem_bytes) \
         == (128, 256, 512, 4, 207360)
+    assert geo.plan == (512, 256, 207360)
     # tile t < 16 walks 4t + 4 blocks of 32 keys, later tiles 68
     blocks = sum(4 * t + 4 for t in range(16)) + 16 * 68
     assert blocks == 1632
@@ -258,6 +267,21 @@ def test_flash_geometry_counts_l2_bytes():
     assert small.key_rows == 2 * 77 and small.l2_bytes == 2 * 77 * 2 * 64 * 4
     assert FK.geometry(1, 16, 1, 4096, 4096, 256, True, 2048, n_sms=132,
                        ctas_per_sm=2).waves == 2
+
+
+def test_flash_geometry_at_the_yi_9b_shape():
+    """Yi-9B's prefill (32 heads over 4 KV heads of 128, S=4096, causal,
+    no window): 32 tiles of 128 rows a head, 1024 CTAs, the last tile
+    first; tile t walks 4t + 4 key blocks, so each head copies
+    32 x 4 x 528 key rows (nothing skipped but the causal upper half)."""
+    geo = FK.geometry(1, 32, 4, 4096, 4096, 128, True, None)
+    assert (geo.tiles, geo.ctas, geo.smem_bytes) == (32, 1024, 109056)
+    assert geo.order == tuple(range(31, -1, -1))
+    assert [geo.key_range(t) for t in (0, 31)] == [(0, 4), (0, 128)]
+    assert geo.key_rows == 32 * 32 * sum(4 * t + 4 for t in range(32))
+    assert geo.plan == (1024, 256, 109056)
+    assert FK.geometry(1, 32, 4, 4096, 4096, 128, True, None,
+                       ctas_per_sm=2).waves == 4
 
 
 @pytest.mark.parametrize("d", [16, 80, 192, 512])
@@ -275,6 +299,11 @@ DECODE_CASES = [  # b, kv, g, s, d, dtype
     (3, 2, 4, 128, 128, "bfloat16"),
     (1, 8, 1, 512, 64, "float32"),
     (2, 2, 1, 128, 64, "bfloat16"),
+    # G=8 over 4 KV heads (yi-9b, qwen2-vl), G=7 over 8 (yi-34b)
+    (2, 4, 8, 300, 128, "float32"),
+    (2, 8, 7, 160, 64, "float32"),
+    (2, 4, 8, 128, 128, "bfloat16"),
+    (1, 8, 7, 300, 128, "bfloat16"),
 ]
 
 
@@ -362,6 +391,25 @@ def test_decode_geometry_at_the_recurrentgemma_shape(dtype, hbm, smem):
         + 16
 
 
+def test_decode_geometry_at_the_yi_9b_shape():
+    """Yi-9B's decode step (B=4, 32 heads over 4 KV heads of 128, caches
+    of 4096): 128 chunks a (KV head, row), 2048 split CTAs, of which those
+    up to each row's length have work; P padded to 8 heads exactly."""
+    lengths = (1, 1000, 4096, 4096)
+    geo = DK.launch_geometry(4, 32, 4, 4096, 128, torch.float32, lengths)
+    assert (geo.g, geo.ctas, geo.ctas_with_work) == \
+        (8, 2048, 4 * (1 + 32 + 128 + 128))
+    assert geo.smem_bytes == (2 * 32 * 528 + 8 * 528 + 4 * 8 * 8 * 40
+                              + 4 * 32 * 12) <= DK.SMEM_LIMIT
+    assert geo.hbm_bytes == (2 * 4 * (1 + 1000 + 4096 + 4096) * 128 * 4
+                             + 8 * 4 * 32 * 128 + 16)
+    assert geo.plan == (128, 4, 4, 256, geo.smem_bytes, 16, 4 * 32 * 2)
+    # yi-34b's G=7 pads P to 8 heads but keeps 7 score rows
+    g7 = DK.launch_geometry(2, 56, 8, 300, 128, torch.bfloat16)
+    assert g7.smem_bytes == (2 * 32 * 272 + 7 * 528 + 4 * 8 * 7 * 40
+                             + 4 * 32 * 12)
+
+
 @pytest.mark.parametrize("s", [1, 33, 2049])
 @pytest.mark.parametrize("kv", [1, 2])
 def test_decode_chunks_cover_every_valid_position_once(s, kv):
@@ -400,7 +448,7 @@ def test_decode_geometry_picks_the_copy_path_from_the_row(d, dtype, vec,
                                   vec=False).plan[5] == 8
 
 
-@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 16])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 7, 8, 16])
 def test_decode_geometry_pads_the_group_to_whole_tiles(g):
     """P is kept for round4(G) heads (rows padded by 4), the score slices
     for G (rows of 40)."""

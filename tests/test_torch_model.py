@@ -2,6 +2,8 @@
 the decode sequence, both step builders, and the parameter conversion at
 full width."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -155,8 +157,15 @@ def test_init_is_seeded_and_placed():
 
 
 def test_other_block_kinds_name_their_slice():
-    cfg = ArchConfig(name="tiny-attn", family="dense", n_layers=1, d_model=8,
-                     n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=16,
-                     scan_layers=False)
-    with pytest.raises(NotImplementedError, match="GQA attention slice"):
-        Model(cfg)
+    """The kinds still refused name the slice that brings them; so does
+    the audio frontend. ``attn`` and ``dense`` came with the GQA slice."""
+    base = ArchConfig(name="tiny", family="dense", n_layers=1, d_model=8,
+                      n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=16,
+                      scan_layers=False)
+    for kind, slice_ in (("moe", "MoE slice"), ("mla", "MLA slice")):
+        with pytest.raises(NotImplementedError, match=slice_):
+            Model(dataclasses.replace(base, pattern=(kind,)))
+    with pytest.raises(NotImplementedError, match="hubert slice"):
+        Model(dataclasses.replace(base, frontend="audio"))
+    for kind in ("attn", "dense"):
+        Model(dataclasses.replace(base, pattern=(kind,)))

@@ -98,8 +98,19 @@ def test_mlp_matches_reference():
 
 @pytest.mark.parametrize("kind", ["gelu", "squared_relu"])
 def test_other_mlp_kinds_name_their_family(kind):
-    with pytest.raises(NotImplementedError, match="family"):
-        TL.mlp_init(torch.Generator(), D_MODEL, 128, kind)
+    """gelu is refused naming hubert, the family it comes with;
+    squared_relu came with Nemotron-4's (the GQA slice) and matches the
+    reference."""
+    if kind == "gelu":
+        with pytest.raises(NotImplementedError, match="hubert"):
+            TL.mlp_init(torch.Generator(), D_MODEL, 128, kind)
+        return
+    jp, tp = _params(lambda key: JL.mlp_init(key, D_MODEL, 128, kind), 2)
+    assert sorted(tp) == ["w_down", "w_up"]
+    x = randn(np.random.default_rng(2), B, 8, D_MODEL)
+    want = JL.mlp_apply(jp, jnp.asarray(x), kind)
+    np.testing.assert_allclose(n(TL.mlp_apply(tp, t(x), kind)), n(want),
+                               **MODEL_TOL)
 
 
 @pytest.mark.parametrize("s", [48, 1])
