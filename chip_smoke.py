@@ -88,9 +88,37 @@ parameters, random from the seed on the card) takes it:
       4096 positions (48 decode_attention launches) with its device time,
       wall time and idle share; the 512-token request's decode-path logits
       held against the prefill step.
+Then Yi-9B is freed and Qwen1.5-MoE-A2.7B (24 moe layers, d_model 2048,
+16 heads over 16 KV heads of 128, 60 routed experts padded to 64, top-4,
+4 shared; 15.15 B fp32 parameters, random from the seed on the card)
+takes it:
+  2d. both attention kernels against their plain versions at its shapes
+      (G=1): flash at B=1, S=4096, causal with no window; decode at B=4,
+      S=4096, lengths (1, 1000, 4096, 4096), fp32 and bf16 caches, cold
+      over the 24 layers' caches; as in 2c;
+  3d. the prefill step at B=1, S=4096 (24 flash_attention launches and no
+      other kernel), held against the plain path by the flip-aware rule
+      (``hold_flip_rule``: every MoE layer's routing decisions are
+      recorded, and the logits are held before p*, the first position
+      where a decision differs), beside the 1-ulp yardstick, with the
+      share of assignments dropped by capacity;
+  4d. the decode Server for qwen2-moe-a2.7b answering 6 short requests and
+      one 512-token request; one decode step at B=4 with every cache
+      holding 4096 positions (24 decode_attention launches) with its
+      device time, wall time and idle share; the 512-token request's
+      decode-path logits at every step held by the same rule against a
+      prefill that cannot drop (capacity factor n_experts), beside the
+      assignments the real prefill drops on that prompt.
+Then qwen2-moe is freed and DeepSeekMoE-16B (28 layers, a dense first
+one; 64 routed experts, top-6, 2 shared; 16.38 B fp32 parameters) takes
+it:
+  3e. its prefill at B=1, S=4096 (28 flash_attention launches) held by the
+      flip-aware rule, and one decode step at B=4 with every cache holding
+      4096 positions (28 decode_attention launches), timed.
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel, and one more for each attention kernel at
-Yi-9B's shapes; the last line is ``{"ok": true, "device": {...}}``.
+Yi-9B's and at qwen2-moe's shapes; the last line is ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -134,6 +162,14 @@ YI_DEC_B = 4
 YI_DEC_LENGTHS = (1, 1000, 4096, 4096)
 YI34_H, YI34_KV, YI34_S = 56, 8, 1024
 YI34_LENGTHS = (1, 300, 1024, 1024)
+# the MoE family: prefill length, decode batch and cache lengths as Yi's;
+# the flip-aware rule's floor on p*, the first position where a routing
+# decision differs (S/8), and its cap on the share of decisions that differ
+MOE_S = 4096
+MOE_DEC_B = 4
+MOE_DEC_LENGTHS = (1, 1000, 4096, 4096)
+MIN_FIRST_FLIP = 1 / 8
+MAX_FLIP_SHARE = 0.01
 # training (phase 5): examples/train_lm.py --full's batch and length;
 # limits: the loss within 1e-4 relative, each grad leaf within 1e-3 of
 # that leaf's largest plain grad (the mLSTM input-gate bias b_i on its
@@ -419,6 +455,13 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     gqa_phases(dev, rng, kernels, smi)
 
+    # -- the MoE family: Yi-9B is freed when gqa_phases returns --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"after Yi-9B is freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    moe_phases(dev, rng, kernels, smi)
+
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -500,6 +543,13 @@ def hold_long_request(model, params, long_prompt: list, server_first: int,
               "the Server's first token matches the prefill step")
     else:
         print("  top-2 margin below the tolerance: logits compared only")
+
+
+def one_ulp_moved(params) -> dict:
+    """``params`` with the embedding table moved by one ulp: the
+    yardstick's input, how far rounding alone carries a model."""
+    return dict(params, embed={
+        "table": params["embed"]["table"] * (1 + 2 ** -23)})
 
 
 def mlstm_b_i_scales(cfg, names) -> dict:
@@ -596,9 +646,8 @@ def training_phase(dev, cfg, params, smi: str) -> None:
               "plain path")
     # yardstick for that limit: the plain path's grads with the embedding
     # table moved by one ulp, i.e. how far rounding alone carries them
-    moved = dict(params, embed={
-        "table": params["embed"]["table"] * (1 + 2 ** -23)})
-    leafs = tree_map(lambda p: p.detach().requires_grad_(True), moved)
+    leafs = tree_map(lambda p: p.detach().requires_grad_(True),
+                     one_ulp_moved(params))
     loss, _ = Model(cfg, kernel_impl="plain").loss(leafs, batch)
     y_grads = torch.autograd.grad(loss, list(leaves(leafs)))
     y_worst = max(((g - w).abs().max().item()
@@ -607,7 +656,7 @@ def training_phase(dev, cfg, params, smi: str) -> None:
                   for name, g, w in zip(names, y_grads, p_grads))
     print(f"  yardstick: plain path with the embeddings moved by 1 ulp, "
           f"worst {y_worst[1]} {y_worst[0]:.3e}")
-    del runs, k_grads, p_grads, p_by, moved, leafs, loss, y_grads
+    del runs, k_grads, p_grads, p_by, leafs, loss, y_grads
 
     # the Trainer for 4 steps, kernels and plain from the same params
     opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
@@ -901,6 +950,27 @@ def future_api_phase(dev, cfg, params, prefill, tokens, first,
     del maps, toks, batches, live
 
 
+def kernel_modules() -> dict:
+    """Each kernel's wrapper module, whose ``launches`` counts its kernel's
+    launches, by kernel name."""
+    from repro_torch.kernels import decode_attention as DK
+    from repro_torch.kernels import flash_attention as FK
+    from repro_torch.kernels import mlstm_scan as MK
+    from repro_torch.kernels import rglru_scan as RK
+    from repro_torch.kernels import slstm_scan as SK
+    return {"mlstm_scan": MK, "slstm_scan": SK, "rglru_scan": RK,
+            "flash_attention": FK, "decode_attention": DK}
+
+
+def zero_counts() -> None:
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
 def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -908,22 +978,12 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels import flash_attention as FK
-    from repro_torch.kernels import mlstm_scan as MK
     from repro_torch.kernels import rglru_scan as RK
-    from repro_torch.kernels import slstm_scan as SK
     from repro_torch.models import Model
     from repro_torch.serve import Server
     from repro_torch.train import make_prefill_step
 
-    counters = {"mlstm_scan": MK, "slstm_scan": SK, "rglru_scan": RK,
-                "flash_attention": FK, "decode_attention": DK}
-
-    def zero_counts():
-        for mod in counters.values():
-            mod.launches = 0
-
-    def read_counts():
-        return {name: mod.launches for name, mod in counters.items()}
+    counters = kernel_modules()
 
     def randn(*shape, scale=1.0, shift=0.0):
         a = rng.standard_normal(shape, dtype=np.float32) * scale + shift
@@ -1192,11 +1252,8 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     # embedding table moved by one or two ulps, i.e. how far 38 random fp32
     # layers carry a rounding difference on their own
     with torch.no_grad():
-        moved = dict(params, embed={
-            "table": params["embed"]["table"] * (1 + 2 ** -23)})
         alt = Model(cfg, kernel_impl="plain").apply(
-            moved, {"tokens": tokens})[0][:, -1].clone()
-        del moved
+            one_ulp_moved(params), {"tokens": tokens})[0][:, -1].clone()
     moved_rel = ((alt - want).abs().max() / want.abs().max()).item()
     print(f"  yardstick: plain path with the embeddings moved by 1-2 ulps, "
           f"relative {moved_rel:.3e}")
@@ -1242,48 +1299,20 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     phase_done("4b")
 
 
-def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
-    """Phases 2c, 3c and 4c: Yi-9B at full width and full depth."""
+def flash_case(dev, randn, h, kv, s, hd, smi: str) -> dict:
+    """Flash attention at a prefill's shape (B=1, causal, no window), q, k
+    and v drawn by ``randn`` as the model holds them ((B,S,H,D) viewed as
+    (B,H,S,D)): the launch against its geometry, the error, the kernel's,
+    the plain version's and one library call's times, both bounds; returns
+    a kernel entry without its name and launches."""
     import torch
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import decode_attention as DK
     from repro_torch.kernels import flash_attention as FK
-    from repro_torch.kernels import mlstm_scan as MK
-    from repro_torch.kernels import rglru_scan as RK
-    from repro_torch.kernels import slstm_scan as SK
-    from repro_torch.models import Model
-    from repro_torch.serve import Server
-    from repro_torch.train import make_prefill_step
-
-    counters = {"mlstm_scan": MK, "slstm_scan": SK, "rglru_scan": RK,
-                "flash_attention": FK, "decode_attention": DK}
-
-    def zero_counts():
-        for mod in counters.values():
-            mod.launches = 0
-
-    def read_counts():
-        return {name: mod.launches for name, mod in counters.items()}
-
-    def randn(*shape):
-        return torch.from_numpy(
-            rng.standard_normal(shape, dtype=np.float32)).to(dev)
-
-    cfg = get_arch("yi-9b")
-    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    n_a = sum(kind == "attn" for kind in cfg.layer_pattern)
-
-    # -- 2c. both attention kernels at Yi-9B's shapes ------------------------
-    print(f"yi-9b kernels at full width (S={YI_S}, H={H}, KV={KV}, G="
-          f"{H // KV}, D={HD}, causal, no window):")
-    q = randn(1, YI_S, H, HD).transpose(1, 2)
-    k = randn(1, YI_S, KV, HD).transpose(1, 2)
-    v = randn(1, YI_S, KV, HD).transpose(1, 2)
-    fgeo = FK.launch_geometry(1, H, KV, YI_S, YI_S, HD, True, None)
+    q = randn(1, s, h, hd).transpose(1, 2)
+    k = randn(1, s, kv, hd).transpose(1, 2)
+    v = randn(1, s, kv, hd).transpose(1, 2)
+    fgeo = FK.launch_geometry(1, h, kv, s, s, hd, True, None)
     print(f"  flash_attention geometry: {fgeo.rows} query rows a CTA, "
           f"{fgeo.ctas} CTAs x {fgeo.threads} threads, {fgeo.ctas_per_sm} "
           f"CTA(s) per SM on {fgeo.n_sms} SMs, {fgeo.waves} wave(s), "
@@ -1296,14 +1325,14 @@ def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
           f"flash_attention launched {FK.last_launch()}, its geometry says "
           f"{fgeo.plan}")
     ref = FK.plain(q, k, v, causal=True)
-    err = _close(f"flash_attention (B,H,S,D)={(1, H, YI_S, HD)}, KV={KV}, "
+    err = _close(f"flash_attention (B,H,S,D)={(1, h, s, hd)}, KV={kv}, "
                  f"causal, no window", out, ref, TOL_ATTN["float32"])
     del out, ref
-    pairs = YI_S * (YI_S + 1) // 2        # visible (q, k) pairs per head
-    flops, nbytes = 4.0 * HD * pairs * H, 4.0 * (2 * H + 2 * KV) * YI_S * HD
+    pairs = s * (s + 1) // 2              # visible (q, k) pairs per head
+    flops, nbytes = 4.0 * hd * pairs * h, 4.0 * (2 * h + 2 * kv) * s * hd
     fp32_ms, fp32_by = bound(flops, nbytes)
-    fa = kernels["flash_attention@yi-9b"] = dict(
-        name="flash_attention@yi-9b", route="cuda",
+    fa = dict(
+        route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:28",
         max_abs_err=err,
@@ -1319,90 +1348,168 @@ def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
           f", is_causal) {fa['library_ms']:.4f} ms; bound as fp32 SIMT "
           f"{fp32_ms:.4f} ms ({fp32_by}), as 3xTF32 on tensor cores "
           f"{fa['bound_ms']:.4f} ms ({fa['bound_by']}) ({smi})")
-    del q, k, v
+    return fa
 
-    def decode_case(b, h, kv, s, lengths, dtype, n_caches):
-        """One decode shape: the launch against its geometry, the error,
-        times by events and by graph replay (warm: one cache; cold: each
-        of ``n_caches`` caches in turn), the byte bound; returns a kernel
-        entry."""
-        tdt = getattr(torch, dtype)
-        ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        qd = randn(b, h, HD)
-        kd = randn(b, s, kv, HD).to(tdt)
-        vd = randn(b, s, kv, HD).to(tdt)
-        geo = DK.launch_geometry(b, h, kv, s, HD, tdt, lengths)
-        print(f"  decode_attention geometry (B,H,KV,S,D)="
-              f"{(b, h, kv, s, HD)}, G={geo.g}, {dtype} cache: {geo.ctas} "
-              f"split CTAs x {geo.threads} threads ({geo.ctas_with_work} "
-              f"with work for lengths {lengths}), {geo.ctas_per_sm} CTA(s) "
-              f"per SM by shared memory on {geo.n_sms} SMs, {geo.waves} "
-              f"wave(s), {geo.smem_bytes} B of shared memory a CTA, "
-              f"{geo.hbm_bytes} B through HBM, {geo.combine_ctas} combine "
-              f"CTAs")
-        out = DK.decode_attention(qd, kd, vd, ln)
+
+def decode_case(dev, randn, b, h, kv, s, hd, lengths, dtype: str,
+                n_caches: int, smi: str) -> dict:
+    """One decode shape, q and the cache drawn by ``randn``: the launch
+    against its geometry, the error, times by events and by graph replay
+    (warm: one cache; cold: each of ``n_caches`` caches in turn), the
+    plain version's and one library call's times, the byte bound; returns
+    a kernel entry without its name and launches."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DK
+    tdt = getattr(torch, dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    qd = randn(b, h, hd)
+    kd = randn(b, s, kv, hd).to(tdt)
+    vd = randn(b, s, kv, hd).to(tdt)
+    geo = DK.launch_geometry(b, h, kv, s, hd, tdt, lengths)
+    print(f"  decode_attention geometry (B,H,KV,S,D)="
+          f"{(b, h, kv, s, hd)}, G={geo.g}, {dtype} cache: {geo.ctas} "
+          f"split CTAs x {geo.threads} threads ({geo.ctas_with_work} "
+          f"with work for lengths {lengths}), {geo.ctas_per_sm} CTA(s) "
+          f"per SM by shared memory on {geo.n_sms} SMs, {geo.waves} "
+          f"wave(s), {geo.smem_bytes} B of shared memory a CTA, "
+          f"{geo.hbm_bytes} B through HBM, {geo.combine_ctas} combine "
+          f"CTAs")
+    out = DK.decode_attention(qd, kd, vd, ln)
+    torch.cuda.synchronize()
+    check(DK.last_launch() == geo.plan,
+          f"decode_attention launched {DK.last_launch()}, its geometry "
+          f"says {geo.plan}")
+    per_sm = DK.max_active(h, kv, hd, tdt, geo.vec)
+    check(1 <= per_sm <= geo.ctas_per_sm,
+          f"decode_attention: {per_sm} CTAs a SM on the card, the "
+          f"geometry's shared memory allows {geo.ctas_per_sm}")
+    e = _close(f"decode_attention (B,S,KV,D)={(b, s, kv, hd)}, H={h}, "
+               f"{dtype} cache, lengths {lengths}", out,
+               DK.plain(qd, kd, vd, ln), TOL_ATTN[dtype])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    caches = [tuple(torch.randn(b, s, kv, hd, generator=gen,
+                                device=dev).to(tdt) for _ in range(2))
+              for _ in range(n_caches)]
+
+    def warm():
+        DK.decode_attention(qd, kd, vd, ln)
+
+    def cold():
+        for kk, vv in caches:
+            DK.decode_attention(qd, kk, vv, ln)
+
+    kmask = (torch.arange(s, device=dev)[None, :]
+             < ln[:, None])[:, None, None, :]
+    # the library call takes one dtype: a bf16 cache is widened first,
+    # outside its time
+    kf, vf = (c.transpose(1, 2).to(torch.float32) for c in (kd, vd))
+    entry = dict(
+        route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:27",
+        max_abs_err=e, ms=cuda_ms(warm, 50),
+        graph_ms=graph_ms(warm, 100),
+        cold_graph_ms=graph_ms(cold, 4) / n_caches,
+        plain_ms=cuda_ms(lambda: DK.plain(qd, kd, vd, ln), 10),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kf, vf, attn_mask=kmask, enable_gqa=True),
+            20))
+    entry["bound_ms"], entry["bound_by"] = bound(
+        4.0 * kv * sum(geo.valid(i) for i in range(b)) * geo.g * hd,
+        geo.hbm_bytes)
+    print(f"  decode_attention (B,H,KV,S)={(b, h, kv, s)} {dtype} "
+          f"cache: kernel {entry['ms']:.4f} ms by events; by graph "
+          f"replay warm (one cache) {entry['graph_ms']:.4f} ms, cold "
+          f"({n_caches} caches in turn) {entry['cold_graph_ms']:.4f} "
+          f"ms; plain {entry['plain_ms']:.4f} ms, library "
+          f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
+          f"ms ({entry['bound_by']}) ({smi})")
+    return entry
+
+
+def time_decode_step(step, params, cache, tok, label: str, smi: str,
+                     steps: int = 8) -> None:
+    """A decode step's device time (its kernels summed by
+    ``torch.profiler``), its wall time under the profiler and without it,
+    and the device's idle share, after two warm-up steps."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        step(params, cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(params, cache, tok)
         torch.cuda.synchronize()
-        check(DK.last_launch() == geo.plan,
-              f"decode_attention launched {DK.last_launch()}, its geometry "
-              f"says {geo.plan}")
-        per_sm = DK.max_active(h, kv, HD, tdt, geo.vec)
-        check(1 <= per_sm <= geo.ctas_per_sm,
-              f"decode_attention: {per_sm} CTAs a SM on the card, the "
-              f"geometry's shared memory allows {geo.ctas_per_sm}")
-        e = _close(f"decode_attention (B,S,KV,D)={(b, s, kv, HD)}, H={h}, "
-                   f"{dtype} cache, lengths {lengths}", out,
-                   DK.plain(qd, kd, vd, ln), TOL_ATTN[dtype])
-        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-        caches = [tuple(torch.randn(b, s, kv, HD, generator=gen,
-                                    device=dev).to(tdt) for _ in range(2))
-                  for _ in range(n_caches)]
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    rows = [(e.key, max(getattr(e, "self_device_time_total", 0.0),
+                        getattr(e, "self_cuda_time_total", 0.0)))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    device = sum(us for _, us in rows) / steps / 1e3
+    del prof
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(params, cache, tok)
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) / steps * 1e3
+    b = tok.shape[0]
+    if device > 0:
+        print(f"decode step ({label}): device {device:.3f} ms; wall "
+              f"{wall:.3f} ms under the profiler (idle share "
+              f"{1 - device / wall:.3f}), {bare:.3f} ms without it (idle "
+              f"share {1 - device / bare:.3f}), {b / bare * 1e3:.0f} "
+              f"tokens/s ({smi})")
+        for key, us in sorted(rows, key=lambda r: -r[1])[:4]:
+            print(f"  {us / steps / 1e3:9.3f} ms a step  {key[:80]}")
+    else:
+        print(f"decode step ({label}): wall {bare:.3f} ms, "
+              f"{b / bare * 1e3:.0f} tokens/s; device time not measured "
+              f"(the profiler saw no kernels) ({smi})")
 
-        def warm():
-            DK.decode_attention(qd, kd, vd, ln)
 
-        def cold():
-            for kk, vv in caches:
-                DK.decode_attention(qd, kk, vv, ln)
+def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
+    """Phases 2c, 3c and 4c: Yi-9B at full width and full depth."""
+    import torch
 
-        kmask = (torch.arange(s, device=dev)[None, :]
-                 < ln[:, None])[:, None, None, :]
-        # the library call takes one dtype: a bf16 cache is widened first,
-        # outside its time
-        kf, vf = (c.transpose(1, 2).to(torch.float32) for c in (kd, vd))
-        entry = dict(
-            max_abs_err=e, ms=cuda_ms(warm, 50),
-            graph_ms=graph_ms(warm, 100),
-            cold_graph_ms=graph_ms(cold, 4) / n_caches,
-            plain_ms=cuda_ms(lambda: DK.plain(qd, kd, vd, ln), 10),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-                qd[:, :, None], kf, vf, attn_mask=kmask, enable_gqa=True),
-                20))
-        entry["bound_ms"], entry["bound_by"] = bound(
-            4.0 * kv * sum(geo.valid(i) for i in range(b)) * geo.g * HD,
-            geo.hbm_bytes)
-        print(f"  decode_attention (B,H,KV,S)={(b, h, kv, s)} {dtype} "
-              f"cache: kernel {entry['ms']:.4f} ms by events; by graph "
-              f"replay warm (one cache) {entry['graph_ms']:.4f} ms, cold "
-              f"({n_caches} caches in turn) {entry['cold_graph_ms']:.4f} "
-              f"ms; plain {entry['plain_ms']:.4f} ms, library "
-              f"{entry['library_ms']:.4f} ms, bound {entry['bound_ms']:.4f} "
-              f"ms ({entry['bound_by']}) ({smi})")
-        return entry
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import Server
+    from repro_torch.train import make_prefill_step
 
+    counters = kernel_modules()
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    cfg = get_arch("yi-9b")
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_a = sum(kind == "attn" for kind in cfg.layer_pattern)
+
+    # -- 2c. both attention kernels at Yi-9B's shapes ------------------------
+    print(f"yi-9b kernels at full width (S={YI_S}, H={H}, KV={KV}, G="
+          f"{H // KV}, D={HD}, causal, no window):")
+    kernels["flash_attention@yi-9b"] = dict(
+        name="flash_attention@yi-9b",
+        **flash_case(dev, randn, H, KV, YI_S, HD, smi))
     for dtype in ("float32", "bfloat16"):
-        entry = decode_case(YI_DEC_B, H, KV, YI_S, YI_DEC_LENGTHS, dtype,
-                            n_a)
+        entry = decode_case(dev, randn, YI_DEC_B, H, KV, YI_S, HD,
+                            YI_DEC_LENGTHS, dtype, n_a, smi)
         if dtype == "float32":         # the Server's cache type
             kernels["decode_attention@yi-9b"] = dict(
-                name="decode_attention@yi-9b", route="cuda",
-                source="src/repro_torch/kernels/csrc/decode_attention.cu",
-                replaces="src/repro/kernels/decode_attention.py:27",
-                **entry)
+                name="decode_attention@yi-9b", **entry)
         gc.collect()
         torch.cuda.empty_cache()
     for dtype in ("float32", "bfloat16"):
-        decode_case(YI_DEC_B, YI34_H, YI34_KV, YI34_S, YI34_LENGTHS, dtype,
-                    4)
+        decode_case(dev, randn, YI_DEC_B, YI34_H, YI34_KV, YI34_S, HD,
+                    YI34_LENGTHS, dtype, 4, smi)
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("2c")
@@ -1458,10 +1565,8 @@ def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
     # embedding table moved by one ulp, i.e. how far 48 random fp32
     # layers carry a rounding difference on their own
     with torch.no_grad():
-        moved = dict(params, embed={
-            "table": params["embed"]["table"] * (1 + 2 ** -23)})
-        alt = plain.apply(moved, {"tokens": tokens})[0][0, -1].clone()
-        del moved
+        alt = plain.apply(one_ulp_moved(params),
+                          {"tokens": tokens})[0][0, -1].clone()
     moved_rel = (alt - want).abs().max().item() / scale
     print(f"  yardstick: plain path with the embeddings moved by 1 ulp, "
           f"relative {moved_rel:.3e} ({moved_rel / TOL_PREFILL_REL:.3f} of "
@@ -1494,46 +1599,372 @@ def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
           f"a decode step must launch decode_attention {n_a}x and nothing "
           f"else")
     kernels["decode_attention@yi-9b"]["launches"] = n_a
-    for _ in range(2):
-        step(params, cache, tok)
-    torch.cuda.synchronize()
-    steps = 8
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            step(params, cache, tok)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps * 1e3
-    rows = [(e.key, max(getattr(e, "self_device_time_total", 0.0),
-                        getattr(e, "self_cuda_time_total", 0.0)))
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    device = sum(us for _, us in rows) / steps / 1e3
-    del prof
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step(params, cache, tok)
-    torch.cuda.synchronize()
-    bare = (time.perf_counter() - t0) / steps * 1e3
-    if device > 0:
-        print(f"decode step (B={YI_DEC_B}, caches of {YI_S} full): device "
-              f"{device:.3f} ms; wall {wall:.3f} ms under the profiler "
-              f"(idle share {1 - device / wall:.3f}), {bare:.3f} ms "
-              f"without it (idle share {1 - device / bare:.3f}), "
-              f"{YI_DEC_B / bare * 1e3:.0f} tokens/s ({smi})")
-        for key, us in sorted(rows, key=lambda r: -r[1])[:4]:
-            print(f"  {us / steps / 1e3:9.3f} ms a step  {key[:80]}")
-    else:
-        print(f"decode step (B={YI_DEC_B}, caches of {YI_S} full): wall "
-              f"{bare:.3f} ms, {YI_DEC_B / bare * 1e3:.0f} tokens/s; device "
-              f"time not measured (the profiler saw no kernels) ({smi})")
+    time_decode_step(step, params, cache, tok,
+                     f"B={YI_DEC_B}, caches of {YI_S} full", smi)
     del cache
 
     hold_long_request(model, params, long_prompt, replies[6][0],
                       model.init_cache(1, max_seq=len(long_prompt),
                                        device=dev, dtype=torch.float32))
     phase_done("4c")
+
+
+class RoutingLog:
+    """While active (``with RoutingLog() as log``), every call of the
+    port's MoE routing (``repro_torch.models.moe.route``, which
+    ``moe_apply`` looks up at each call) records its decisions on the
+    device: each position's top-k experts (sorted), whether each of those
+    assignments had a slot, and its top-k margin (the k-th routing
+    probability less the (k+1)-th)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe as MOE
+        self._route = route = MOE.route
+
+        def recording(router, x, dims):
+            r = route(router, x, dims)
+            probs = torch.softmax(x.float() @ router, -1)
+            top = torch.topk(probs, dims.top_k + 1, dim=-1).values
+            idx, order = r.gate_idx.sort(-1)
+            self.calls.append((idx, r.within.gather(-1, order),
+                               top[..., -2] - top[..., -1]))
+            return r
+
+        MOE.route = recording
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe as MOE
+        MOE.route = self._route
+
+    def layers(self, n_layers: int) -> list:
+        """Each MoE layer's decisions over the whole sequence: a prefill
+        makes one call a layer, decode steps one a layer a step, joined
+        here along S."""
+        import torch
+        check(len(self.calls) % n_layers == 0,
+              f"{len(self.calls)} routing calls for {n_layers} MoE layers")
+        return [tuple(torch.cat(parts, 1)
+                      for parts in zip(*self.calls[i::n_layers]))
+                for i in range(n_layers)]
+
+
+def routing_diff(got: list, want: list) -> tuple:
+    """Two runs' decisions, layer by layer: (p*, the first position at
+    which any layer's top-k set or capacity mask differs, S if none does;
+    the (layer, row, position) decisions that differ; all of them; the
+    smallest top-k margin of ``want`` among those that differ)."""
+    import torch
+    diff = torch.stack([(gi != wi).any(-1) | (gw != ww).any(-1)
+                        for (gi, gw, _), (wi, ww, _) in zip(got, want)])
+    margins = torch.stack([m for _, _, m in want])
+    count = int(diff.sum())
+    where = diff.any(0).any(0).nonzero()
+    p_star = int(where[0]) if len(where) else diff.shape[-1]
+    margin = float(margins[diff].min()) if count else float("nan")
+    return p_star, count, diff.numel(), margin
+
+
+def err_by_position(got, want):
+    """(S,) for (S, V) logits: the largest |got - want| at each position
+    over that position's largest |want|."""
+    return (got - want).abs().amax(-1) / want.abs().amax(-1)
+
+
+def hold_flip_rule(label: str, err, flips: tuple, tol: float,
+                   yardstick: tuple) -> None:
+    """The flip-aware rule. Routing is causal and the capacity count runs
+    in position order, so logits before p*, the first position where a
+    decision differs, see no flip: there they are held within ``tol`` of
+    each position's largest logit; p* is at least S/8 and at most 1% of
+    the decisions differ. Where nothing differs this is the whole-sequence
+    logits check. ``yardstick`` is (p*, differing, all, margin, err) of the
+    plain path against itself with the embeddings moved by one ulp."""
+    import torch
+    p_star, count, total, margin = flips
+    s = err.shape[0]
+    before = err[:p_star].max().item() if p_star else 0.0
+    ok = (bool(torch.isfinite(err).all()) and before <= tol
+          and p_star >= s * MIN_FIRST_FLIP
+          and count <= MAX_FLIP_SHARE * total)
+    print(f"{label}: routing first differs at p*={p_star} of {s} "
+          f"positions (at least {int(s * MIN_FIRST_FLIP)}), {count} of "
+          f"{total} (layer, position) decisions differ (at most "
+          f"{MAX_FLIP_SHARE:.0%}), smallest top-k margin among them "
+          f"{margin:.3e}; logits before p* within {before:.3e} of each "
+          f"position's largest ({before / tol:.3f} of the {tol} limit), "
+          f"whole sequence {err.max().item():.3e} {'ok' if ok else 'FAIL'}")
+    y_p, y_count, y_total, y_margin, y_err = yardstick
+    y_before = y_err[:y_p].max().item() if y_p else 0.0
+    print(f"  yardstick, plain path with the embeddings moved by 1 ulp: "
+          f"p*={y_p}, {y_count} of {y_total} decisions differ, smallest "
+          f"margin {y_margin:.3e}; logits before p* {y_before:.3e} "
+          f"({y_before / tol:.3f} of the limit), whole sequence "
+          f"{y_err.max().item():.3e}")
+    check(ok, f"{label}: the flip-aware rule")
+
+
+def moe_prefill_phase(cfg, model, params, tokens, smi: str) -> int:
+    """The prefill step at B=1 through the entry point a user calls (one
+    flash_attention launch a layer and no other kernel) and its time; then
+    the kernel path's logits at every position against the plain path's by
+    the flip-aware rule, with the share of assignments dropped by capacity
+    and the 1-ulp yardstick. Returns the flash_attention launches."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models.moe import capacity
+    from repro_torch.train import make_prefill_step
+
+    s = tokens.shape[1]
+    n_a = len(cfg.layer_pattern)          # attention in every layer
+    n_moe = sum(kind == "moe" for kind in cfg.layer_pattern)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    zero_counts()
+    first = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"prefill launches: {launches}")
+    check(launches == dict.fromkeys(launches, 0) | {"flash_attention": n_a},
+          f"prefill must launch flash_attention {n_a}x and nothing else")
+    check(tuple(first.shape) == (1, 1) and first.dtype == torch.int32,
+          "prefill returns (1, 1) int32 tokens")
+    ms = cuda_ms(lambda: prefill(params, batch), 2)
+    print(f"prefill (B,S)={(1, s)}: {ms:.1f} ms, {s / ms * 1e3:.0f} "
+          f"tokens/s ({smi})")
+    plain = Model(cfg, kernel_impl="plain")
+    with torch.no_grad():
+        # only the (S, V) logits of the plain run are kept beside the
+        # params; each other run is reduced to a number a position
+        with RoutingLog() as want_log:
+            want = plain.apply(params, batch)[0][0]
+        with RoutingLog() as got_log:
+            got = model.apply(params, batch)[0][0]
+        err = err_by_position(got, want)
+        got_last = got[-1].clone()
+        del got
+        with RoutingLog() as alt_log:
+            alt = plain.apply(one_ulp_moved(params), batch)[0][0]
+        alt_err = err_by_position(alt, want)
+        del alt
+    want_dec, got_dec = want_log.layers(n_moe), got_log.layers(n_moe)
+    dropped = sum(int((~w).sum()) for _, w, _ in got_dec)
+    assigned = sum(w.numel() for _, w, _ in got_dec)
+    print(f"  (token, k) assignments dropped by capacity "
+          f"({capacity(cfg.moe, s)} slots an expert), summed over {n_moe} "
+          f"MoE layers: {dropped} of {assigned} ({dropped / assigned:.4f})")
+    flips = routing_diff(got_dec, want_dec)
+    hold_flip_rule("prefill logits, kernels vs plain", err, flips,
+                   TOL_PREFILL_REL,
+                   (*routing_diff(alt_log.layers(n_moe), want_dec), alt_err))
+    last = want[-1]
+    scale = last.abs().max().item()
+    top2 = last.topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    print(f"  first token: kernels {int(first)}, plain {int(last.argmax())}, "
+          f"top-2 margin {margin:.3e}")
+    if flips[0] == s and margin > TOL_PREFILL_REL * scale:
+        check(int(first) == int(last.argmax()) == int(got_last.argmax()),
+              "the prefill step's first token is the plain path's")
+    print(f"peak device memory so far: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del want, last, err, alt_err, want_log, got_log, alt_log
+    torch.cuda.empty_cache()
+    return n_a
+
+
+def moe_decode_step(cfg, model, params, smi: str) -> int:
+    """One decode step at B=MOE_DEC_B with every cache holding MOE_S
+    positions: one decode_attention launch a layer and no other kernel,
+    then its device time, wall time and idle share. Returns the
+    decode_attention launches."""
+    import torch
+
+    from repro_torch.train import make_serve_step
+    n_a = len(cfg.layer_pattern)
+    step = make_serve_step(model)
+    cache = model.init_cache(MOE_DEC_B, max_seq=MOE_S, device=params[
+        "embed"]["table"].device, dtype=torch.float32)
+    for stage in cache:
+        for block in stage.values():
+            block["pos"].fill_(MOE_S)
+    tok = torch.zeros(MOE_DEC_B, 1, dtype=torch.int64,
+                      device=cache[0]["b0"]["pos"].device)
+    zero_counts()
+    step(params, cache, tok)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"decode step launches: {launches}")
+    check(launches == dict.fromkeys(launches, 0) | {"decode_attention": n_a},
+          f"a decode step must launch decode_attention {n_a}x and nothing "
+          f"else")
+    time_decode_step(step, params, cache, tok,
+                     f"B={MOE_DEC_B}, caches of {MOE_S} full", smi)
+    del cache
+    torch.cuda.empty_cache()
+    return n_a
+
+
+def hold_long_request_moe(cfg, model, params, long_prompt: list,
+                          server_first: int) -> None:
+    """The long request's decode-path logits, kept at every step of its
+    prompt fed a token at a time into a fresh cache, against a prefill that
+    cannot drop (``capacity_factor`` = n_experts: S·k slots an expert),
+    by the flip-aware rule with TOL_DECODE_REL, beside the assignments
+    that the real prefill drops on that prompt. A decode step (S=1) has
+    one slot an expert and never drops; a prefill of the real config
+    may."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.models.moe import capacity
+    n_moe = sum(kind == "moe" for kind in cfg.layer_pattern)
+    nodrop_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    s = len(long_prompt)
+    dev = params["embed"]["table"].device
+    toks = torch.tensor([long_prompt], device=dev)
+    batch = {"tokens": toks}
+    with torch.no_grad():
+        with RoutingLog() as pre_log:
+            pre = Model(nodrop_cfg).apply(params, batch)[0][0]
+        cache = model.init_cache(1, max_seq=s, device=dev,
+                                 dtype=torch.float32)
+        rows = []
+        with RoutingLog() as dec_log:
+            for t in range(s):
+                logits, cache = model.decode_step(params, cache,
+                                                  toks[:, t:t + 1])
+                rows.append(logits[0, 0])
+        dec = torch.stack(rows)
+        del rows, cache
+        err = err_by_position(dec, pre)
+        plain = Model(nodrop_cfg, kernel_impl="plain")
+        with RoutingLog() as yw_log:
+            yw = plain.apply(params, batch)[0][0]
+        with RoutingLog() as ya_log:
+            ya = plain.apply(one_ulp_moved(params), batch)[0][0]
+        y_err = err_by_position(ya, yw)
+        del yw, ya
+        with RoutingLog() as real_log:
+            model.apply(params, batch)
+    flips = routing_diff(dec_log.layers(n_moe), pre_log.layers(n_moe))
+    hold_flip_rule(f"{s}-token request, decode path vs a prefill that "
+                   f"cannot drop", err, flips, TOL_DECODE_REL,
+                   (*routing_diff(ya_log.layers(n_moe), yw_log.layers(n_moe)),
+                    y_err))
+    real = real_log.layers(n_moe)
+    dropped = sum(int((~w).sum()) for _, w, _ in real)
+    print(f"  the real prefill ({capacity(cfg.moe, s)} slots an expert) "
+          f"drops {dropped} of {sum(w.numel() for _, w, _ in real)} "
+          f"(token, k) assignments on this prompt, summed over {n_moe} "
+          f"layers")
+    last = pre[-1]
+    scale = last.abs().max().item()
+    top2 = last.topk(2).values
+    margin = (top2[0] - top2[1]).item()
+    print(f"  first token: server {server_first}, decode path "
+          f"{int(dec[-1].argmax())}, prefill {int(last.argmax())}, top-2 "
+          f"margin {margin:.3e}")
+    if flips[0] == s and margin > TOL_DECODE_REL * scale:
+        check(server_first == int(last.argmax()) == int(dec[-1].argmax()),
+              "the Server's first token matches the prefill's")
+    else:
+        print("  a decision differs or the top-2 margin is below the "
+              "tolerance: logits compared only")
+
+
+def moe_phases(dev, rng, kernels: dict, smi: str) -> None:
+    """Phases 2d, 3d, 4d and 3e: Qwen1.5-MoE-A2.7B at full width and full
+    depth, then DeepSeekMoE-16B."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import Server
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    cfg = get_arch("qwen2-moe-a2.7b")
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_a = len(cfg.layer_pattern)
+
+    # -- 2d. both attention kernels at qwen2-moe's shapes (G=1) --------------
+    print(f"qwen2-moe-a2.7b kernels at full width (S={MOE_S}, H={H}, KV={KV}"
+          f", G={H // KV}, D={HD}, causal, no window):")
+    kernels["flash_attention@qwen2-moe-a2.7b"] = dict(
+        name="flash_attention@qwen2-moe-a2.7b",
+        **flash_case(dev, randn, H, KV, MOE_S, HD, smi))
+    for dtype in ("float32", "bfloat16"):
+        entry = decode_case(dev, randn, MOE_DEC_B, H, KV, MOE_S, HD,
+                            MOE_DEC_LENGTHS, dtype, n_a, smi)
+        if dtype == "float32":         # the Server's cache type
+            kernels["decode_attention@qwen2-moe-a2.7b"] = dict(
+                name="decode_attention@qwen2-moe-a2.7b", **entry)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_done("2d")
+
+    # -- 3d. the prefill step at full width and full depth -------------------
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"qwen2-moe-a2.7b: {model.param_count() / 1e9:.3f} B parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(1, MOE_S))).to(dev)
+    kernels["flash_attention@qwen2-moe-a2.7b"]["launches"] = \
+        moe_prefill_phase(cfg, model, params, tokens, smi)
+    del tokens
+    phase_done("3d")
+
+    # -- 4d. the Server for qwen2-moe-a2.7b at full width --------------------
+    server = Server("qwen2-moe-a2.7b", smoke=False, slots=4, max_new=16,
+                    device=dev, params=params)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+    del server
+    kernels["decode_attention@qwen2-moe-a2.7b"]["launches"] = \
+        moe_decode_step(cfg, model, params, smi)
+    hold_long_request_moe(cfg, model, params, long_prompt, replies[6][0])
+    phase_done("4d")
+
+    # -- 3e. DeepSeekMoE-16B: free qwen2-moe first ---------------------------
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"after qwen2-moe-a2.7b is freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    cfg = get_arch("deepseek-moe-16b")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"deepseek-moe-16b: {model.param_count() / 1e9:.3f} B parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(1, MOE_S))).to(dev)
+    moe_prefill_phase(cfg, model, params, tokens, smi)
+    del tokens
+    moe_decode_step(cfg, model, params, smi)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("3e")
 
 
 if __name__ == "__main__":

@@ -10,8 +10,9 @@ Future API as a serving front door.
 Run on the GPU:  PYTHONPATH=src python examples/serve_torch.py
 On the CPU:      PYTHONPATH=src python examples/serve_torch.py --device cpu
 Full width:      add --full
-Another arch:    add --arch recurrentgemma-9b or --arch yi-9b (full width:
-                 41.8 GB and 35.3 GB of fp32 parameters, drawn on the card)
+Another arch:    add --arch recurrentgemma-9b, yi-9b, qwen2-moe-a2.7b or
+                 deepseek-moe-16b (full width: 41.8, 35.3, 60.6 and 65.5 GB
+                 of fp32 parameters, drawn on the card)
 """
 
 import argparse

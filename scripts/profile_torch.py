@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path on one GPU.
 
-    python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b]
+    python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b|
+                                             qwen2-moe-a2.7b]
 
 Runs an arch at full width with random weights (seed 0) and, under
 ``torch.profiler``, one prefill step and 16 decode steps at B=4:
-xLSTM-125M (the default) prefills B=8, S=2048; RecurrentGemma-9B and
-Yi-9B prefill B=1, S=4096 and decode with every attention cache full
-(RecurrentGemma's ring buffers, Yi's 4096-position global caches). For
-each it prints the wall time (host clock around work that ends in
-``torch.cuda.synchronize()``), the device time summed over the kernels
-that ran, the device's idle share (1 - device / wall), and the kernels
-that took the most device time. Needs a CUDA device.
+xLSTM-125M (the default) prefills B=8, S=2048; RecurrentGemma-9B, Yi-9B
+and Qwen1.5-MoE-A2.7B prefill B=1, S=4096 and decode with every attention
+cache full (RecurrentGemma's ring buffers, the others' 4096-position
+global caches). For each it prints the wall time (host clock around work
+that ends in ``torch.cuda.synchronize()``), the device time summed over
+the kernels that ran, the device's idle share (1 - device / wall), and the
+kernels that took the most device time; for an MoE arch also the device
+time of each part of its MoE layers (router and dispatch, expert products,
+combine, shared MLP), each part's functions wrapped in a profiler range
+for the run. Needs a CUDA device.
 """
 
 import argparse
+import contextlib
 import os
 import subprocess
 import sys
@@ -32,10 +37,12 @@ def _device_us(evt) -> float:
 
 def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
     from torch.autograd import DeviceType
-    # kernel rows only: an operator's row carries its kernels' time too
+    # kernel rows only: an operator's row carries its kernels' time too,
+    # and a range's row on the device (moe_ranges) spans its kernels' gaps
     rows = sorted(((e.key, e.count, _device_us(e))
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
+                   if e.device_type == DeviceType.CUDA
+                   and e.key not in MOE_PARTS.values()),
                   key=lambda r: -r[2])
     dev_s = sum(r[2] for r in rows) / 1e6
     if dev_s == 0.0:
@@ -54,7 +61,52 @@ def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
 
 #: full-width prefill shape (batch, sequence) of each arch
 PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096),
-           "yi-9b": (1, 4096)}
+           "yi-9b": (1, 4096), "qwen2-moe-a2.7b": (1, 4096)}
+
+#: the parts of an MoE layer, by the functions of ``models/moe.py`` that
+#: ``moe_apply`` calls for each
+MOE_PARTS = {"route": "moe: router and dispatch",
+             "dispatch": "moe: router and dispatch",
+             "experts": "moe: expert products", "combine": "moe: combine",
+             "mlp_apply": "moe: shared MLP"}
+
+
+@contextlib.contextmanager
+def moe_ranges():
+    """While active, each part of ``moe_apply`` runs inside a profiler
+    range named for its part."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe as MOE
+
+    def ranged(fn, name):
+        def call(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    saved = {fn: getattr(MOE, fn) for fn in MOE_PARTS}
+    for fn, name in MOE_PARTS.items():
+        setattr(MOE, fn, ranged(saved[fn], name))
+    try:
+        yield
+    finally:
+        for fn, f in saved.items():
+            setattr(MOE, fn, f)
+
+
+def _report_moe(prof, steps: int) -> None:
+    """Device time of each MoE part: the kernels launched inside its
+    ranges on the host, summed over the layers."""
+    from torch.autograd import DeviceType
+    parts = dict.fromkeys(MOE_PARTS.values(), 0.0)
+    for e in prof.events():
+        if e.name in parts and e.device_type == DeviceType.CPU:
+            parts[e.name] += float(getattr(e, "device_time_total", 0.0))
+    for name, us in parts.items():
+        print(f"  {name}: " + (f"{us / steps / 1e3:.3f} ms/step of kernels"
+                                if us else "not measured (no kernels under "
+                                "its ranges)"))
 
 
 def main() -> int:
@@ -87,18 +139,21 @@ def main() -> int:
     rng = np.random.default_rng(0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     b, s = PREFILL[args.arch]
+    ranges = moe_ranges if cfg.moe is not None else contextlib.nullcontext
 
     prefill = make_prefill_step(model)
     batch = {"tokens": torch.from_numpy(
         rng.integers(0, cfg.vocab_size, size=(b, s))).to(dev)}
     prefill(params, batch)
     torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    with ranges(), profile(activities=acts) as prof:
         t0 = time.perf_counter()
         prefill(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report(f"prefill B={b} S={s}", prof, wall, 1)
+    if cfg.moe is not None:
+        _report_moe(prof, 1)
     del prof
     torch.cuda.empty_cache()
 
@@ -113,13 +168,15 @@ def main() -> int:
         tok, cache = step(params, cache, tok)
     torch.cuda.synchronize()
     steps = 16
-    with profile(activities=acts) as prof:
+    with ranges(), profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             tok, cache = step(params, cache, tok)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report("decode B=4", prof, wall, steps)
+    if cfg.moe is not None:
+        _report_moe(prof, steps)
     t0 = time.perf_counter()
     for _ in range(steps):
         tok, cache = step(params, cache, tok)

@@ -2,11 +2,11 @@
 
 Every architecture file in this package registers exactly one full-size
 config (the published numbers) plus a ``smoke`` reduced config of the same
-family for CPU tests. The port registers xLSTM-125M, RecurrentGemma-9B
-and the GQA family (Yi-9B, Yi-34B, Nemotron-4-340B, Qwen2-VL-72B); the
-MoE, MLA and audio configs (and the MoE and MLA ``*Dims`` types, typed
-``Optional[object]`` below until their models arrive) come with their
-models in later slices.
+family for CPU tests. The port registers xLSTM-125M, RecurrentGemma-9B,
+the GQA family (Yi-9B, Yi-34B, Nemotron-4-340B, Qwen2-VL-72B) and the MoE
+family (Qwen1.5-MoE-A2.7B, DeepSeekMoE-16B); the MLA and audio configs
+(and the MLA ``*Dims`` type, typed ``Optional[object]`` below until its
+model arrives) come with their models in later slices.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from ..models.moe import MoEDims
 from ..models.rglru import RGLRUDims
 from ..models.xlstm import XLSTMDims
 
@@ -43,7 +44,7 @@ class ArchConfig:
     # mlp
     mlp_kind: str = "swiglu"
     # families
-    moe: Optional[object] = None
+    moe: Optional[MoEDims] = None
     moe_first_dense: int = 0
     moe_dense_ff: int = 0
     mla: Optional[object] = None
@@ -168,6 +169,7 @@ def _ensure_loaded():
     global _loaded
     if _loaded:
         return
-    from . import (nemotron_4_340b, qwen2_vl_72b,  # noqa: F401
-                   recurrentgemma_9b, xlstm_125m, yi_9b, yi_34b)
+    from . import (deepseek_moe_16b, nemotron_4_340b,  # noqa: F401
+                   qwen2_moe_a2_7b, qwen2_vl_72b, recurrentgemma_9b,
+                   xlstm_125m, yi_9b, yi_34b)
     _loaded = True

@@ -23,9 +23,14 @@ from .train.state import TrainState
 
 
 def _to_tensor(leaf: Any) -> torch.Tensor:
+    """A numpy view of a JAX leaf as a tensor. numpy has no bfloat16 of its
+    own: JAX hands bf16 leaves over as ``ml_dtypes.bfloat16`` arrays, which
+    ``torch.from_numpy`` refuses, so they cross as their uint16 bits."""
     arr = np.asarray(leaf)
     if not arr.flags.writeable:
         arr = arr.copy()
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
 
 

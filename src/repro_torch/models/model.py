@@ -3,6 +3,7 @@ Counterpart of ``repro/models/model.py``.
 
 Block kinds of the port so far:
   attn    pre-norm GQA/MQA attention + pre-norm MLP (yi, nemotron, qwen2-vl)
+  moe     pre-norm attention + pre-norm MoE (shared + routed experts)
   dense   like attn with an MLP of width ``moe_dense_ff or d_ff``
   mlstm   self-contained mLSTM block (xLSTM)
   slstm   self-contained sLSTM block (xLSTM)
@@ -31,6 +32,7 @@ from ..device import resolve_device
 from ..kernels.ops import KERNEL_IMPLS
 from ..tree import leaves, tree_map
 from . import layers as L
+from . import moe as MOE
 from . import rglru as RG
 from . import xlstm as XL
 
@@ -42,9 +44,9 @@ else:
 Params = dict
 
 #: block kinds of the JAX package that later slices of the port bring
-_LATER = {"moe": "the MoE slice", "mla": "the MLA slice"}
-_KINDS = ("attn", "dense", "mlstm", "slstm", "rglru", "lattn")
-_ATTN_KINDS = ("attn", "dense", "lattn")
+_LATER = {"mla": "the MLA slice"}
+_KINDS = ("attn", "dense", "moe", "mlstm", "slstm", "rglru", "lattn")
+_ATTN_KINDS = ("attn", "dense", "moe", "lattn")
 
 
 def _unsupported(kind: str) -> NotImplementedError:
@@ -87,12 +89,17 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
                  else L.rmsnorm_init)
     d = cfg.d_model
     if kind in _ATTN_KINDS:
-        d_ff = (cfg.moe_dense_ff or cfg.d_ff) if kind == "dense" else cfg.d_ff
-        return {"ln1": norm_init(d, dtype, device),
-                "attn": L.attention_init(gen, _attn_dims(cfg), dtype, device,
-                                         qk_norm=cfg.qk_norm),
-                "ln2": norm_init(d, dtype, device),
-                "mlp": L.mlp_init(gen, d, d_ff, cfg.mlp_kind, dtype, device)}
+        p = {"ln1": norm_init(d, dtype, device),
+             "attn": L.attention_init(gen, _attn_dims(cfg), dtype, device,
+                                      qk_norm=cfg.qk_norm),
+             "ln2": norm_init(d, dtype, device)}
+        if kind == "moe":
+            p["moe"] = MOE.moe_init(gen, cfg.moe, dtype, device)
+        else:
+            d_ff = ((cfg.moe_dense_ff or cfg.d_ff) if kind == "dense"
+                    else cfg.d_ff)
+            p["mlp"] = L.mlp_init(gen, d, d_ff, cfg.mlp_kind, dtype, device)
+        return p
     if kind == "rglru":
         return {"ln1": norm_init(d, dtype, device),
                 "rec": RG.rglru_block_init(gen, cfg.rglru, dtype, device),
@@ -115,8 +122,11 @@ def _norm(cfg: ArchConfig, p: Params, x):
 
 def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
                 positions=None, cache=None, kernel_impl: str = "hopper"):
-    """Returns (x_out, new_cache). ``positions`` (the batch's, or None)
-    reach the attention blocks' RoPE."""
+    """Returns (x_out, aux, new_cache); aux is the MoE block's
+    load-balancing loss, the float 0.0 for the other kinds (nothing to
+    launch on a decode step). ``positions`` (the batch's, or None) reach
+    the attention blocks' RoPE."""
+    aux = 0.0
     if kind in _ATTN_KINDS:
         h, new_cache = L.attention_apply(
             p["attn"], _norm(cfg, p["ln1"], x), _attn_dims(cfg),
@@ -126,25 +136,29 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
             window=cfg.attn_window if kind == "lattn" else None,
             cache=cache, norm_eps=cfg.norm_eps, kernel_impl=kernel_impl)
         x = x + h
-        y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
-        return x + y, new_cache
+        h2 = _norm(cfg, p["ln2"], x)
+        if kind == "moe":
+            y, aux = MOE.moe_apply(p["moe"], h2, cfg.moe)
+        else:
+            y = L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
+        return x + y, aux, new_cache
     if kind == "rglru":
         h, new_cache = RG.rglru_block_apply(
             p["rec"], _norm(cfg, p["ln1"], x), cfg.rglru, cache=cache,
             kernel_impl=kernel_impl)
         x = x + h
         y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
-        return x + y, new_cache
+        return x + y, aux, new_cache
     if kind == "mlstm":
         h, new_cache = XL.mlstm_block_apply(
             p["cell"], _norm(cfg, p["ln1"], x), cfg.xlstm, cache=cache,
             kernel_impl=kernel_impl)
-        return x + h, new_cache
+        return x + h, aux, new_cache
     if kind == "slstm":
         h, new_cache = XL.slstm_block_apply(p["cell"], x, cfg.xlstm,
                                             cache=cache,
                                             kernel_impl=kernel_impl)
-        return x + h, new_cache
+        return x + h, aux, new_cache
     raise _unsupported(kind)
 
 
@@ -268,23 +282,28 @@ class Model:
 
     def apply(self, params: Params, batch: dict
               ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence forward. Returns (logits fp32, aux_loss); none of
-        the ported blocks adds an auxiliary loss, so aux is 0. The batch's
-        ``positions`` ((B,S), or (3,B,S) under M-RoPE), when given, are
-        where the attention blocks apply RoPE."""
+        """Full-sequence forward. Returns (logits fp32, aux_loss), aux the
+        MoE blocks' load-balancing losses summed over every stage and
+        repeat (0 without MoE blocks). The batch's ``positions`` ((B,S), or
+        (3,B,S) under M-RoPE), when given, are where the attention blocks
+        apply RoPE."""
         cfg = self.cfg
         x = self._frontend(params, batch)
         positions = batch.get("positions")
+        aux = x.new_zeros((), dtype=torch.float32)
         for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
             def unit(xx, lp, _pattern=pattern):
+                acc = 0.0
                 for bi, kind in enumerate(_pattern):
-                    xx, _ = block_apply(lp[f"b{bi}"], xx, cfg, kind,
-                                        positions=positions,
-                                        kernel_impl=self.kernel_impl)
-                return xx
+                    xx, a, _ = block_apply(lp[f"b{bi}"], xx, cfg, kind,
+                                           positions=positions,
+                                           kernel_impl=self.kernel_impl)
+                    acc = acc + a
+                return xx, acc
             for lp in _repeats(sp, repeat):
-                x = _maybe_remat(unit, self.remat)(x, lp)
-        return self._logits(params, x), x.new_zeros((), dtype=torch.float32)
+                x, a = _maybe_remat(unit, self.remat)(x, lp)
+                aux = aux + a
+        return self._logits(params, x), aux
 
     def loss(self, params: Params, batch: dict
              ) -> tuple[torch.Tensor, dict]:
@@ -324,7 +343,8 @@ class Model:
                     tokens: torch.Tensor) -> tuple[torch.Tensor, list]:
         """One token for every sequence. tokens: (B, 1) int. Attention
         caches are written in place; a stacked stage's cache is updated in
-        place in its stacked tensors and returned as it is."""
+        place in its stacked tensors and returned as it is. The MoE
+        blocks' aux losses are dropped, as in the reference."""
         cfg = self.cfg
         x = L.embed(params["embed"], tokens)
         new_caches = []
@@ -333,7 +353,7 @@ class Model:
             for lp, lc in zip(_repeats(sp, repeat), _repeats(sc, repeat)):
                 nc = {}
                 for bi, kind in enumerate(pattern):
-                    x, nc[f"b{bi}"] = block_apply(
+                    x, _, nc[f"b{bi}"] = block_apply(
                         lp[f"b{bi}"], x, cfg, kind, cache=lc[f"b{bi}"],
                         kernel_impl=self.kernel_impl)
                 if repeat > 1:

@@ -178,6 +178,7 @@ def test_rglru_launch_geometry_on_card(cuda_device, b, s, w, offset):
     (1, 1, 2, 77, 64, False, None),      # non-causal, no window
     (1, 4, 8, 1000, 128, True, None),    # yi-9b's grouping, no window
     (1, 8, 7, 300, 128, True, None),     # yi-34b's
+    (1, 16, 1, 1000, 128, True, None),   # qwen2-moe's and deepseek-moe's
     (2, 4, 8, 200, 64, False, None)])
 def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
                                             causal, window):
@@ -240,6 +241,7 @@ def test_flash_kernel_refuses_bf16(cuda_device):
     (2, 2, 16, 300, 64, None),
     (4, 4, 8, 4096, 128, [1, 1000, 4096, 4096]),   # a Yi-9B decode step
     (2, 8, 7, 300, 128, [300, 77]),      # yi-34b's G=7: P padded to 8
+    (4, 16, 1, 4096, 128, [1, 1000, 4096, 4096]),  # qwen2-moe's G=1
     (3, 8, 7, 33, 64, [1, 33, 32])])
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
                                              d, lengths):
@@ -449,6 +451,35 @@ def test_narrow_gqa_model_with_kernels_matches_plain_on_card(cuda_device):
     with torch.no_grad():
         short, _ = plain.apply(params, {"tokens": toks[:, :8]})
     assert (step_k[:, 0] - short[:, -1]).abs().max().item() <= 1e-3 * scale
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-moe-16b"])
+def test_moe_apply_on_card_matches_cpu(cuda_device, arch):
+    """The smoke MoE layer at B=2, S=64 on the card against the CPU, with
+    its own capacity factor and with 0.5, which drops: the same routing
+    (indices and drop mask), y within 1e-5 and the aux loss."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as MOE
+
+    smoke = get_arch(arch, smoke=True).moe
+    p = MOE.moe_init(torch.Generator().manual_seed(0), smoke)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 64, smoke.d_model)).astype(np.float32))
+    for dims in (smoke, dataclasses.replace(smoke, capacity_factor=0.5)):
+        pc = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor)
+                  else {kk: vv.to(cuda_device) for kk, vv in v.items()})
+              for k, v in p.items()}
+        want_r = MOE.route(p["router"], x, dims)
+        got_r = MOE.route(pc["router"], x.to(cuda_device), dims)
+        assert torch.equal(got_r.gate_idx.cpu(), want_r.gate_idx)
+        assert torch.equal(got_r.within.cpu(), want_r.within)
+        want, want_aux = MOE.moe_apply(p, x, dims)
+        got, aux = MOE.moe_apply(pc, x.to(cuda_device), dims)
+        np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
 
 
 @pytest.mark.requires_cuda

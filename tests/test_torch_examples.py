@@ -1,5 +1,6 @@
-"""The port's Future-API examples run to their end on the CPU (their own
-asserts check the results: no lost commit, pruning fired)."""
+"""The port's examples run to their end on the CPU (their own asserts check
+the results: no lost commit, pruning fired): the three Future-API ones and
+the qwen2-moe smoke Server."""
 
 import os
 import pathlib
@@ -16,11 +17,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
                             "the whole: True"),
     ("param_server_torch.py", "commits=48"),
     ("async_hyperband_torch.py", "epochs spent:"),
+    ("serve_torch.py --arch qwen2-moe-a2.7b", "all requests served"),
 ])
 def test_example_runs_on_cpu(name, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    script, *args = name.split()
     proc = subprocess.run(
-        [sys.executable, str(ROOT / "examples" / name), "--device", "cpu"],
+        [sys.executable, str(ROOT / "examples" / script), *args, "--device",
+         "cpu"],
         env=env, capture_output=True, text=True, timeout=240, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
     assert expect in proc.stdout

@@ -21,6 +21,7 @@ from repro.train import make_serve_step as jax_serve  # noqa: E402
 from repro_torch.configs import ArchConfig, get_arch  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.moe import MoEDims  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
 ARCH = "xlstm-125m"
@@ -158,14 +159,16 @@ def test_init_is_seeded_and_placed():
 
 def test_other_block_kinds_name_their_slice():
     """The kinds still refused name the slice that brings them; so does
-    the audio frontend. ``attn`` and ``dense`` came with the GQA slice."""
+    the audio frontend. ``attn`` and ``dense`` came with the GQA slice,
+    ``moe`` with the MoE slice."""
     base = ArchConfig(name="tiny", family="dense", n_layers=1, d_model=8,
                       n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=16,
-                      scan_layers=False)
-    for kind, slice_ in (("moe", "MoE slice"), ("mla", "MLA slice")):
-        with pytest.raises(NotImplementedError, match=slice_):
-            Model(dataclasses.replace(base, pattern=(kind,)))
+                      scan_layers=False,
+                      moe=MoEDims(d_model=8, n_experts=4, top_k=2,
+                                  d_expert=8))
+    with pytest.raises(NotImplementedError, match="MLA slice"):
+        Model(dataclasses.replace(base, pattern=("mla",)))
     with pytest.raises(NotImplementedError, match="hubert slice"):
         Model(dataclasses.replace(base, frontend="audio"))
-    for kind in ("attn", "dense"):
+    for kind in ("attn", "dense", "moe"):
         Model(dataclasses.replace(base, pattern=(kind,)))
