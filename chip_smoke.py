@@ -65,7 +65,8 @@ Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
       3xTF32 on tensor cores (its route);
   3b. the prefill step at B=1, S=4096 (past the 2048 window), with the
       launch counts zeroed just before and read just after (26 rglru_scan
-      and 12 flash_attention launches), held against the plain path;
+      and 12 flash_attention launches), held against the plain path with
+      its attention summed in fp64 (``WidenedFlash(torch.float64)``);
   4b. the decode Server for this arch answering the same kind of traffic;
       one decode step at B=4 (26 rglru_scan and 12 decode_attention
       launches) is timed, and the 512-token request's decode-path logits
@@ -115,10 +116,30 @@ it:
   3e. its prefill at B=1, S=4096 (28 flash_attention launches) held by the
       flip-aware rule, and one decode step at B=4 with every cache holding
       4096 positions (28 decode_attention launches), timed.
+Then DeepSeekMoE-16B is freed and Yi-34B (60 attn layers, d_model 7168, 56
+heads over 8 KV heads of 128, d_ff 20480, vocab 64000; 34.39 B parameters,
+drawn from the seed on the card in bf16, 68.78 GB; nothing cut) takes it:
+  2f. both attention kernels in bf16 at its shapes (G=7): flash at B=1,
+      S=4096, causal with no window; decode at B=4, S=4096, lengths (1,
+      1000, 4096, 4096), a bf16 q on a bf16 and on an fp32 cache; each as
+      in 2c, and each against its fp32 kernel on the widened inputs,
+      rounded to bf16, bit for bit;
+  3f. the prefill step at B=1, S=4096 (60 flash_attention launches on bf16
+      q, k and v, and no other kernel), its logits held (a) bit for bit
+      against the same prefill with every flash_attention call's inputs
+      widened to fp32 and its output rounded back (``WidenedFlash``), (b)
+      against the plain path within the 1-ulp bf16 yardstick, and (c)
+      timed, with tokens/s and peak memory;
+  4f. the decode Server for yi-34b on the bf16 tree (fp32 caches, bf16 q)
+      answering 6 short requests and one 512-token request; one decode step
+      at B=4 with every bf16 cache holding 4096 positions (60
+      decode_attention launches) with its device time, wall time and idle
+      share; the 512-token request's decode-path logits held against the
+      prefill step within TOL_DECODE_REL_BF16, beside the yardstick.
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel, and one more for each attention kernel at
-Yi-9B's and at qwen2-moe's shapes; the last line is ``{"ok": true,
-"device": {...}}``.
+Yi-9B's, qwen2-moe's and Yi-34B's (bf16) shapes; the last line is
+``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -135,10 +156,11 @@ import numpy as np
 
 SEED = 0
 B, S = 8, 2048                   # full-width prefill shape
-# H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on them,
-# HBM3 rate
+# H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 and dense
+# bf16 on them, HBM3 rate
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 # tolerances: the kernel ones are tests/test_kernels.py's (mLSTM 5e-4,
 # sLSTM 3e-5, as rtol and atol); model logits are compared relative to the
@@ -170,6 +192,17 @@ MOE_DEC_B = 4
 MOE_DEC_LENGTHS = (1, 1000, 4096, 4096)
 MIN_FIRST_FLIP = 1 / 8
 MAX_FLIP_SHARE = 0.01
+# Yi-34B in bf16 (phases 2f to 4f): prefill length; decode batch and cache
+# lengths as Yi-9B's. The decode path against the prefill in bf16: every
+# activation is rounded to 8 significant bits after each product, and the
+# decode path's products (M = 1) sum in other orders than the prefill's, so
+# over 60 random layers the two differ as far as rounding alone carries the
+# model, which the 1-ulp yardstick (printed beside) measures at a few
+# percent of the largest logit; the limit sits above that, while a decode
+# path that drops a token, a position or a cache slot moves the logits by a
+# large share of the largest. fp32's 1e-3 does not apply.
+YI34_DEC_LENGTHS = (1, 1000, 4096, 4096)
+TOL_DECODE_REL_BF16 = 0.1
 # training (phase 5): examples/train_lm.py --full's batch and length;
 # limits: the loss within 1e-4 relative, each grad leaf within 1e-3 of
 # that leaf's largest plain grad (the mLSTM input-gate bias b_i on its
@@ -462,6 +495,15 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     moe_phases(dev, rng, kernels, smi)
 
+    # -- Yi-34B in bf16: DeepSeekMoE-16B is freed when moe_phases returns ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"after deepseek-moe-16b is freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    yi34_phases(dev, rng, kernels, smi)
+
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -507,14 +549,18 @@ def serve_traffic(server, rng, vocab: int) -> tuple[dict, list]:
 
 
 def hold_long_request(model, params, long_prompt: list, server_first: int,
-                      cache) -> None:
+                      cache, tol: float = TOL_DECODE_REL,
+                      yardstick: bool = False) -> None:
     """The long request's decode-path logits (its prompt fed a token at a
-    time into ``cache``) against the prefill step's, within
-    TOL_DECODE_REL of the largest logit; where the top-2 margin exceeds
-    that, the Server's first token and the decode path's are the prefill
-    step's."""
+    time into ``cache``) against the prefill step's, within ``tol`` of the
+    largest logit; with ``yardstick``, beside the plain path's prefill
+    against itself with the embeddings moved by one ulp, on the same
+    prompt (where ``tol`` was set from it); where the top-2 margin exceeds
+    ``tol``, the Server's first token and the decode path's are the
+    prefill step's."""
     import torch
 
+    from repro_torch.models import Model
     from repro_torch.train import make_prefill_step
     long_toks = torch.tensor([long_prompt],
                              device=params["embed"]["table"].device)
@@ -530,14 +576,25 @@ def hold_long_request(model, params, long_prompt: list, server_first: int,
     diff = (dec_logits - pre_logits).abs().max().item()
     top2 = pre_logits.topk(2).values
     margin = (top2[0] - top2[1]).item()
-    ok = diff <= TOL_DECODE_REL * scale
+    ok = bool(torch.isfinite(dec_logits).all()) and diff <= tol * scale
     print(f"{len(long_prompt)}-token request: decode-path vs prefill logits "
           f"max abs diff {diff:.3e} (relative {diff / scale:.3e}, tolerance "
-          f"{TOL_DECODE_REL}) {'ok' if ok else 'FAIL'}; first token: "
-          f"server {server_first}, prefill {pre_tok}, top-2 margin "
+          f"{tol}, {diff / scale / tol:.3f} of it) {'ok' if ok else 'FAIL'}; "
+          f"first token: server {server_first}, decode path "
+          f"{int(dec_logits.argmax())}, prefill {pre_tok}, top-2 margin "
           f"{margin:.3e}")
+    if yardstick:
+        plain = Model(model.cfg, kernel_impl="plain")
+        with torch.no_grad():
+            want = plain.apply(params, {"tokens": long_toks})[0][0, -1]
+            alt = plain.apply(one_ulp_moved(params),
+                              {"tokens": long_toks})[0][0, -1]
+        moved = (alt - want).abs().max().item() / want.abs().max().item()
+        print(f"  yardstick: plain prefill with the embeddings moved by 1 "
+              f"ulp, relative {moved:.3e} ({moved / tol:.3f} of the "
+              f"tolerance)")
     check(ok, "decode-path logits disagree with the prefill step")
-    if margin > TOL_DECODE_REL * scale:
+    if margin > tol * scale:
         check(server_first == pre_tok
               and int(dec_logits.argmax()) == pre_tok,
               "the Server's first token matches the prefill step")
@@ -546,10 +603,50 @@ def hold_long_request(model, params, long_prompt: list, server_first: int,
 
 
 def one_ulp_moved(params) -> dict:
-    """``params`` with the embedding table moved by one ulp: the
-    yardstick's input, how far rounding alone carries a model."""
-    return dict(params, embed={
-        "table": params["embed"]["table"] * (1 + 2 ** -23)})
+    """``params`` with the embedding table moved by one ulp of its own
+    type, away from zero: the yardstick's input, how far rounding alone
+    carries a model. An fp32 table is scaled by 1 + 2^-23 (one or two ulps,
+    as every fp32 phase has moved it); a bf16 table steps each element to
+    its next value (its int16 view plus one), since a scale by 1 + 2^-23
+    rounds back to a bf16 table unchanged."""
+    import torch
+    table = params["embed"]["table"]
+    if table.dtype == torch.float32:
+        moved = table * (1 + 2 ** -23)
+    else:
+        moved = (table.view(torch.int16) + 1).view(table.dtype)
+    return dict(params, embed={"table": moved})
+
+
+class WidenedFlash:
+    """While active (``with WidenedFlash(dtype)``), every call of
+    ``repro_torch.kernels.ops.flash_attention`` (which the attention blocks
+    look up at each call) takes its q, k and v widened to ``dtype`` and
+    rounds its output back to q's type, with no argument added to the
+    entry points: in fp32 (the default), the bf16 prefill's counterpart
+    through the fp32 kernel; in fp64, the plain path's attention summed in
+    fp64, whose result no summation order moves."""
+
+    def __init__(self, dtype=None):
+        self.dtype = dtype
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ops
+        self._flash = flash = ops.flash_attention
+        dtype = torch.float32 if self.dtype is None else self.dtype
+
+        def widened(q, k, v, **kw):
+            return flash(q.to(dtype), k.to(dtype), v.to(dtype),
+                         **kw).to(q.dtype)
+
+        ops.flash_attention = widened
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.kernels import ops
+        ops.flash_attention = self._flash
 
 
 def mlstm_b_i_scales(cfg, names) -> dict:
@@ -1236,24 +1333,30 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 2)
     print(f"prefill (B,S)={(1, RG_S)}: {ms:.1f} ms, "
           f"{RG_S / ms * 1e3:.0f} tokens/s")
+    # the plain path sums its attention in fp64 (rounded back to fp32 at
+    # each layer's output): a reference whose result no row blocking or
+    # GEMM order of the plain flash version moves, since this check sits
+    # near its limit (ROADMAP note R2)
+    plain = Model(cfg, kernel_impl="plain")
     with torch.no_grad():
         # clones, so the 4.2 GB logits of each run are freed
         got = model.apply(params, {"tokens": tokens})[0][:, -1].clone()
-        want = Model(cfg, kernel_impl="plain").apply(
-            params, {"tokens": tokens})[0][:, -1].clone()
+        with WidenedFlash(torch.float64):
+            want = plain.apply(params, {"tokens": tokens})[0][:, -1].clone()
     rel = ((got - want).abs().max() / want.abs().max()).item()
     ok = bool(torch.isfinite(got).all()) and rel <= TOL_PREFILL_REL \
         and got.abs().max().item() <= cfg.logits_softcap
-    print(f"prefill last-position logits, kernels vs plain: max abs diff "
-          f"{(got - want).abs().max().item():.3e}, relative {rel:.3e} "
-          f"(tolerance {TOL_PREFILL_REL}) {'ok' if ok else 'FAIL'}")
+    print(f"prefill last-position logits, kernels vs plain (attention in "
+          f"fp64): max abs diff {(got - want).abs().max().item():.3e}, "
+          f"relative {rel:.3e} (tolerance {TOL_PREFILL_REL}) "
+          f"{'ok' if ok else 'FAIL'}")
     check(ok, "prefill with the kernels disagrees with the plain path")
     # yardstick for that tolerance: the plain path against itself with the
     # embedding table moved by one or two ulps, i.e. how far 38 random fp32
     # layers carry a rounding difference on their own
-    with torch.no_grad():
-        alt = Model(cfg, kernel_impl="plain").apply(
-            one_ulp_moved(params), {"tokens": tokens})[0][:, -1].clone()
+    with torch.no_grad(), WidenedFlash(torch.float64):
+        alt = plain.apply(one_ulp_moved(params),
+                          {"tokens": tokens})[0][:, -1].clone()
     moved_rel = ((alt - want).abs().max() / want.abs().max()).item()
     print(f"  yardstick: plain path with the embeddings moved by 1-2 ulps, "
           f"relative {moved_rel:.3e}")
@@ -1299,22 +1402,26 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     phase_done("4b")
 
 
-def flash_case(dev, randn, h, kv, s, hd, smi: str) -> dict:
+def flash_case(dev, randn, h, kv, s, hd, smi: str,
+               dtype: str = "float32") -> dict:
     """Flash attention at a prefill's shape (B=1, causal, no window), q, k
-    and v drawn by ``randn`` as the model holds them ((B,S,H,D) viewed as
-    (B,H,S,D)): the launch against its geometry, the error, the kernel's,
-    the plain version's and one library call's times, both bounds; returns
-    a kernel entry without its name and launches."""
+    and v of ``dtype`` drawn by ``randn`` as the model holds them ((B,S,H,D)
+    viewed as (B,H,S,D)): the launch against its geometry, the error, the
+    kernel's, the plain version's and one library call's times, both
+    bounds; in bf16 also the kernel against the fp32 kernel on the widened
+    inputs, rounded to bf16, bit for bit. Returns a kernel entry without
+    its name and launches."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FK
-    q = randn(1, s, h, hd).transpose(1, 2)
-    k = randn(1, s, kv, hd).transpose(1, 2)
-    v = randn(1, s, kv, hd).transpose(1, 2)
-    fgeo = FK.launch_geometry(1, h, kv, s, s, hd, True, None)
-    print(f"  flash_attention geometry: {fgeo.rows} query rows a CTA, "
-          f"{fgeo.ctas} CTAs x {fgeo.threads} threads, {fgeo.ctas_per_sm} "
+    tdt = getattr(torch, dtype)
+    q = randn(1, s, h, hd).to(tdt).transpose(1, 2)
+    k = randn(1, s, kv, hd).to(tdt).transpose(1, 2)
+    v = randn(1, s, kv, hd).to(tdt).transpose(1, 2)
+    fgeo = FK.launch_geometry(1, h, kv, s, s, hd, True, None, dtype=tdt)
+    print(f"  flash_attention geometry ({dtype}): {fgeo.rows} query rows a "
+          f"CTA, {fgeo.ctas} CTAs x {fgeo.threads} threads, {fgeo.ctas_per_sm} "
           f"CTA(s) per SM on {fgeo.n_sms} SMs, {fgeo.waves} wave(s), "
           f"{fgeo.smem_bytes} B of shared memory a CTA, tiles in the order "
           f"{fgeo.order[:3]}...; {fgeo.key_rows} K and as many V rows, "
@@ -1324,12 +1431,23 @@ def flash_case(dev, randn, h, kv, s, hd, smi: str) -> dict:
     check(FK.last_launch() == fgeo.plan,
           f"flash_attention launched {FK.last_launch()}, its geometry says "
           f"{fgeo.plan}")
+    shape = f"(B,H,S,D)={(1, h, s, hd)}, KV={kv}"
     ref = FK.plain(q, k, v, causal=True)
-    err = _close(f"flash_attention (B,H,S,D)={(1, h, s, hd)}, KV={kv}, "
-                 f"causal, no window", out, ref, TOL_ATTN["float32"])
+    err = _close(f"flash_attention {shape}, {dtype}, causal, no window",
+                 out, ref, TOL_ATTN[dtype])
+    if dtype != "float32":
+        # the fp32 kernel on the widened inputs: held against the plain
+        # version at fp32's tolerance, then the bf16 kernel against it
+        qf, kf, vf = q.float(), k.float(), v.float()
+        wide = FK.flash_attention(qf, kf, vf, causal=True)
+        _close(f"flash_attention {shape}, float32 on the widened inputs",
+               wide, FK.plain(qf, kf, vf, causal=True), TOL_ATTN["float32"])
+        hold_bits("flash_attention", out, wide)
+        del qf, kf, vf, wide
     del out, ref
     pairs = s * (s + 1) // 2              # visible (q, k) pairs per head
-    flops, nbytes = 4.0 * hd * pairs * h, 4.0 * (2 * h + 2 * kv) * s * hd
+    el = q.element_size()
+    flops, nbytes = 4.0 * hd * pairs * h, el * (2 * h + 2 * kv) * s * hd
     fp32_ms, fp32_by = bound(flops, nbytes)
     fa = dict(
         route="cuda",
@@ -1340,36 +1458,66 @@ def flash_case(dev, randn, h, kv, s, hd, smi: str) -> dict:
         plain_ms=cuda_ms(lambda: FK.plain(q, k, v, causal=True), 2),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), 5))
-    fa["bound_ms"], fa["bound_by"] = bound(3 * flops, nbytes,
-                                           PEAK_TF32_FLOPS)
+    if dtype == "float32":
+        fa["bound_ms"], fa["bound_by"] = bound(3 * flops, nbytes,
+                                               PEAK_TF32_FLOPS)
+        route = "as 3xTF32 on tensor cores"
+    else:
+        # bf16 operands multiply exactly on the tensor cores at the bf16
+        # rate; the kernel's route (QK^T one TF32 product, PV two, so 1.5x
+        # the flops at the TF32 rate) is printed beside it as a note
+        fa["bound_ms"], fa["bound_by"] = bound(flops, nbytes,
+                                               PEAK_BF16_FLOPS)
+        route_ms, _ = bound(1.5 * flops, nbytes, PEAK_TF32_FLOPS)
+        route = (f"its route (1 + 2 TF32 products) {route_ms:.4f} ms, as "
+                 f"3xTF32 {bound(3 * flops, nbytes, PEAK_TF32_FLOPS)[0]:.4f}"
+                 f" ms; the bound, as bf16 on tensor cores at "
+                 f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s,")
     print(f"  flash_attention: {pairs} visible (q, k) pairs per head, "
-          f"{flops / 1e9:.1f} GFLOP; kernel {fa['ms']:.4f} ms, plain "
-          f"{fa['plain_ms']:.4f} ms, library (scaled_dot_product_attention"
-          f", is_causal) {fa['library_ms']:.4f} ms; bound as fp32 SIMT "
-          f"{fp32_ms:.4f} ms ({fp32_by}), as 3xTF32 on tensor cores "
-          f"{fa['bound_ms']:.4f} ms ({fa['bound_by']}) ({smi})")
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; kernel "
+          f"{fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms, library "
+          f"(scaled_dot_product_attention, is_causal) "
+          f"{fa['library_ms']:.4f} ms; bound as fp32 SIMT {fp32_ms:.4f} ms "
+          f"({fp32_by}), {route} {fa['bound_ms']:.4f} ms ({fa['bound_by']}) "
+          f"({smi})")
     return fa
 
 
+def hold_bits(name: str, got, wide) -> None:
+    """A bf16 kernel's output against its fp32 kernel's on the widened
+    inputs (``wide``), rounded to bf16: zero elements may differ."""
+    import torch
+    want = wide.to(torch.bfloat16)
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    print(f"  {name} bf16 against the fp32 kernel on the widened inputs, "
+          f"rounded: {differ} of {got.numel()} elements differ "
+          f"{'ok' if differ == 0 else 'FAIL'}")
+    check(differ == 0, f"{name}: the bf16 kernel is the fp32 kernel on the "
+          f"widened inputs, rounded, bit for bit")
+
+
 def decode_case(dev, randn, b, h, kv, s, hd, lengths, dtype: str,
-                n_caches: int, smi: str) -> dict:
-    """One decode shape, q and the cache drawn by ``randn``: the launch
-    against its geometry, the error, times by events and by graph replay
-    (warm: one cache; cold: each of ``n_caches`` caches in turn), the
-    plain version's and one library call's times, the byte bound; returns
-    a kernel entry without its name and launches."""
+                n_caches: int, smi: str, q_dtype: str = "float32") -> dict:
+    """One decode shape, q (of ``q_dtype``) and the cache (of ``dtype``)
+    drawn by ``randn``: the launch against its geometry, the error, times
+    by events and by graph replay (warm: one cache; cold: each of
+    ``n_caches`` caches in turn), the plain version's and one library
+    call's times, the byte bound; for a bf16 q also the kernel against the
+    fp32 q's result, rounded to bf16, bit for bit. Returns a kernel entry
+    without its name and launches."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as DK
-    tdt = getattr(torch, dtype)
+    tdt, qdt = getattr(torch, dtype), getattr(torch, q_dtype)
     ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    qd = randn(b, h, hd)
+    qd = randn(b, h, hd).to(qdt)
     kd = randn(b, s, kv, hd).to(tdt)
     vd = randn(b, s, kv, hd).to(tdt)
-    geo = DK.launch_geometry(b, h, kv, s, hd, tdt, lengths)
+    geo = DK.launch_geometry(b, h, kv, s, hd, tdt, lengths, q_dtype=qdt)
     print(f"  decode_attention geometry (B,H,KV,S,D)="
-          f"{(b, h, kv, s, hd)}, G={geo.g}, {dtype} cache: {geo.ctas} "
+          f"{(b, h, kv, s, hd)}, G={geo.g}, {q_dtype} q, {dtype} cache: "
+          f"{geo.ctas} "
           f"split CTAs x {geo.threads} threads ({geo.ctas_with_work} "
           f"with work for lengths {lengths}), {geo.ctas_per_sm} CTA(s) "
           f"per SM by shared memory on {geo.n_sms} SMs, {geo.waves} "
@@ -1381,13 +1529,25 @@ def decode_case(dev, randn, b, h, kv, s, hd, lengths, dtype: str,
     check(DK.last_launch() == geo.plan,
           f"decode_attention launched {DK.last_launch()}, its geometry "
           f"says {geo.plan}")
-    per_sm = DK.max_active(h, kv, hd, tdt, geo.vec)
+    per_sm = DK.max_active(h, kv, hd, tdt, geo.vec, q_dtype=qdt)
     check(1 <= per_sm <= geo.ctas_per_sm,
           f"decode_attention: {per_sm} CTAs a SM on the card, the "
           f"geometry's shared memory allows {geo.ctas_per_sm}")
+    check(out.dtype == qdt, f"decode_attention returns q's type {qdt}")
+    tol = TOL_ATTN["float32" if dtype == q_dtype == "float32"
+                   else "bfloat16"]
     e = _close(f"decode_attention (B,S,KV,D)={(b, s, kv, hd)}, H={h}, "
-               f"{dtype} cache, lengths {lengths}", out,
-               DK.plain(qd, kd, vd, ln), TOL_ATTN[dtype])
+               f"{q_dtype} q, {dtype} cache, lengths {lengths}", out,
+               DK.plain(qd, kd, vd, ln), tol)
+    if q_dtype != "float32":
+        # the fp32 q's result: held against the plain version at fp32's
+        # tolerance, then the bf16 q's result against it
+        qf = qd.float()
+        wide = DK.decode_attention(qf, kd, vd, ln)
+        _close(f"decode_attention (B,S,KV,D)={(b, s, kv, hd)}, H={h}, "
+               f"float32 q (the bf16 q widened), {dtype} cache", wide,
+               DK.plain(qf, kd, vd, ln), TOL_ATTN["float32"])
+        hold_bits("decode_attention", out, wide)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     caches = [tuple(torch.randn(b, s, kv, hd, generator=gen,
                                 device=dev).to(tdt) for _ in range(2))
@@ -1402,9 +1562,11 @@ def decode_case(dev, randn, b, h, kv, s, hd, lengths, dtype: str,
 
     kmask = (torch.arange(s, device=dev)[None, :]
              < ln[:, None])[:, None, None, :]
-    # the library call takes one dtype: a bf16 cache is widened first,
-    # outside its time
-    kf, vf = (c.transpose(1, 2).to(torch.float32) for c in (kd, vd))
+    # the library call takes one dtype, the wider of q's and the cache's:
+    # the other is widened first, outside its time
+    wide = torch.float32 if torch.float32 in (tdt, qdt) else torch.bfloat16
+    kf, vf = (c.transpose(1, 2).to(wide) for c in (kd, vd))
+    ql = qd.to(wide)
     entry = dict(
         route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -1414,13 +1576,13 @@ def decode_case(dev, randn, b, h, kv, s, hd, lengths, dtype: str,
         cold_graph_ms=graph_ms(cold, 4) / n_caches,
         plain_ms=cuda_ms(lambda: DK.plain(qd, kd, vd, ln), 10),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kf, vf, attn_mask=kmask, enable_gqa=True),
+            ql[:, :, None], kf, vf, attn_mask=kmask, enable_gqa=True),
             20))
     entry["bound_ms"], entry["bound_by"] = bound(
         4.0 * kv * sum(geo.valid(i) for i in range(b)) * geo.g * hd,
         geo.hbm_bytes)
-    print(f"  decode_attention (B,H,KV,S)={(b, h, kv, s)} {dtype} "
-          f"cache: kernel {entry['ms']:.4f} ms by events; by graph "
+    print(f"  decode_attention (B,H,KV,S)={(b, h, kv, s)} {q_dtype} q, "
+          f"{dtype} cache: kernel {entry['ms']:.4f} ms by events; by graph "
           f"replay warm (one cache) {entry['graph_ms']:.4f} ms, cold "
           f"({n_caches} caches in turn) {entry['cold_graph_ms']:.4f} "
           f"ms; plain {entry['plain_ms']:.4f} ms, library "
@@ -1965,6 +2127,156 @@ def moe_phases(dev, rng, kernels: dict, smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("3e")
+
+
+def yi34_phases(dev, rng, kernels: dict, smi: str) -> None:
+    """Phases 2f, 3f and 4f: Yi-34B from bf16 parameters at full width and
+    full depth."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import Server
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    counters = kernel_modules()
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    cfg = get_arch("yi-34b")
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_a = sum(kind == "attn" for kind in cfg.layer_pattern)
+
+    # -- 2f. both attention kernels at Yi-34B's shapes in bf16 ---------------
+    print(f"yi-34b kernels at full width in bf16 (S={YI_S}, H={H}, KV={KV}, "
+          f"G={H // KV}, D={HD}, causal, no window):")
+    kernels["flash_attention@yi-34b-bf16"] = dict(
+        name="flash_attention@yi-34b-bf16",
+        **flash_case(dev, randn, H, KV, YI_S, HD, smi, dtype="bfloat16"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        entry = decode_case(dev, randn, YI_DEC_B, H, KV, YI_S, HD,
+                            YI34_DEC_LENGTHS, dtype, n_a, smi,
+                            q_dtype="bfloat16")
+        if dtype == "bfloat16":        # the decode step's cache type below
+            kernels["decode_attention@yi-34b-bf16"] = dict(
+                name="decode_attention@yi-34b-bf16", **entry)
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_done("2f")
+
+    # -- 3f. the prefill step from bf16 parameters, full width and depth -----
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    print(f"yi-34b: {model.param_count() / 1e9:.3f} B bf16 parameters drawn "
+          f"on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free")
+    torch.cuda.reset_peak_memory_stats()
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(1, YI_S))).to(dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    zero_counts()
+    first = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"prefill launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0) | {"flash_attention": n_a},
+          f"prefill must launch flash_attention {n_a}x and nothing else")
+    check(tuple(first.shape) == (1, 1) and first.dtype == torch.int32,
+          "prefill returns (1, 1) int32 tokens")
+    kernels["flash_attention@yi-34b-bf16"]["launches"] = n_a
+    ms = cuda_ms(lambda: prefill(params, batch), 2)
+    print(f"prefill (B,S)={(1, YI_S)} from bf16 parameters: {ms:.1f} ms, "
+          f"{YI_S / ms * 1e3:.0f} tokens/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+    plain = Model(cfg, kernel_impl="plain")
+    with torch.no_grad():
+        # (a) the same prefill through the fp32 kernel on widened inputs
+        got = model.apply(params, batch)[0][0]
+        with WidenedFlash():
+            wide = model.apply(params, batch)[0][0]
+        differ = int((got != wide).sum())
+        del wide
+        print(f"prefill logits (S, V)={tuple(got.shape)} against the same "
+              f"prefill with each flash_attention call's inputs widened to "
+              f"fp32 and its output rounded back: {differ} differ "
+              f"{'ok' if differ == 0 else 'FAIL'}")
+        check(differ == 0, "the bf16 prefill is its widened-kernel "
+              "counterpart bit for bit")
+        # (b) against the plain path, beside the 1-ulp bf16 yardstick
+        want = plain.apply(params, batch)[0][0]
+        scale = want.abs().max().item()
+        diff = (got - want).abs().max().item()
+        top1 = (got.argmax(-1) != want.argmax(-1)).float().mean().item()
+        finite = bool(torch.isfinite(got).all())
+        first_plain = int(want[-1].argmax())
+        del got
+        alt = plain.apply(one_ulp_moved(params), batch)[0][0]
+        moved = (alt - want).abs().max().item()
+        moved_top1 = (alt.argmax(-1) != want.argmax(-1)).float().mean().item()
+        del alt, want
+    ok = finite and diff <= moved
+    print(f"prefill logits, kernels vs plain: max abs diff {diff:.3e} "
+          f"({diff / scale:.3e} of the largest logit {scale:.3e}), top-1 "
+          f"token differs at {top1:.4f} of the positions; yardstick (plain "
+          f"with the embeddings moved by 1 bf16 ulp): {moved:.3e} "
+          f"({moved / scale:.3e}), top-1 differs at {moved_top1:.4f}; "
+          f"kernels at {diff / moved:.3f} of the yardstick "
+          f"{'ok' if ok else 'FAIL'}; first token: kernels {int(first)}, "
+          f"plain {first_plain}")
+    check(ok, "the bf16 prefill with the kernels is within the 1-ulp "
+          "yardstick of the plain path")
+    print(f"peak device memory so far: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del first, tokens, batch
+    torch.cuda.empty_cache()
+    phase_done("3f")
+
+    # -- 4f. the Server for yi-34b from the bf16 tree ------------------------
+    server = Server("yi-34b", smoke=False, slots=4, max_new=16, device=dev,
+                    params=params)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+    del server
+
+    # one decode step at B=4 with every bf16 cache holding YI_S positions
+    step = make_serve_step(model)
+    cache = model.init_cache(YI_DEC_B, max_seq=YI_S, device=dev,
+                             dtype=torch.bfloat16)
+    for stage in cache:
+        for block in stage.values():
+            block["pos"].fill_(YI_S)
+    tok = torch.zeros(YI_DEC_B, 1, dtype=torch.int64, device=dev)
+    zero_counts()
+    step(params, cache, tok)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"decode step launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0) | {"decode_attention": n_a},
+          f"a decode step must launch decode_attention {n_a}x and nothing "
+          f"else")
+    kernels["decode_attention@yi-34b-bf16"]["launches"] = n_a
+    time_decode_step(step, params, cache, tok,
+                     f"B={YI_DEC_B}, bf16 caches of {YI_S} full", smi)
+    del cache
+    torch.cuda.empty_cache()
+
+    hold_long_request(model, params, long_prompt, replies[6][0],
+                      model.init_cache(1, max_seq=len(long_prompt),
+                                       device=dev, dtype=torch.float32),
+                      tol=TOL_DECODE_REL_BF16, yardstick=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("4f")
 
 
 if __name__ == "__main__":

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's serving path on one GPU.
 
-    python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b|
+    python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b|yi-34b|
                                              qwen2-moe-a2.7b]
+                                     [--dtype float32|bfloat16]
 
-Runs an arch at full width with random weights (seed 0) and, under
-``torch.profiler``, one prefill step and 16 decode steps at B=4:
-xLSTM-125M (the default) prefills B=8, S=2048; RecurrentGemma-9B, Yi-9B
-and Qwen1.5-MoE-A2.7B prefill B=1, S=4096 and decode with every attention
-cache full (RecurrentGemma's ring buffers, the others' 4096-position
-global caches). For each it prints the wall time (host clock around work
+Runs an arch at full width with random weights (seed 0) drawn in
+``--dtype`` (fp32 by default; bf16 for yi-34b, whose 34.4 B parameters
+fit the card only so) and, under ``torch.profiler``, one prefill step and
+16 decode steps at B=4: xLSTM-125M (the default) prefills B=8, S=2048;
+RecurrentGemma-9B, Yi-9B, Yi-34B and Qwen1.5-MoE-A2.7B prefill B=1,
+S=4096 and decode with every attention cache full (RecurrentGemma's ring
+buffers, the others' 4096-position global caches, of the parameters'
+type). For each it prints the wall time (host clock around work
 that ends in ``torch.cuda.synchronize()``), the device time summed over
 the kernels that ran, the device's idle share (1 - device / wall), and the
 kernels that took the most device time; for an MoE arch also the device
@@ -61,7 +64,8 @@ def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
 
 #: full-width prefill shape (batch, sequence) of each arch
 PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096),
-           "yi-9b": (1, 4096), "qwen2-moe-a2.7b": (1, 4096)}
+           "yi-9b": (1, 4096), "yi-34b": (1, 4096),
+           "qwen2-moe-a2.7b": (1, 4096)}
 
 #: the parts of an MoE layer, by the functions of ``models/moe.py`` that
 #: ``moe_apply`` calls for each
@@ -112,7 +116,12 @@ def _report_moe(prof, steps: int) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="xlstm-125m", choices=sorted(PREFILL))
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    help="the parameters' and caches' type (default fp32, "
+                    "bf16 for yi-34b)")
     args = ap.parse_args()
+    dtype = args.dtype or ("bfloat16" if args.arch == "yi-34b"
+                           else "float32")
     import torch
     if not torch.cuda.is_available():
         print("profile_torch: no CUDA device is available", file=sys.stderr)
@@ -134,8 +143,11 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = get_arch(args.arch)
     model = Model(cfg)
+    dt = getattr(torch, dtype)
     params = model.init(torch.Generator(device=dev).manual_seed(0),
-                        device=dev)
+                        device=dev, dtype=dt)
+    print(f"{args.arch}: {dtype} parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
     rng = np.random.default_rng(0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     b, s = PREFILL[args.arch]
@@ -158,7 +170,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     step = make_serve_step(model)
-    cache = model.init_cache(4, max_seq=s, device=dev, dtype=torch.float32)
+    cache = model.init_cache(4, max_seq=s, device=dev, dtype=dt)
     for stage in cache:                # every attention cache full
         for block in stage.values():
             if "pos" in block:

@@ -1,5 +1,6 @@
 // Single-token decode attention over a KV cache, split along the cache
-// (flash-decoding), for sm_90a. q is fp32; the cache is fp32 or bf16.
+// (flash-decoding), for sm_90a. q is fp32 or bf16 and the output takes its
+// type; the cache is fp32 or bf16, whatever q's type.
 //
 // Replaces the Pallas TPU kernel repro/kernels/decode_attention.py
 // (decode_attention -> _dec_kernel). Same function: for each batch row b
@@ -44,8 +45,11 @@
 //    row's ceil(min(len, S) / CH) blocks, all in flight at once, and merges
 //    them as they come (a running max), zeros where there are none.
 // bf16 caches take the same path: the bytes are copied as they are and
-// widened to fp32 in registers. q is read once per CTA, scaled by
-// 1/sqrt(D), and kept in shared memory.
+// widened to fp32 in registers. q is read once per CTA, widened to fp32,
+// scaled by 1/sqrt(D), and kept in shared memory; the partials are fp32
+// and the combine rounds its fp32 result to bf16 (to nearest even) for a
+// bf16 q, so a bf16 q gives bit for bit the fp32 kernel's result on the
+// widened q, rounded.
 // What holds it above the byte bound (PERF.md): a fixed chain of two
 // launches and their round trips to memory, the shared-memory loads of the
 // register tiles (2 B a FMA, twice the FMA time), and the SMs that hold
@@ -142,6 +146,25 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
@@ -149,9 +172,9 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
 // Partial results of block `blk` for head h = kv G + g of row b: m, l at
 // (b H + h) NS + blk, the accumulator's D values at that index times D.
 // Only blocks with a valid position are written.
-template <typename T, int BYTES>
+template <typename TQ, typename T, int BYTES>
 __global__ void __launch_bounds__(NT, 2)
-    decode_split_kernel(const float* __restrict__ q, const T* __restrict__ k,
+    decode_split_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v,
                         const int* __restrict__ lengths,
                         float* __restrict__ m_part,
@@ -186,10 +209,10 @@ __global__ void __launch_bounds__(NT, 2)
   cp_async_commit();
 
   // 2. the G query rows of this KV head, scaled, while the copies run
-  const float* qb = q + ((size_t)b * H + (size_t)kvh * G) * D;
+  const TQ* qb = q + ((size_t)b * H + (size_t)kvh * G) * D;
   for (int i = tid; i < G * D; i += NT) {
     const int g = i / D;
-    q_s[g * qp + (i - g * D)] = qb[i] * scale;
+    q_s[g * qp + (i - g * D)] = to_float(qb[i]) * scale;
   }
   cp_async_wait<1>();  // this thread's K copies
   __syncthreads();     // everyone's, and q
@@ -312,12 +335,14 @@ __global__ void __launch_bounds__(NT, 2)
 // CC/4), merged as it reads them (a running max, its sum and
 // accumulator), so that all of a row's partial loads are in flight at once
 // and no pass waits on another; the groups' results meet in shared memory.
+// out is in q's type TO.
+template <typename TO>
 __global__ void __launch_bounds__(NT)
     decode_combine_kernel(const float* __restrict__ m_part,
                           const float* __restrict__ l_part,
                           const float* __restrict__ acc_part,
                           const int* __restrict__ lengths,
-                          float* __restrict__ out, int H, int S, int NS,
+                          TO* __restrict__ out, int H, int S, int NS,
                           int D) {
   constexpr int NCOL = CC / 4, NGROUPS = NT / NCOL;
   __shared__ __align__(16) float acc_s[NGROUPS * CC];
@@ -327,10 +352,10 @@ __global__ void __launch_bounds__(NT)
   const int c0 = blockIdx.z * CC;
   const int c = 4 * (tid % NCOL), grp = tid / NCOL;
   const size_t part0 = ((size_t)b * H + h) * NS;
-  float* o = out + ((size_t)b * H + h) * D + c0;
+  TO* o = out + ((size_t)b * H + h) * D + c0;
   const int ncols = min(CC, D - c0);
   if (nb == 0) {
-    if (tid < ncols) o[tid] = 0.f;
+    if (tid < ncols) o[tid] = from_float<TO>(0.f);
     return;
   }
   float m = -INFINITY, l = 0.f;
@@ -364,13 +389,13 @@ __global__ void __launch_bounds__(NT)
       num += acc_s[g * CC + tid] * w;
       den += l_s[g] * w;
     }
-    o[tid] = num / den;
+    o[tid] = from_float<TO>(num / den);
   }
 }
 
 // Lets each instance take its largest layout's shared memory, once a
 // device.
-template <typename T, int BYTES>
+template <typename TQ, typename T, int BYTES>
 cudaError_t prepare() {
   constexpr int kMaxDevices = 64;
   static bool done[kMaxDevices] = {};
@@ -378,21 +403,28 @@ cudaError_t prepare() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(decode_split_kernel<T, BYTES>,
+  err = cudaFuncSetAttribute(decode_split_kernel<TQ, T, BYTES>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              layout(MAXG, MAXD, (int)sizeof(T)).total);
   if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return err;
 }
 
-template <typename T, int BYTES>
+template <typename TQ, typename T, int BYTES>
 int max_active(int smem) {
-  cudaError_t err = prepare<T, BYTES>();
+  cudaError_t err = prepare<TQ, T, BYTES>();
   int n = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, decode_split_kernel<T, BYTES>, NT, smem);
+        &n, decode_split_kernel<TQ, T, BYTES>, NT, smem);
   return err == cudaSuccess ? n : -(int)err;
+}
+
+template <typename TQ>
+int max_active(int smem, bool bf16, bool vec16) {
+  if (bf16) return vec16 ? max_active<TQ, __nv_bfloat16, 16>(smem)
+                         : max_active<TQ, __nv_bfloat16, 8>(smem);
+  return max_active<TQ, float, 16>(smem);
 }
 
 // One launch: split CTAs along S, KV and B; threads; shared bytes; copy
@@ -430,23 +462,54 @@ bool rows_aligned(const void* k, const void* v, Cache sk, Cache sv, int D,
   return (D * el) % bytes == 0 && aligned(k, bytes) && aligned(v, bytes);
 }
 
-template <typename T, int BYTES>
-int launch(const float* q, const void* k, const void* v, const int* lengths,
-           float* m_part, float* l_part, float* acc_part, float* out,
-           Cache sk, Cache sv, const Plan& p, int H, int KV, int S, int D,
-           float scale, cudaStream_t stream) {
-  cudaError_t err = prepare<T, BYTES>();
+template <typename TQ, typename T, int BYTES>
+int launch(const TQ* q, const void* k, const void* v, const int* lengths,
+           float* m_part, float* l_part, float* acc_part, TQ* out, Cache sk,
+           Cache sv, const Plan& p, int H, int KV, int S, int D, float scale,
+           cudaStream_t stream) {
+  cudaError_t err = prepare<TQ, T, BYTES>();
   if (err != cudaSuccess) return (int)err;
-  decode_split_kernel<T, BYTES>
+  decode_split_kernel<TQ, T, BYTES>
       <<<dim3(p.ctas_x, p.ctas_y, p.ctas_z), NT, p.smem, stream>>>(
           q, static_cast<const T*>(k), static_cast<const T*>(v), lengths,
           m_part, l_part, acc_part, sk, sv, H, KV, S, D, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<<<dim3(H, p.ctas_z, (D + CC - 1) / CC), NT, 0,
-                          stream>>>(
+  decode_combine_kernel<TQ><<<dim3(H, p.ctas_z, (D + CC - 1) / CC), NT, 0,
+                              stream>>>(
       m_part, l_part, acc_part, lengths, out, H, S, p.ctas_x, D);
   return (int)cudaGetLastError();
+}
+
+// The checks, then the launch for a q and out of type TQ.
+template <typename TQ>
+int forward(const TQ* q, const void* k, const void* v, const int* lengths,
+            float* m_part, float* l_part, float* acc_part, TQ* out,
+            long long skb, long long sks, long long skkv, long long svb,
+            long long svs, long long svkv, int B, int H, int KV, int S, int D,
+            int bf16, float scale, cudaStream_t stream) {
+  const Cache sk{skb, sks, skkv}, sv{svb, svs, svkv};
+  const int el = bf16 ? 2 : 4;
+  if (B < 1 || S < 1 || KV < 1 || H % KV || H / KV > MAXG || D < 4 ||
+      D % 4 || D > MAXD || B > 65535 || KV > 65535 ||
+      !rows_aligned(k, v, sk, sv, D, el, bf16 ? 8 : 16))
+    return (int)cudaErrorInvalidValue;
+  const bool vec16 = !bf16 || rows_aligned(k, v, sk, sv, D, el, 16);
+  const Plan p = plan(B, H, KV, S, D, bf16 != 0, vec16);
+  int err;
+  if (bf16 && vec16)
+    err = launch<TQ, __nv_bfloat16, 16>(q, k, v, lengths, m_part, l_part,
+                                        acc_part, out, sk, sv, p, H, KV, S,
+                                        D, scale, stream);
+  else if (bf16)
+    err = launch<TQ, __nv_bfloat16, 8>(q, k, v, lengths, m_part, l_part,
+                                       acc_part, out, sk, sv, p, H, KV, S, D,
+                                       scale, stream);
+  else
+    err = launch<TQ, float, 16>(q, k, v, lengths, m_part, l_part, acc_part,
+                                out, sk, sv, p, H, KV, S, D, scale, stream);
+  if (err == 0) last_launch = p;
+  return err;
 }
 
 }  // namespace
@@ -471,18 +534,20 @@ void decode_attention_plan(int B, int H, int KV, int S, int D, int bf16,
 // The last launch's plan, laid out as decode_attention_plan's.
 void decode_attention_last_launch(int* out) { put_plan(last_launch, out); }
 
-// Resident split CTAs per SM at (H, KV, D), or minus a CUDA error.
-int decode_attention_max_active(int H, int KV, int D, int bf16, int vec16) {
+// Resident split CTAs per SM at (H, KV, D) for a bf16 (bf16 != 0) or fp32
+// cache and a bf16 (q_bf16 != 0) or fp32 q, or minus a CUDA error.
+int decode_attention_max_active(int H, int KV, int D, int bf16, int vec16,
+                                int q_bf16) {
   const int smem = layout(H / KV, D, bf16 ? 2 : 4).total;
-  if (bf16) return vec16 ? max_active<__nv_bfloat16, 16>(smem)
-                         : max_active<__nv_bfloat16, 8>(smem);
-  return max_active<float, 16>(smem);
+  return q_bf16 ? max_active<__nv_bfloat16>(smem, bf16 != 0, vec16 != 0)
+                : max_active<float>(smem, bf16 != 0, vec16 != 0);
 }
 
 // q, out: (B,H,D) fp32 contiguous; k, v: (B,S,KV,D) with element strides
 // for (b, s, kv) and the head dim contiguous, rows 16-byte aligned (fp32)
-// or 8-byte aligned (bf16); bf16 != 0 for a bf16 cache. m_part, l_part: B*H*NS floats; acc_part: B*H*NS*D,
-// NS = ceil(S / CH); only the blocks with a valid position are written.
+// or 8-byte aligned (bf16); bf16 != 0 for a bf16 cache. m_part, l_part:
+// B*H*NS floats; acc_part: B*H*NS*D floats, NS = ceil(S / CH); only the
+// blocks with a valid position are written.
 int decode_attention_fwd(const float* q, const void* k, const void* v,
                          const int* lengths, float* m_part, float* l_part,
                          float* acc_part, float* out, long long skb,
@@ -490,28 +555,22 @@ int decode_attention_fwd(const float* q, const void* k, const void* v,
                          long long svs, long long svkv, int B, int H, int KV,
                          int S, int D, int bf16, float scale,
                          cudaStream_t stream) {
-  const Cache sk{skb, sks, skkv}, sv{svb, svs, svkv};
-  const int el = bf16 ? 2 : 4;
-  if (B < 1 || S < 1 || KV < 1 || H % KV || H / KV > MAXG || D < 4 ||
-      D % 4 || D > MAXD || B > 65535 || KV > 65535 ||
-      !rows_aligned(k, v, sk, sv, D, el, bf16 ? 8 : 16))
-    return (int)cudaErrorInvalidValue;
-  const bool vec16 = !bf16 || rows_aligned(k, v, sk, sv, D, el, 16);
-  const Plan p = plan(B, H, KV, S, D, bf16 != 0, vec16);
-  int err;
-  if (bf16 && vec16)
-    err = launch<__nv_bfloat16, 16>(q, k, v, lengths, m_part, l_part,
-                                    acc_part, out, sk, sv, p, H, KV, S, D,
-                                    scale, stream);
-  else if (bf16)
-    err = launch<__nv_bfloat16, 8>(q, k, v, lengths, m_part, l_part,
-                                   acc_part, out, sk, sv, p, H, KV, S, D,
-                                   scale, stream);
-  else
-    err = launch<float, 16>(q, k, v, lengths, m_part, l_part, acc_part, out,
-                            sk, sv, p, H, KV, S, D, scale, stream);
-  if (err == 0) last_launch = p;
-  return err;
+  return forward(q, k, v, lengths, m_part, l_part, acc_part, out, skb, sks,
+                 skkv, svb, svs, svkv, B, H, KV, S, D, bf16, scale, stream);
+}
+
+// decode_attention_fwd for a bf16 q and out (the partials stay fp32): bit
+// for bit the fp32 result on the widened q, rounded to bf16.
+int decode_attention_fwd_bf16_q(const __nv_bfloat16* q, const void* k,
+                                const void* v, const int* lengths,
+                                float* m_part, float* l_part, float* acc_part,
+                                __nv_bfloat16* out, long long skb,
+                                long long sks, long long skkv, long long svb,
+                                long long svs, long long svkv, int B, int H,
+                                int KV, int S, int D, int bf16, float scale,
+                                cudaStream_t stream) {
+  return forward(q, k, v, lengths, m_part, l_part, acc_part, out, skb, sks,
+                 skkv, svb, svs, svkv, B, H, KV, S, D, bf16, scale, stream);
 }
 
 }  // extern "C"

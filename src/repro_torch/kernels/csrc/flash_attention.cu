@@ -1,6 +1,6 @@
-// Flash attention forward with GQA, causal and window masks, fp32 in and
-// out, both products on TF32 tensor cores in split precision (3xTF32), for
-// sm_90a.
+// Flash attention forward with GQA, causal and window masks, fp32 or bf16
+// in and out (q, k and v of one type), both products on TF32 tensor cores
+// in split precision (3xTF32), for sm_90a.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention -> _fa_kernel). Same function: for query head h, which
@@ -32,7 +32,8 @@
 //    while PV_j reads V_j, and V_{j+1} while QK^T_{j+1} and the softmax
 //    read K_{j+1}. Two buffers of each would need 267,264 B at D = 256
 //    against 232,448. Bytes: (160 (D + 16) + 32 (D + 4)) x 4: 207,360 at
-//    D = 256 (1 CTA/SM), 109,056 at 128 and 59,904 at 64 (2 CTAs/SM).
+//    D = 256 (1 CTA/SM), 109,056 at 128 and 59,904 at 64 (2 CTAs/SM); in
+//    bf16 (160 (D + 16) + 32 (D + 8)) x 2: 103,936, 54,784 and 30,208.
 //  - Operands from shared memory, split on the fly: big rounded as
 //    cvt.rna.tf32.f32 rounds (in integer operations), small the same on
 //    x - big. The contraction index of each product is permuted, which the
@@ -69,7 +70,24 @@
 // Tensors are read in place through their strides (the model passes its
 // (B, S, H, D) projections as (B, H, S, D) views); ragged tails are
 // zero-filled by the copies and masked, never padded in memory.
+//
+// bf16 inputs. A bf16 value is exact in TF32 (8 significant bits against
+// 11), so its TF32 form is its bits shifted left by 16 and its small part
+// is 0. The bf16 instance copies Q, K and V as bf16 (16-byte pieces of 8
+// values, half the fp32 bytes), builds each fragment from those bits, and
+// issues only the products whose terms are not all zero, in the fp32
+// instance's order: QK^T is big.big alone, PV is P_small.V then P_big.V
+// (P stays fp32 and is split as in fp32). Adding a product of zeros leaves
+// an accumulator as it is, so the bf16 instance computes, bit for bit, what
+// the fp32 instance computes on the inputs widened to fp32: half the MMAs
+// of QK^T and two thirds of PV's. The output is that fp32 result rounded to
+// bf16 (to nearest, ties to even) at the store. Bank check for its 8-byte
+// fragment loads (a half warp at a time): Q and K rows at pitch D + 16
+// bf16 (= 8 mod 32 words) put lane (g, t)'s words at 8g + 2t; V rows at
+// pitch D + 8 (= 4 mod 16 words) put them at 8t + 2g (rows 2t and 2t + 1
+// are loaded apart): no conflict either way.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -82,8 +100,7 @@ constexpr int BQ = 128;    // query rows a CTA
 constexpr int BK = 32;     // keys a block
 constexpr int NW = 8;      // warps a CTA, 16 rows each
 constexpr int NT = 32 * NW;
-constexpr int QK_PAD = 16;  // Q and K row pitch D + 16
-constexpr int V_PAD = 4;    // V row pitch D + 4
+constexpr int QK_PAD = 16;  // Q and K row pitch D + 16 elements
 constexpr int SMEM_LIMIT = 232448;
 static_assert(BQ == 16 * NW, "a warp owns the 16 rows of one MMA tile");
 static_assert(BK == 32, "the softmax walks 4 n-tiles of 8 keys");
@@ -92,8 +109,19 @@ struct Strides {
   long long b, h, s;
 };
 
-__host__ __device__ constexpr size_t smem_floats(int d) {
-  return (size_t)(BQ + BK) * (d + QK_PAD) + (size_t)BK * (d + V_PAD);
+// V row pitch D + v_pad(el) elements, el the bytes of one: 4 for fp32,
+// 8 for bf16 (see the bank checks above)
+__host__ __device__ constexpr int v_pad(int el) { return el == 4 ? 4 : 8; }
+
+// Elements of shared memory a CTA: the Q tile and one K block at pitch
+// D + QK_PAD, one V block at D + v_pad(el)
+__host__ __device__ constexpr size_t smem_elems(int d, int el) {
+  return (size_t)(BQ + BK) * (d + QK_PAD) + (size_t)BK * (d + v_pad(el));
+}
+
+template <typename T>
+__host__ __device__ constexpr size_t smem_bytes_of(int d) {
+  return sizeof(T) * smem_elems(d, (int)sizeof(T));
 }
 
 // Built with -DFLASH_PHASE_CLOCKS (scripts/flash_phases.py), lane 0 of the
@@ -151,8 +179,16 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
+// The TF32 forms of four consecutive bf16 values of shared memory (one
+// 8-byte load): each value's bits shifted left by 16, exact.
+__device__ __forceinline__ uint4 tf32x4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_uint4(raw.x << 16, raw.x & 0xFFFF0000u, raw.y << 16,
+                    raw.y & 0xFFFF0000u);
+}
+
 // 16 bytes, zero-filled where !valid (nothing is read then)
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem,
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool valid) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
@@ -203,37 +239,54 @@ __device__ int tile_at_rank(int rank, int n_tiles, int Sq, int Skv,
   return tile;
 }
 
-// Starts copying rows [r0, r0 + ROWS) of a (rows x D) tensor into shared
-// memory with row pitch P, zero-filling rows at or past `limit`.
-template <int D, int P, int ROWS>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+// Starts copying rows [r0, r0 + ROWS) of a (rows x D) tensor of T into
+// shared memory with row pitch P, zero-filling rows at or past `limit`.
+template <int D, int P, int ROWS, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src,
                                           long long stride, int r0,
                                           int limit) {
-  constexpr int V = D / 4;  // 16-byte pieces a row
+  constexpr int E = 16 / sizeof(T);  // elements a 16-byte piece
+  constexpr int V = D / E;           // pieces a row
   static_assert(ROWS * V % NT == 0, "every thread copies as many pieces");
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < ROWS * V; idx += NT) {
     const int r = idx / V, c = idx - r * V;
     const bool ok = r0 + r < limit;
-    cp_async16(dst + r * P + 4 * c,
-               ok ? src + (long long)(r0 + r) * stride + 4 * c : src, ok);
+    cp_async16(dst + r * P + E * c,
+               ok ? src + (long long)(r0 + r) * stride + E * c : src, ok);
   }
 }
 
-template <int D>
+// Eight output values of one row (columns col .. col + 7) at p
+__device__ __forceinline__ void store8(float* p, float4 lo, float4 hi) {
+  *reinterpret_cast<float4*>(p) = lo;
+  *reinterpret_cast<float4*>(p + 4) = hi;
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p, float4 lo,
+                                       float4 hi) {
+  const __nv_bfloat162 w[4] = {
+      __floats2bfloat162_rn(lo.x, lo.y), __floats2bfloat162_rn(lo.z, lo.w),
+      __floats2bfloat162_rn(hi.x, hi.y), __floats2bfloat162_rn(hi.z, hi.w)};
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(w);
+}
+
+template <int D, typename T>
 __global__ void __launch_bounds__(NT, 1)
-    flash_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o,
+    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o,
                            Strides sq, Strides sk, Strides sv, Strides so,
                            int H, int G, int B, int Sq, int Skv, int causal,
                            int window, float scale_log2) {
-  constexpr int QP = D + QK_PAD, VP = D + V_PAD;
+  // bf16 values are exact in TF32: no split, and the all-zero products of
+  // their small parts are not issued
+  constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int QP = D + QK_PAD, VP = D + v_pad((int)sizeof(T));
   constexpr int NC = D / 32;  // groups of 4 output n-tiles
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);  // BQ x QP
-  float* k_s = q_s + BQ * QP;                    // BK x QP
-  float* v_s = k_s + BK * QP;                    // BK x VP
+  T* q_s = reinterpret_cast<T*>(smem4);  // BQ x QP
+  T* k_s = q_s + BQ * QP;                // BK x QP
+  T* v_s = k_s + BK * QP;                // BK x VP
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -245,9 +298,9 @@ __global__ void __launch_bounds__(NT, 1)
   const int h = hb % H, b = hb / H, kvh = h / G;
   const int q0 = tile * BQ;
   const int r_lo = q0 + 16 * warp, r_hi = r_lo + 15;  // this warp's rows
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* kb = k + b * sk.b + kvh * sk.h;
-  const float* vb = v + b * sv.b + kvh * sv.h;
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
 
   const int2 range = key_range(tile, Sq, Skv, causal, window);
   const int kb_lo = range.x, kb_hi = range.y;
@@ -276,9 +329,9 @@ __global__ void __launch_bounds__(NT, 1)
   // running max (base 2) and this lane's share of the sum, rows g and g+8
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  const float* q_row = q_s + (16 * warp + g) * QP + 4 * t;
-  const float* k_row = k_s + g * QP + 4 * t;
-  const float* v_row = v_s + 2 * t * VP + 4 * g;
+  const T* q_row = q_s + (16 * warp + g) * QP + 4 * t;
+  const T* k_row = k_s + g * QP + 4 * t;
+  const T* v_row = v_s + 2 * t * VP + 4 * g;
 
   for (int blk = kb_lo; blk < kb_hi; ++blk) {
     const int k0 = blk * BK;
@@ -297,27 +350,40 @@ __global__ void __launch_bounds__(NT, 1)
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll 1
       for (int c = 0; c < D / 16; ++c) {
-        const float4 qa = ld4(q_row + 16 * c);
-        const float4 qc = ld4(q_row + 8 * QP + 16 * c);
-        uint32_t ab0[4], as0[4], ab1[4], as1[4];
-        split(qa.x, ab0[0], as0[0]);
-        split(qc.x, ab0[1], as0[1]);
-        split(qa.y, ab0[2], as0[2]);
-        split(qc.y, ab0[3], as0[3]);
-        split(qa.z, ab1[0], as1[0]);
-        split(qc.z, ab1[1], as1[1]);
-        split(qa.w, ab1[2], as1[2]);
-        split(qc.w, ab1[3], as1[3]);
+        if constexpr (EXACT) {
+          const uint4 qa = tf32x4(q_row + 16 * c);
+          const uint4 qc = tf32x4(q_row + 8 * QP + 16 * c);
+          const uint32_t a0[4] = {qa.x, qc.x, qa.y, qc.y};
+          const uint32_t a1[4] = {qa.z, qc.z, qa.w, qc.w};
 #pragma unroll
-        for (int n = 0; n < 4; ++n) {
-          const float4 kk = ld4(k_row + 8 * n * QP + 16 * c);
-          uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
-          split(kk.x, xb, xs);
-          split(kk.y, yb, ys);
-          split(kk.z, zb, zs);
-          split(kk.w, wb, ws);
-          mma3(s[n], ab0, as0, xb, yb, xs, ys);
-          mma3(s[n], ab1, as1, zb, wb, zs, ws);
+          for (int n = 0; n < 4; ++n) {
+            const uint4 kk = tf32x4(k_row + 8 * n * QP + 16 * c);
+            mma(s[n], a0, kk.x, kk.y);
+            mma(s[n], a1, kk.z, kk.w);
+          }
+        } else {
+          const float4 qa = ld4(q_row + 16 * c);
+          const float4 qc = ld4(q_row + 8 * QP + 16 * c);
+          uint32_t ab0[4], as0[4], ab1[4], as1[4];
+          split(qa.x, ab0[0], as0[0]);
+          split(qc.x, ab0[1], as0[1]);
+          split(qa.y, ab0[2], as0[2]);
+          split(qc.y, ab0[3], as0[3]);
+          split(qa.z, ab1[0], as1[0]);
+          split(qc.z, ab1[1], as1[1]);
+          split(qa.w, ab1[2], as1[2]);
+          split(qc.w, ab1[3], as1[3]);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const float4 kk = ld4(k_row + 8 * n * QP + 16 * c);
+            uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
+            split(kk.x, xb, xs);
+            split(kk.y, yb, ys);
+            split(kk.z, zb, zs);
+            split(kk.w, wb, ws);
+            mma3(s[n], ab0, as0, xb, yb, xs, ys);
+            mma3(s[n], ab1, as1, zb, wb, zs, ws);
+          }
         }
       }
       PHASE_END(1)
@@ -396,20 +462,32 @@ __global__ void __launch_bounds__(NT, 1)
         split(s[n][3], pb[3], ps[3]);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          const float4 v0 = ld4(v_row + 8 * n * VP + 32 * c);
-          const float4 v1 = ld4(v_row + (8 * n + 1) * VP + 32 * c);
-          uint32_t b0[4], s0[4], b1[4], s1[4];
-          split(v0.x, b0[0], s0[0]);
-          split(v0.y, b0[1], s0[1]);
-          split(v0.z, b0[2], s0[2]);
-          split(v0.w, b0[3], s0[3]);
-          split(v1.x, b1[0], s1[0]);
-          split(v1.y, b1[1], s1[1]);
-          split(v1.z, b1[2], s1[2]);
-          split(v1.w, b1[3], s1[3]);
+          if constexpr (EXACT) {
+            const uint4 b0 = tf32x4(v_row + 8 * n * VP + 32 * c);
+            const uint4 b1 = tf32x4(v_row + (8 * n + 1) * VP + 32 * c);
+            const uint32_t x0[4] = {b0.x, b0.y, b0.z, b0.w};
+            const uint32_t x1[4] = {b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma3(acc[c][j], pb, ps, b0[j], b1[j], s0[j], s1[j]);
+            for (int j = 0; j < 4; ++j) {
+              mma(acc[c][j], ps, x0[j], x1[j]);
+              mma(acc[c][j], pb, x0[j], x1[j]);
+            }
+          } else {
+            const float4 v0 = ld4(v_row + 8 * n * VP + 32 * c);
+            const float4 v1 = ld4(v_row + (8 * n + 1) * VP + 32 * c);
+            uint32_t b0[4], s0[4], b1[4], s1[4];
+            split(v0.x, b0[0], s0[0]);
+            split(v0.y, b0[1], s0[1]);
+            split(v0.z, b0[2], s0[2]);
+            split(v0.w, b0[3], s0[3]);
+            split(v1.x, b1[0], s1[0]);
+            split(v1.y, b1[1], s1[1]);
+            split(v1.z, b1[2], s1[2]);
+            split(v1.w, b1[3], s1[3]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma3(acc[c][j], pb, ps, b0[j], b1[j], s0[j], s1[j]);
+          }
           // keeps the compiler from hoisting the next groups' V loads,
           // whose registers would spill beside the 128 of the accumulator
           __syncwarp();
@@ -441,65 +519,58 @@ __global__ void __launch_bounds__(NT, 1)
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  float* ob = o + b * so.b + h * so.h;
+  T* ob = o + b * so.b + h * so.h;
   const int row0 = r_lo + g, row1 = row0 + 8;
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int col = 32 * c + 8 * t;
-    if (row0 < Sq) {
-      float* p = ob + row0 * so.s + col;
-      *reinterpret_cast<float4*>(p) =
-          make_float4(acc[c][0][0] * inv0, acc[c][1][0] * inv0,
-                      acc[c][2][0] * inv0, acc[c][3][0] * inv0);
-      *reinterpret_cast<float4*>(p + 4) =
-          make_float4(acc[c][0][1] * inv0, acc[c][1][1] * inv0,
-                      acc[c][2][1] * inv0, acc[c][3][1] * inv0);
-    }
-    if (row1 < Sq) {
-      float* p = ob + row1 * so.s + col;
-      *reinterpret_cast<float4*>(p) =
-          make_float4(acc[c][0][2] * inv1, acc[c][1][2] * inv1,
-                      acc[c][2][2] * inv1, acc[c][3][2] * inv1);
-      *reinterpret_cast<float4*>(p + 4) =
-          make_float4(acc[c][0][3] * inv1, acc[c][1][3] * inv1,
-                      acc[c][2][3] * inv1, acc[c][3][3] * inv1);
-    }
+    if (row0 < Sq)
+      store8(ob + row0 * so.s + col,
+             make_float4(acc[c][0][0] * inv0, acc[c][1][0] * inv0,
+                         acc[c][2][0] * inv0, acc[c][3][0] * inv0),
+             make_float4(acc[c][0][1] * inv0, acc[c][1][1] * inv0,
+                         acc[c][2][1] * inv0, acc[c][3][1] * inv0));
+    if (row1 < Sq)
+      store8(ob + row1 * so.s + col,
+             make_float4(acc[c][0][2] * inv1, acc[c][1][2] * inv1,
+                         acc[c][2][2] * inv1, acc[c][3][2] * inv1),
+             make_float4(acc[c][0][3] * inv1, acc[c][1][3] * inv1,
+                         acc[c][2][3] * inv1, acc[c][3][3] * inv1));
   }
 }
 
-template <int D>
+template <int D, typename T>
 bool prepare(size_t* smem) {
-  static_assert(sizeof(float) * smem_floats(D) <= SMEM_LIMIT,
+  static_assert(smem_bytes_of<T>(D) <= SMEM_LIMIT,
                 "the tiles fit one CTA's shared memory");
-  *smem = sizeof(float) * smem_floats(D);
-  return cudaFuncSetAttribute(flash_attention_kernel<D>,
+  *smem = smem_bytes_of<T>(D);
+  return cudaFuncSetAttribute(flash_attention_kernel<D, T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem) == cudaSuccess;
 }
 
-template <int D>
+template <int D, typename T>
 int max_active() {
   size_t smem = 0;
-  if (!prepare<D>(&smem)) return -(int)cudaGetLastError();
+  if (!prepare<D, T>(&smem)) return -(int)cudaGetLastError();
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, flash_attention_kernel<D>, NT, smem);
+      &n, flash_attention_kernel<D, T>, NT, smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
 // The last launch: CTAs, threads, shared bytes.
 int last_launch[3] = {};
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o,
-           Strides sq, Strides sk, Strides sv, Strides so, int B, int H,
-           int G, int Sq, int Skv, int causal, int window, float scale_log2,
-           cudaStream_t stream) {
+template <int D, typename T>
+int launch(const T* q, const T* k, const T* v, T* o, Strides sq, Strides sk,
+           Strides sv, Strides so, int B, int H, int G, int Sq, int Skv,
+           int causal, int window, float scale_log2, cudaStream_t stream) {
   size_t smem = 0;
-  if (!prepare<D>(&smem)) return (int)cudaGetLastError();
+  if (!prepare<D, T>(&smem)) return (int)cudaGetLastError();
   const long long ctas = (long long)((Sq + BQ - 1) / BQ) * H * B;
   if (ctas < 1 || ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<D><<<(unsigned)ctas, NT, smem, stream>>>(
+  flash_attention_kernel<D, T><<<(unsigned)ctas, NT, smem, stream>>>(
       q, k, v, o, sq, sk, sv, so, H, G, B, Sq, Skv, causal, window,
       scale_log2);
   const cudaError_t err = cudaGetLastError();
@@ -521,6 +592,24 @@ int dispatch(int D, F&& f) {
   }
 }
 
+template <typename T>
+int forward(const T* q, const T* k, const T* v, T* o, long long sqb,
+            long long sqh, long long sqs, long long skb, long long skh,
+            long long sks, long long svb, long long svh, long long svs,
+            long long sob, long long soh, long long sos, int B, int H, int KV,
+            int Sq, int Skv, int D, int causal, int window, float scale,
+            cudaStream_t stream) {
+  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
+      so{sob, soh, sos};
+  const int G = H / KV;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  return dispatch(D, [&](auto dim) {
+    return launch<decltype(dim)::value, T>(q, k, v, o, sq, sk, sv, so, B, H,
+                                           G, Sq, Skv, causal, window,
+                                           scale_log2, stream);
+  });
+}
+
 }  // namespace
 
 extern "C" {
@@ -531,9 +620,10 @@ int flash_attention_key_block(void) { return BK; }
 
 int flash_attention_threads(void) { return NT; }
 
-// Shared memory of one CTA at head dim d.
-int flash_attention_smem_bytes(int d) {
-  return (int)(sizeof(float) * smem_floats(d));
+// Shared memory of one CTA at head dim d for elements of el bytes (4:
+// fp32, 2: bf16).
+int flash_attention_smem_bytes(int d, int el) {
+  return (int)(el * smem_elems(d, el));
 }
 
 // The last launch's CTAs, threads and shared bytes, into out[3].
@@ -541,17 +631,20 @@ void flash_attention_last_launch(int* out) {
   for (int i = 0; i < 3; ++i) out[i] = last_launch[i];
 }
 
-// Resident CTAs per SM at head dim d, or minus a CUDA error (-1 for a head
-// dim it was not built for).
-int flash_attention_max_active(int d) {
-  return dispatch(d, [](auto dim) {
-    return max_active<decltype(dim)::value>();
+// Resident CTAs per SM at head dim d for elements of el bytes, or minus a
+// CUDA error (-1 for a head dim or an element size it was not built for).
+int flash_attention_max_active(int d, int el) {
+  if (el != 4 && el != 2) return -1;
+  return dispatch(d, [el](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return el == 4 ? max_active<D, float>() : max_active<D, __nv_bfloat16>();
   });
 }
 
-// q, o: (B,H,Sq,D); k, v: (B,KV,Skv,D); element strides per tensor for
-// (b, head, s), the last dim contiguous. window <= 0 means none.
-// Returns a CUDA error code, or -1 for a head dim it was not built for.
+// q, o: (B,H,Sq,D); k, v: (B,KV,Skv,D), all fp32; element strides per
+// tensor for (b, head, s), the last dim contiguous and rows 16-byte
+// aligned. window <= 0 means none. Returns a CUDA error code, or -1 for a
+// head dim it was not built for.
 int flash_attention_fwd(const float* q, const float* k, const float* v,
                         float* o, long long sqb, long long sqh, long long sqs,
                         long long skb, long long skh, long long sks,
@@ -559,15 +652,25 @@ int flash_attention_fwd(const float* q, const float* k, const float* v,
                         long long sob, long long soh, long long sos, int B,
                         int H, int KV, int Sq, int Skv, int D, int causal,
                         int window, float scale, cudaStream_t stream) {
-  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
-      so{sob, soh, sos};
-  const int G = H / KV;
-  const float scale_log2 = scale * 1.4426950408889634f;
-  return dispatch(D, [&](auto dim) {
-    return launch<decltype(dim)::value>(q, k, v, o, sq, sk, sv, so, B, H, G,
-                                        Sq, Skv, causal, window, scale_log2,
-                                        stream);
-  });
+  return forward(q, k, v, o, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob,
+                 soh, sos, B, H, KV, Sq, Skv, D, causal, window, scale,
+                 stream);
+}
+
+// flash_attention_fwd on bf16 q, k, v and o: bit for bit the fp32 result on
+// the widened inputs, rounded to bf16 to nearest even.
+int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                             const __nv_bfloat16* v, __nv_bfloat16* o,
+                             long long sqb, long long sqh, long long sqs,
+                             long long skb, long long skh, long long sks,
+                             long long svb, long long svh, long long svs,
+                             long long sob, long long soh, long long sos,
+                             int B, int H, int KV, int Sq, int Skv, int D,
+                             int causal, int window, float scale,
+                             cudaStream_t stream) {
+  return forward(q, k, v, o, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob,
+                 soh, sos, B, H, KV, Sq, Skv, D, causal, window, scale,
+                 stream);
 }
 
 #ifdef FLASH_PHASE_CLOCKS

@@ -7,6 +7,9 @@ chunks of ``CH`` cache positions and a combining pass; its plain PyTorch
 version is :func:`repro_torch.kernels.ref.decode_attention`. The cache is
 read in place in its (B,S,KV,D) layout, fp32 or bf16 (widened in
 registers); the TPU wrapper transposed a full copy of it on every call.
+q is fp32 or bf16, whatever the cache's type, and the output takes q's
+type: a bf16 q is widened on its load and the fp32 result rounded at the
+store, so it gives bit for bit the fp32 q's result, rounded.
 
 The grid is fixed on the host by the shapes alone: (ceil(S / CH), KV, B)
 split CTAs, of which those whose chunk starts at or past the row's length
@@ -78,9 +81,7 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ``decode_attention.cu``, which every version of the source shares (an
     older one included), and check that its chunk is at least ``CH``
     positions, so that :func:`call`'s partials hold its blocks."""
-    lib.decode_attention_fwd.argtypes = ([_P] * 8 + [_L] * 6 + [_I] * 6
-                                         + [ctypes.c_float, _P])
-    lib.decode_attention_fwd.restype = _I
+    _declare_fwd(lib.decode_attention_fwd)
     lib.decode_attention_block.restype = _I
     if lib.decode_attention_block() < CH:
         raise RuntimeError(f"a build of decode_attention.cu with chunks of "
@@ -89,16 +90,24 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _declare_fwd(fwd) -> None:
+    fwd.argtypes = [_P] * 8 + [_L] * 6 + [_I] * 6 + [ctypes.c_float, _P]
+    fwd.restype = _I
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a build of ``decode_attention.cu`` and
-    check that it agrees with this module: the constants, and the launch it
-    plans for a few shapes on either copy path."""
+    """Declare the C interface of this tree's build of
+    ``decode_attention.cu`` (:func:`declare`, and
+    ``decode_attention_fwd_bf16_q``: the same arguments, q and out bf16)
+    and check that it agrees with this module: the constants, and the
+    launch it plans for a few shapes on either copy path."""
     declare(lib)
+    _declare_fwd(lib.decode_attention_fwd_bf16_q)
     lib.decode_attention_plan.argtypes = [_I] * 7 + [_P]
     lib.decode_attention_plan.restype = None
     lib.decode_attention_last_launch.argtypes = [_P]
     lib.decode_attention_last_launch.restype = None
-    lib.decode_attention_max_active.argtypes = [_I] * 5
+    lib.decode_attention_max_active.argtypes = [_I] * 6
     lib.decode_attention_max_active.restype = _I
     for name in ("decode_attention_threads", "decode_attention_max_group",
                  "decode_attention_max_d"):
@@ -130,7 +139,8 @@ class Geometry:
     then a combine grid of (h, b, ceil(d / COMBINE_COLS)) CTAs.
     ``lengths`` (host integers) are what the counts of work use; without
     them every position is valid.
-    16-byte copies when ``vec`` (always for fp32), 8-byte ones otherwise."""
+    16-byte copies when ``vec`` (always for fp32), 8-byte ones otherwise.
+    q and the output take ``q_el`` bytes an element (4: fp32, 2: bf16)."""
     b: int
     h: int
     kv: int
@@ -140,6 +150,7 @@ class Geometry:
     vec: bool
     lengths: "tuple[int, ...] | None"
     n_sms: int
+    q_el: int = 4
 
     ch = CH
     threads = THREADS
@@ -213,8 +224,8 @@ class Geometry:
         """Bytes the call must move, each once: the valid K and V rows, q
         read and the output written, the lengths."""
         rows = self.kv * sum(self.valid(bb) for bb in range(self.b))
-        return (2 * rows * self.d * self.el + 8 * self.b * self.h * self.d
-                + 4 * self.b)
+        return (2 * rows * self.d * self.el
+                + 2 * self.q_el * self.b * self.h * self.d + 4 * self.b)
 
     @property
     def plan(self) -> tuple[int, ...]:
@@ -243,24 +254,30 @@ def _check_shape(b: int, h: int, kv: int, s: int, d: int) -> None:
                          f"{MAX_D}")
 
 
+def _element_size(dtype, what: str) -> int:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} must be float32 or bfloat16, got {dtype}")
+    return torch.empty((), dtype=dtype).element_size()
+
+
 def launch_geometry(b: int, h: int, kv: int, s: int, d: int,
                     dtype=torch.float32,
                     lengths: "Sequence[int] | None" = None, *,
                     vec: "bool | None" = None,
-                    n_sms: int = 132) -> Geometry:
-    """The call for q (b, h, d) against a (b, s, kv, d) cache of ``dtype``
-    (fp32 or bf16) on a card of ``n_sms`` SMs. ``lengths``, host integers,
-    give the counts of work and bytes. ``vec`` is the copy path: by default
-    the 16-byte one where a row is a multiple of 16 bytes, as for a
-    contiguous cache at an aligned base; the kernel picks it per call from
-    D, the strides and the base addresses. An fp32 row is always 16-byte
-    aligned (:func:`decode_attention` admits no other), so fp32 has no
-    8-byte path."""
+                    n_sms: int = 132, q_dtype=torch.float32) -> Geometry:
+    """The call for q (b, h, d) of ``q_dtype`` against a (b, s, kv, d) cache
+    of ``dtype`` (each fp32 or bf16, either with either) on a card of
+    ``n_sms`` SMs. ``lengths``, host integers, give the counts of work and
+    bytes. ``vec`` is the copy path: by default the 16-byte one where a row
+    is a multiple of 16 bytes, as for a contiguous cache at an aligned
+    base; the kernel picks it per call from D, the strides and the base
+    addresses. An fp32 row is always 16-byte aligned
+    (:func:`decode_attention` admits no other), so fp32 has no 8-byte path.
+    q's type changes the bytes of q and the output only: it is held in
+    shared memory in fp32 either way."""
     _check_shape(b, h, kv, s, d)
-    el = torch.empty((), dtype=dtype).element_size()
-    if el not in (2, 4):
-        raise ValueError(f"the cache must be float32 or bfloat16, got "
-                         f"{dtype}")
+    el = _element_size(dtype, "the cache")
+    q_el = _element_size(q_dtype, "q")
     if lengths is not None:
         lengths = tuple(int(x) for x in lengths)
         if len(lengths) != b:
@@ -268,7 +285,7 @@ def launch_geometry(b: int, h: int, kv: int, s: int, d: int,
     if el == 4 and vec is False:
         raise ValueError("an fp32 cache always takes the 16-byte copies")
     vec = (d * el) % 16 == 0 if vec is None else bool(vec)
-    return Geometry(b, h, kv, s, d, el, vec, lengths, n_sms)
+    return Geometry(b, h, kv, s, d, el, vec, lengths, n_sms, q_el)
 
 
 def last_launch() -> tuple[int, ...]:
@@ -281,15 +298,19 @@ def last_launch() -> tuple[int, ...]:
 
 def max_active(h: int, kv: int, d: int, dtype=torch.float32,
                vec: bool = True,
-               device: "torch.device | None" = None) -> int:
-    """Resident split CTAs per SM on the card, as
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them (shared
-    memory, threads and registers); ``vec`` picks a bf16 cache's copy path
-    (fp32 has the 16-byte one only)."""
+               device: "torch.device | None" = None, *,
+               q_dtype=torch.float32) -> int:
+    """Resident split CTAs per SM on the card for a cache of ``dtype`` and
+    a q of ``q_dtype``, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    gives them (shared memory, threads and registers); ``vec`` picks a bf16
+    cache's copy path (fp32 has the 16-byte one only)."""
+    _element_size(dtype, "the cache")
+    _element_size(q_dtype, "q")
     device = torch.device("cuda") if device is None else torch.device(device)
     with torch.cuda.device(device):
         n = _lib().decode_attention_max_active(
-            h, kv, d, int(dtype == torch.bfloat16), int(vec))
+            h, kv, d, int(dtype == torch.bfloat16), int(vec),
+            int(q_dtype == torch.bfloat16))
     if n < 1:
         raise RuntimeError(f"decode_attention occupancy query failed: CUDA "
                            f"error {-n}")
@@ -298,12 +319,12 @@ def max_active(h: int, kv: int, d: int, dtype=torch.float32,
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
-    """Decode attention on the card. q: (B,H,D) fp32 CUDA, contiguous;
-    k, v: (B,S,KV,D) fp32 or bf16 (one type for both), any strides with the
-    last dim contiguous; lengths: (B,) int32 on the same device, never read
-    to the host. Returns (B,H,D) fp32. Differentiable in q, k and v: the
-    backward recomputes through :func:`plain` and differentiates that
-    (``autograd.py``)."""
+    """Decode attention on the card. q: (B,H,D) fp32 or bf16 CUDA,
+    contiguous; k, v: (B,S,KV,D) fp32 or bf16 (one type for both, either
+    with either q), any strides with the last dim contiguous; lengths: (B,)
+    int32 on the same device, never read to the host. Returns (B,H,D) of
+    q's type. Differentiable in q, k and v: the backward recomputes
+    through :func:`plain` and differentiates that (``autograd.py``)."""
     return recompute(_launch, plain, q, k, v, lengths)
 
 
@@ -319,12 +340,14 @@ def call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          lib: "ctypes.CDLL | None" = None) -> torch.Tensor:
     """:func:`decode_attention` through ``lib``, a build of
     ``decode_attention.cu`` given by :func:`declare` (by default this
-    tree's; an older copy to time against it), counting no launch and
-    recording no gradient."""
+    tree's; an older copy to time against it, which takes an fp32 q only),
+    counting no launch and recording no gradient."""
     b, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
-    if not q.is_cuda or q.dtype != torch.float32 or not q.is_contiguous():
-        raise ValueError("q must be a contiguous float32 CUDA tensor")
+    if (not q.is_cuda or q.dtype not in (torch.float32, torch.bfloat16)
+            or not q.is_contiguous()):
+        raise ValueError("q must be a contiguous float32 or bfloat16 CUDA "
+                         "tensor")
     for name, t in (("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
@@ -346,14 +369,17 @@ def call(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{q.device}")
     _check_shape(b, h, kv, s, d)
     lib = _lib() if lib is None else lib
+    fwd = (lib.decode_attention_fwd if q.dtype == torch.float32
+           else lib.decode_attention_fwd_bf16_q)
     ns = math.ceil(s / CH)
-    m_part = q.new_empty(b * h * ns)
-    l_part = q.new_empty(b * h * ns)
-    acc_part = q.new_empty(b * h * ns * d)
+    # the partials are fp32 whatever q's type
+    m_part, l_part, acc_part = (
+        torch.empty(n, dtype=torch.float32, device=q.device)
+        for n in (b * h * ns, b * h * ns, b * h * ns * d))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.decode_attention_fwd(
+        err = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
             m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(),
             out.data_ptr(), *k.stride()[:3], *v.stride()[:3], b, h, kv, s, d,

@@ -13,7 +13,11 @@ The kernel computes both products on TF32 tensor cores in split precision
 (3xTF32), ``ROWS`` query rows of one head a CTA; :func:`geometry` is its
 launch in plain Python. :func:`split_tf32` and
 :func:`flash_attention_3xtf32` are its arithmetic in plain PyTorch, the
-yardstick the route was chosen by.
+yardstick the route was chosen by. It takes q, k and v in fp32 or in bf16
+(all three of one type) and returns q's type. A bf16 value is exact in
+TF32, so the bf16 instance skips the products of zero small parts and
+gives, bit for bit, the fp32 instance's result on the widened inputs,
+rounded to bf16.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from .ref import flash_attention as plain
 
 __all__ = ["flash_attention", "plain", "launches", "bind", "Geometry",
            "geometry", "launch_geometry", "last_launch", "smem_bytes",
-           "split_tf32",
+           "split_tf32", "DTYPES",
            "flash_attention_3xtf32", "HEAD_DIMS", "ROWS", "KEY_BLOCK",
            "THREADS", "SMEM_LIMIT"]
 
@@ -40,6 +44,10 @@ launches = 0
 
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128, 256)
+#: input types the kernel is built for, and the pad (elements) after each
+#: shared V row in each (bank spread; Q and K rows take 16)
+DTYPES = (torch.float32, torch.bfloat16)
+V_PAD = {4: 4, 2: 8}
 #: query rows a CTA, as ``flash_attention_rows``
 ROWS = 128
 #: keys a block of the loop, as ``flash_attention_key_block``
@@ -64,11 +72,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a build of ``flash_attention.cu`` (the
     plain one, or one with extra defines) and check that it agrees with
     this module's constants."""
-    lib.flash_attention_fwd.argtypes = ([_P] * 4 + [_L] * 12 + [_I] * 8
-                                        + [ctypes.c_float, _P])
-    lib.flash_attention_fwd.restype = _I
+    for name in ("flash_attention_fwd", "flash_attention_fwd_bf16"):
+        getattr(lib, name).argtypes = ([_P] * 4 + [_L] * 12 + [_I] * 8
+                                       + [ctypes.c_float, _P])
+        getattr(lib, name).restype = _I
     for name in ("flash_attention_max_active", "flash_attention_smem_bytes"):
-        getattr(lib, name).argtypes = [_I]
+        getattr(lib, name).argtypes = [_I, _I]
         getattr(lib, name).restype = _I
     for name in ("flash_attention_rows", "flash_attention_key_block",
                  "flash_attention_threads"):
@@ -77,25 +86,34 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_last_launch.restype = None
     if ((lib.flash_attention_rows(), lib.flash_attention_key_block(),
          lib.flash_attention_threads()) != (ROWS, KEY_BLOCK, THREADS)
-            or any(lib.flash_attention_smem_bytes(d) != smem_bytes(d)
-                   for d in HEAD_DIMS)):
+            or any(lib.flash_attention_smem_bytes(d, el) != smem_bytes(d, el)
+                   for d in HEAD_DIMS for el in V_PAD)):
         raise RuntimeError("flash_attention.cu and its wrapper disagree on "
                            "the rows, the key block, the threads or shared "
                            "memory")
     return lib
 
 
-def smem_bytes(d: int) -> int:
-    """Shared memory of one CTA, as ``smem_floats`` in the kernel: the Q
-    tile and one K block at row pitch d + 16, one V block at d + 4."""
-    return 4 * ((ROWS + KEY_BLOCK) * (d + 16) + KEY_BLOCK * (d + 4))
+def smem_bytes(d: int, el: int = 4) -> int:
+    """Shared memory of one CTA for elements of ``el`` bytes (4: fp32, 2:
+    bf16), as ``smem_elems`` in the kernel: the Q tile and one K block at
+    row pitch d + 16, one V block at d + 4 (fp32) or d + 8 (bf16)."""
+    return el * ((ROWS + KEY_BLOCK) * (d + 16) + KEY_BLOCK * (d + V_PAD[el]))
+
+
+def _element_size(dtype) -> int:
+    if dtype not in DTYPES:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, got "
+                         f"{dtype}")
+    return torch.empty((), dtype=dtype).element_size()
 
 
 @dataclass(frozen=True)
 class Geometry:
     """One launch's layout: ``ctas`` CTAs of ``THREADS`` threads, each on
     ``ROWS`` query rows of one head, the q tiles in ``order`` (each tile's
-    H x B heads together), and the key blocks each walks."""
+    H x B heads together), and the key blocks each walks; ``el`` is the
+    bytes of an input element (4: fp32, 2: bf16)."""
     b: int
     h: int
     kv: int
@@ -106,6 +124,7 @@ class Geometry:
     window: "int | None"
     n_sms: int
     ctas_per_sm: int   # resident CTAs per SM
+    el: int = 4
 
     rows = ROWS
     threads = THREADS
@@ -124,7 +143,7 @@ class Geometry:
 
     @property
     def smem_bytes(self) -> int:
-        return smem_bytes(self.d)
+        return smem_bytes(self.d, self.el)
 
     @property
     def plan(self) -> tuple[int, int, int]:
@@ -164,8 +183,9 @@ class Geometry:
 
     @property
     def l2_bytes(self) -> int:
-        """Bytes of K and V the launch reads from L2 (fp32 rows of d)."""
-        return self.key_rows * 2 * self.d * 4
+        """Bytes of K and V the launch reads from L2 (rows of d
+        elements)."""
+        return self.key_rows * 2 * self.d * self.el
 
 
 def _check_head_dim(d: int) -> None:
@@ -175,40 +195,46 @@ def _check_head_dim(d: int) -> None:
 
 def geometry(b: int, h: int, kv: int, sq: int, skv: int, d: int,
              causal: bool = True, window: "int | None" = None, *,
-             n_sms: int = 132, ctas_per_sm: int = 1) -> Geometry:
-    """The launch for q (b,h,sq,d) against k, v (b,kv,skv,d) on a card of
-    ``n_sms`` SMs holding ``ctas_per_sm`` CTAs each (by default one, the
-    count the kernel's launch bounds ask registers for)."""
+             n_sms: int = 132, ctas_per_sm: int = 1,
+             dtype=torch.float32) -> Geometry:
+    """The launch for q (b,h,sq,d) against k, v (b,kv,skv,d) of ``dtype``
+    (fp32 or bf16) on a card of ``n_sms`` SMs holding ``ctas_per_sm`` CTAs
+    each (by default one, the count the kernel's launch bounds ask
+    registers for)."""
     _check_head_dim(d)
+    el = _element_size(dtype)
     if min(b, h, kv, sq, skv, n_sms) < 1 or h % kv:
         raise ValueError(f"flash_attention needs b, h, kv, sq, skv, n_sms "
                          f">= 1 and h a multiple of kv, got {b}, {h}, {kv}, "
                          f"{sq}, {skv}, {n_sms}")
     return Geometry(b, h, kv, sq, skv, d, bool(causal), window, n_sms,
-                    ctas_per_sm)
+                    ctas_per_sm, el)
 
 
 def launch_geometry(b: int, h: int, kv: int, sq: int, skv: int, d: int,
                     causal: bool = True, window: "int | None" = None,
-                    device: "torch.device | None" = None) -> Geometry:
+                    device: "torch.device | None" = None,
+                    dtype=torch.float32) -> Geometry:
     """:func:`geometry` with the card's SM count and its resident CTAs per
-    SM, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
+    SM for ``dtype``'s instance, as
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` gives them."""
     _check_head_dim(d)
+    el = _element_size(dtype)
     device = torch.device("cuda") if device is None else torch.device(device)
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    if (d, index) not in _geometries:
+    if (d, el, index) not in _geometries:
         with torch.cuda.device(index):
-            per_sm = _lib().flash_attention_max_active(d)
+            per_sm = _lib().flash_attention_max_active(d, el)
         if per_sm < 1:
             raise RuntimeError(f"flash_attention occupancy query failed: "
                                f"CUDA error {-per_sm}")
         n_sms = torch.cuda.get_device_properties(index).multi_processor_count
-        _geometries[d, index] = geometry(1, 1, 1, 1, 1, d, n_sms=n_sms,
-                                         ctas_per_sm=per_sm)
-    card = _geometries[d, index]
+        _geometries[d, el, index] = geometry(1, 1, 1, 1, 1, d, n_sms=n_sms,
+                                             ctas_per_sm=per_sm, dtype=dtype)
+    card = _geometries[d, el, index]
     return geometry(b, h, kv, sq, skv, d, causal, window, n_sms=card.n_sms,
-                    ctas_per_sm=card.ctas_per_sm)
+                    ctas_per_sm=card.ctas_per_sm, dtype=dtype)
 
 
 def last_launch() -> tuple[int, int, int]:
@@ -222,11 +248,13 @@ def last_launch() -> tuple[int, int, int]:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: "int | None" = None) -> torch.Tensor:
-    """Attention on the card. q: (B,H,Sq,D); k, v: (B,KV,Skv,D), fp32
-    CUDA, any strides with the last dim contiguous and 16-byte aligned
-    rows; H a multiple of KV; D in ``HEAD_DIMS``. Returns (B,H,Sq,D) in
-    q's layout. Differentiable: the backward recomputes through
-    :func:`plain` and differentiates that (``autograd.py``)."""
+    """Attention on the card. q: (B,H,Sq,D); k, v: (B,KV,Skv,D), CUDA,
+    all three fp32 or all three bf16, any strides with the last dim
+    contiguous and 16-byte aligned rows; H a multiple of KV; D in
+    ``HEAD_DIMS``. Returns (B,H,Sq,D) of q's type in q's layout; in bf16,
+    the fp32 kernel's result on the widened inputs, rounded.
+    Differentiable: the backward recomputes through :func:`plain` and
+    differentiates that (``autograd.py``)."""
     return recompute(
         functools.partial(_launch, causal=causal, window=window),
         functools.partial(plain, causal=causal, window=window), q, k, v)
@@ -237,17 +265,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
+    el = _element_size(q.dtype)
     for name, t, shape in (("q", q, (b, h, sq, d)), ("k", k, (b, kv, skv, d)),
                            ("v", v, (b, kv, skv, d))):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype} (the "
-                             f"kernel takes fp32 inputs only)")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q {q.dtype}: the kernel "
+                             f"takes q, k and v of one type")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if (t.stride(3) != 1 or any(st % 4 for st in t.stride()[:3])
+        if (t.stride(3) != 1 or any(st * el % 16 for st in t.stride()[:3])
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} needs a contiguous last dim and "
                              f"16-byte aligned rows")
@@ -258,9 +287,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window must be at least 1, got {window}")
     out = torch.empty_like(q)          # keeps q's strides
     lib = _lib()
+    fwd = lib.flash_attention_fwd if el == 4 else lib.flash_attention_fwd_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.flash_attention_fwd(
+        err = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], b, h, kv, sq, skv, d, int(causal),

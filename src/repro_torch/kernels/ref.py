@@ -115,28 +115,60 @@ def slstm_scan_ref(z, i, f, o, rz, ri, rf, ro):
     return out
 
 
+#: bytes of scores that one block of :func:`flash_attention` may hold, and
+#: the multiple of query rows its blocks are cut to
+FLASH_SCORE_BYTES = 1 << 30
+FLASH_ROW_BLOCK = 512
+
+
+def flash_row_block(b: int, h: int, sq: int, skv: int, el: int = 4) -> int:
+    """Query rows a block of :func:`flash_attention` at these shapes, its
+    scores taking ``el`` bytes an element (4: fp32, 8: fp64): every row
+    where the (B, H, Sq, Skv) scores fit ``FLASH_SCORE_BYTES``, else the
+    largest multiple of ``FLASH_ROW_BLOCK`` rows that fits (at least one
+    multiple). In fp32, RecurrentGemma's, Yi-9B's and the MoE models'
+    prefills take one block or 2048 rows, Yi-34B's 1024."""
+    per_row = el * b * h * skv
+    if per_row * sq <= FLASH_SCORE_BYTES:
+        return sq
+    return max(1, FLASH_SCORE_BYTES // per_row // FLASH_ROW_BLOCK) \
+        * FLASH_ROW_BLOCK
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: "int | None" = None):
     """Masked softmax attention. q: (B,H,Sq,D); k,v: (B,KV,Skv,D) with
     H = KV*G (query head h reads KV head h // G). Key j is visible to query
-    i iff j <= i (causal) and j > i - window. fp32 accumulation; a query
-    with no visible key gives zeros, as the CUDA kernel does."""
+    i iff j <= i (causal) and j > i - window. fp32 accumulation (fp64 for
+    fp64 inputs); a query with no visible key gives zeros, as the CUDA
+    kernel does. The query rows are walked in blocks of
+    :func:`flash_row_block` rows: each row's softmax is its own, so the
+    blocks bound the peak of the scores without changing the function."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     g = h // kv
-    qg = q.reshape(b, kv, g, sq, d).float()
-    logits = torch.einsum("bkgqd,bksd->bkgqs", qg, k.float()) * (d ** -0.5)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, kv, g, sq, d).to(acc)
+    kf, vf = k.to(acc), v.to(acc)
     kpos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos
-    if window is not None:
-        mask &= kpos > qpos - window
-    probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
-    probs = probs.masked_fill(~mask.any(-1, keepdim=True), 0.0)
-    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    step = flash_row_block(b, h, sq, skv, qg.element_size())
+    out = torch.empty(b, kv, g, sq, v.shape[-1], dtype=acc, device=q.device)
+    for q0 in range(0, sq, step):
+        rows = slice(q0, min(q0 + step, sq))
+        logits = torch.einsum("bkgqd,bksd->bkgqs", qg[:, :, :, rows],
+                              kf) * (d ** -0.5)
+        qpos = torch.arange(q0, rows.stop, device=q.device)[:, None]
+        mask = torch.ones(rows.stop - q0, skv, dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
+        del logits
+        probs = probs.masked_fill(~mask.any(-1, keepdim=True), 0.0)
+        out[:, :, :, rows] = torch.einsum("bkgqs,bksd->bkgqd", probs, vf)
+    return out.reshape(b, h, sq, -1).to(q.dtype)
 
 
 def decode_attention(q, k, v, lengths):

@@ -237,8 +237,9 @@ def attention_apply(p: Params, x: torch.Tensor, dims: AttnDims, *,
         ck[rows, slot] = k_new                                   # in place
         cv[rows, slot] = v_new
         lengths = torch.clamp(pos + 1, max=smax).to(torch.int32)
-        out = ops.decode_attention(q[:, 0].to(torch.float32), ck, cv,
-                                   lengths, kernel_impl=kernel_impl)
+        # q in its own type: the kernel widens it and returns that type
+        out = ops.decode_attention(q[:, 0], ck, cv, lengths,
+                                   kernel_impl=kernel_impl)
         out = out.to(x.dtype)[:, None]                           # (B,1,H,D)
         new_cache = {"k": ck, "v": cv, "pos": pos + 1}
     else:

@@ -221,12 +221,88 @@ def test_flash_kernel_reads_strided_views_on_card(cuda_device):
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
 
 
+_BF16_CASES = {  # the flash cases: b, kv, g, s, d, causal, window
+    "flash-rg": (1, 1, 16, 512, 256, True, 128),
+    "flash-ragged": (2, 1, 4, 333, 64, True, 50),
+    "flash-yi-9b": (1, 4, 8, 1000, 128, True, None),
+    "flash-yi-34b": (1, 8, 7, 1000, 128, True, None),   # G=7, D=128
+    "flash-g1": (1, 16, 1, 300, 128, True, None),
+    "flash-noncausal": (2, 2, 2, 130, 256, False, None),
+}
+# the decode cases: b, kv, g, s, d, lengths, the cache's type (q is bf16)
+_BF16_DECODE_CASES = {
+    "decode-yi-34b-bf16-cache": (4, 8, 7, 4096, 128, [1, 1000, 4096, 4096],
+                                 "bfloat16"),
+    "decode-yi-34b-fp32-cache": (2, 8, 7, 300, 128, [300, 77], "float32"),
+    "decode-rg-bf16-cache": (4, 1, 16, 2048, 256, [1, 700, 2048, 2048],
+                             "bfloat16"),
+    "decode-8-byte-rows": (2, 1, 16, 200, 68, [200, 0], "bfloat16"),
+    "decode-g1-fp32-cache": (3, 16, 1, 100, 64, [100, 1, 33], "float32"),
+}
+
+
 @pytest.mark.requires_cuda
-def test_flash_kernel_refuses_bf16(cuda_device):
+@pytest.mark.parametrize("case", sorted(_BF16_CASES) + sorted(
+    _BF16_DECODE_CASES))
+def test_bf16_kernel_is_fp32_kernel_on_widened_inputs_on_card(cuda_device,
+                                                              case):
+    """Each kernel on bf16 inputs (flash: q, k and v; decode: q, on a bf16
+    or an fp32 cache) returns bf16, equal bit for bit to its fp32 kernel on
+    the inputs widened to fp32, rounded to bf16 (a bf16 value is exact in
+    TF32 and in fp32, and the skipped products are all zero), and within
+    the bf16 tolerance of its plain version."""
+    bf = torch.bfloat16
+    if case in _BF16_CASES:
+        b, kv, g, s, d, causal, window = _BF16_CASES[case]
+        q, k, v = (t(a, cuda_device).to(bf)
+                   for a in flash_inputs(5, b, kv, g, s, d))
+        before = FK.launches
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert FK.launches == before + 1
+        assert FK.last_launch() == FK.launch_geometry(
+            b, kv * g, kv, s, s, d, causal, window, cuda_device,
+            dtype=bf).plan
+        wide = ops.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window)
+        want = FK.plain(q, k, v, causal=causal, window=window)
+    else:
+        b, kv, g, s, d, lengths, cache = _BF16_DECODE_CASES[case]
+        qn, kn, vn, ln = decode_inputs(5, b, kv, g, s, d, lengths)
+        cdt = getattr(torch, cache)
+        q = t(qn, cuda_device).to(bf)
+        k, v = (t(a, cuda_device).to(cdt) for a in (kn, vn))
+        ln = t(ln, cuda_device)
+        before = DK.launches
+        got = ops.decode_attention(q, k, v, ln)
+        torch.cuda.synchronize()
+        assert DK.launches == before + 1
+        assert DK.last_launch() == DK.launch_geometry(
+            b, kv * g, kv, s, d, cdt, lengths, q_dtype=bf).plan
+        wide = ops.decode_attention(q.float(), k, v, ln)
+        want = DK.plain(q, k, v, ln)
+    assert got.dtype == bf and wide.dtype == torch.float32
+    assert torch.equal(got.view(torch.int16),
+                       wide.to(bf).view(torch.int16))
+    np.testing.assert_allclose(n(got.float()), n(want.float()),
+                               **ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.requires_cuda
+def test_bf16_kernels_refuse_mixed_or_unaligned_inputs_on_card(cuda_device):
+    """flash_attention takes q, k and v of one type with 16-byte aligned
+    rows; a bf16 row of D=64 from a view that starts 4 elements in is
+    not."""
     q, k, v = (t(a, cuda_device).to(torch.bfloat16)
                for a in flash_inputs(0, 1, 1, 2, 64, 64))
-    with pytest.raises(ValueError, match="float32"):
-        ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="one type"):
+        ops.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    wide = torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.flash_attention(wide[..., 4:], k, v)
 
 
 @pytest.mark.requires_cuda
@@ -242,7 +318,8 @@ def test_flash_kernel_refuses_bf16(cuda_device):
     (4, 4, 8, 4096, 128, [1, 1000, 4096, 4096]),   # a Yi-9B decode step
     (2, 8, 7, 300, 128, [300, 77]),      # yi-34b's G=7: P padded to 8
     (4, 16, 1, 4096, 128, [1, 1000, 4096, 4096]),  # qwen2-moe's G=1
-    (3, 8, 7, 33, 64, [1, 33, 32])])
+    (3, 8, 7, 33, 64, [1, 33, 32]),
+    (2, 2, 4, 100, 64, [150, 100])])     # a length past S counts as S
 def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
                                              d, lengths):
     q, k, v, ln = decode_inputs(3, b, kv, g, s, d, lengths)
@@ -259,6 +336,9 @@ def test_decode_kernel_matches_plain_on_card(cuda_device, dtype, b, kv, g, s,
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL[dtype])
     if lengths is not None and lengths[0] == 0:
         assert torch.all(got[0] == 0)
+    if lengths is not None and max(lengths) > s:
+        capped = t(np.minimum(ln, s), cuda_device)
+        assert torch.equal(got, ops.decode_attention(*args[:3], capped))
 
 
 @pytest.mark.requires_cuda
@@ -451,6 +531,58 @@ def test_narrow_gqa_model_with_kernels_matches_plain_on_card(cuda_device):
     with torch.no_grad():
         short, _ = plain.apply(params, {"tokens": toks[:, :8]})
     assert (step_k[:, 0] - short[:, -1]).abs().max().item() <= 1e-3 * scale
+
+
+@pytest.mark.requires_cuda
+def test_narrow_bf16_model_is_its_widened_kernel_path_on_card(cuda_device,
+                                                              monkeypatch):
+    """A narrow bf16 attn model at Yi-34B's head shape (2 layers, 14 heads
+    over 2 KV heads of 128, G=7): its prefill (one flash_attention launch a
+    layer on bf16 q, k and v) equals bit for bit the same prefill with each
+    flash_attention call's inputs widened to fp32 and its output rounded
+    back; its decode steps (bf16 q on a bf16 and on an fp32 cache) equal
+    those with each decode_attention call's q widened and its output
+    rounded back."""
+    from repro_torch.configs import ArchConfig
+    from repro_torch.models import Model
+
+    bf = torch.bfloat16
+    cfg = ArchConfig(name="gqa-narrow-bf16", family="dense", n_layers=2,
+                     d_model=256, n_heads=14, n_kv_heads=2, head_dim=128,
+                     d_ff=512, vocab_size=512, rope_theta=1e4)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda_device).manual_seed(0),
+                        device=cuda_device, dtype=bf)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 200))).to(cuda_device)
+    flash, decode = ops.flash_attention, ops.decode_attention
+
+    def widened_flash(q, k, v, **kw):
+        return flash(q.float(), k.float(), v.float(), **kw).to(q.dtype)
+
+    def widened_decode(q, k, v, lengths, **kw):
+        return decode(q.float(), k, v, lengths, **kw).to(q.dtype)
+
+    def decode_8(cache_dtype):
+        cache = model.init_cache(2, max_seq=16, device=cuda_device,
+                                 dtype=cache_dtype)
+        return [model.decode_step(params, cache, toks[:, i:i + 1])[0]
+                for i in range(8)]
+
+    with torch.no_grad():
+        FK.launches = DK.launches = 0
+        got, _ = model.apply(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert (FK.launches, DK.launches) == (2, 0)
+        steps = {c: decode_8(c) for c in (bf, torch.float32)}
+        assert DK.launches == 2 * 8 * 2
+        monkeypatch.setattr(ops, "flash_attention", widened_flash)
+        monkeypatch.setattr(ops, "decode_attention", widened_decode)
+        want, _ = model.apply(params, {"tokens": toks})
+        for c, got_steps in steps.items():
+            for g_, w_ in zip(got_steps, decode_8(c)):
+                assert torch.equal(g_, w_)
+    assert torch.isfinite(got).all() and torch.equal(got, want)
 
 
 @pytest.mark.requires_cuda
