@@ -122,14 +122,18 @@ drawn from the seed on the card in bf16, 68.78 GB; nothing cut) takes it:
   2f. both attention kernels in bf16 at its shapes (G=7): flash at B=1,
       S=4096, causal with no window; decode at B=4, S=4096, lengths (1,
       1000, 4096, 4096), a bf16 q on a bf16 and on an fp32 cache; each as
-      in 2c, and each against its fp32 kernel on the widened inputs,
-      rounded to bf16, bit for bit;
+      in 2c, and each against its fp32 kernel on the widened inputs:
+      flash (bf16 tensor cores, P in two bf16 parts, its sums in another
+      order) elementwise within one bf16 ulp plus 2^-14 max|v|, with the
+      elements that differ printed (``hold_flash_bf16``); decode rounded
+      to bf16, bit for bit; the flash bound beside its route's (1 + 2 bf16
+      products);
   3f. the prefill step at B=1, S=4096 (60 flash_attention launches on bf16
-      q, k and v, and no other kernel), its logits held (a) bit for bit
-      against the same prefill with every flash_attention call's inputs
-      widened to fp32 and its output rounded back (``WidenedFlash``), (b)
-      against the plain path within the 1-ulp bf16 yardstick, and (c)
-      timed, with tokens/s and peak memory;
+      q, k and v, and no other kernel), its logits held (a) against the
+      same prefill with every flash_attention call's inputs widened to
+      fp32 and its output rounded back (``WidenedFlash``) and (b) against
+      the plain path, each within the 1-ulp bf16 yardstick of the same
+      run, and (c) timed, with tokens/s and peak memory;
   4f. the decode Server for yi-34b on the bf16 tree (fp32 caches, bf16 q)
       answering 6 short requests and one 512-token request; one decode step
       at B=4 with every bf16 cache holding 4096 positions (60
@@ -1409,8 +1413,8 @@ def flash_case(dev, randn, h, kv, s, hd, smi: str,
     viewed as (B,H,S,D)): the launch against its geometry, the error, the
     kernel's, the plain version's and one library call's times, both
     bounds; in bf16 also the kernel against the fp32 kernel on the widened
-    inputs, rounded to bf16, bit for bit. Returns a kernel entry without
-    its name and launches."""
+    inputs, within ``bf16_limit`` (``hold_flash_bf16``). Returns a kernel
+    entry without its name and launches."""
     import torch
     import torch.nn.functional as F
 
@@ -1442,7 +1446,7 @@ def flash_case(dev, randn, h, kv, s, hd, smi: str,
         wide = FK.flash_attention(qf, kf, vf, causal=True)
         _close(f"flash_attention {shape}, float32 on the widened inputs",
                wide, FK.plain(qf, kf, vf, causal=True), TOL_ATTN["float32"])
-        hold_bits("flash_attention", out, wide)
+        hold_flash_bf16(out, wide, v)
         del qf, kf, vf, wide
     del out, ref
     pairs = s * (s + 1) // 2              # visible (q, k) pairs per head
@@ -1464,14 +1468,14 @@ def flash_case(dev, randn, h, kv, s, hd, smi: str,
         route = "as 3xTF32 on tensor cores"
     else:
         # bf16 operands multiply exactly on the tensor cores at the bf16
-        # rate; the kernel's route (QK^T one TF32 product, PV two, so 1.5x
-        # the flops at the TF32 rate) is printed beside it as a note
+        # rate; the kernel's route (QK^T one bf16 product, PV two for P's
+        # two parts, so 1.5x the flops at the bf16 rate) is printed beside
+        # it as a note
         fa["bound_ms"], fa["bound_by"] = bound(flops, nbytes,
                                                PEAK_BF16_FLOPS)
-        route_ms, _ = bound(1.5 * flops, nbytes, PEAK_TF32_FLOPS)
-        route = (f"its route (1 + 2 TF32 products) {route_ms:.4f} ms, as "
-                 f"3xTF32 {bound(3 * flops, nbytes, PEAK_TF32_FLOPS)[0]:.4f}"
-                 f" ms; the bound, as bf16 on tensor cores at "
+        route_ms, _ = bound(1.5 * flops, nbytes, PEAK_BF16_FLOPS)
+        route = (f"its route (1 + 2 bf16 products) {route_ms:.4f} ms; the "
+                 f"bound, as bf16 on tensor cores at "
                  f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s,")
     print(f"  flash_attention: {pairs} visible (q, k) pairs per head, "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; kernel "
@@ -1481,6 +1485,34 @@ def flash_case(dev, randn, h, kv, s, hd, smi: str,
           f"({fp32_by}), {route} {fa['bound_ms']:.4f} ms ({fa['bound_by']}) "
           f"({smi})")
     return fa
+
+
+def hold_flash_bf16(got, wide, v) -> None:
+    """The bf16 flash kernel's output against the fp32 kernel's on the
+    widened inputs (``wide``, unrounded): every element within
+    ``bf16_limit`` (one bf16 ulp of |wide| plus 2^-14 max|v|), with the
+    elements that differ from ``wide`` rounded, the largest distance from
+    it in bf16 ulps and the largest share of the limit printed beside."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as FK
+
+    def ordered(x):    # bf16 bits on one integer line, -0 beside +0
+        bits = x.view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+
+    want = wide.to(torch.bfloat16)
+    differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    ulps = int((ordered(got) - ordered(want)).abs().max())
+    share = ((got.float() - wide).abs()
+             / FK.bf16_limit(wide, v)).max().item()
+    print(f"  flash_attention bf16 against the fp32 kernel on the widened "
+          f"inputs: {differ} of {got.numel()} elements differ from it "
+          f"rounded, at most {ulps} bf16 ulp(s) apart; largest share of "
+          f"the limit (1 bf16 ulp + 2^-14 max|v|) {share:.4f} "
+          f"{'ok' if share <= 1 else 'FAIL'}")
+    check(share <= 1, "flash_attention: the bf16 kernel is within one bf16 "
+          "ulp plus 2^-14 max|v| of the fp32 kernel on the widened inputs")
 
 
 def hold_bits(name: str, got, wide) -> None:
@@ -2200,18 +2232,14 @@ def yi34_phases(dev, rng, kernels: dict, smi: str) -> None:
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
     plain = Model(cfg, kernel_impl="plain")
     with torch.no_grad():
-        # (a) the same prefill through the fp32 kernel on widened inputs
+        # (a) the same prefill through the fp32 kernel on widened inputs,
+        # held below (within the yardstick)
         got = model.apply(params, batch)[0][0]
         with WidenedFlash():
             wide = model.apply(params, batch)[0][0]
         differ = int((got != wide).sum())
+        wide_diff = (got - wide).abs().max().item()
         del wide
-        print(f"prefill logits (S, V)={tuple(got.shape)} against the same "
-              f"prefill with each flash_attention call's inputs widened to "
-              f"fp32 and its output rounded back: {differ} differ "
-              f"{'ok' if differ == 0 else 'FAIL'}")
-        check(differ == 0, "the bf16 prefill is its widened-kernel "
-              "counterpart bit for bit")
         # (b) against the plain path, beside the 1-ulp bf16 yardstick
         want = plain.apply(params, batch)[0][0]
         scale = want.abs().max().item()
@@ -2219,11 +2247,21 @@ def yi34_phases(dev, rng, kernels: dict, smi: str) -> None:
         top1 = (got.argmax(-1) != want.argmax(-1)).float().mean().item()
         finite = bool(torch.isfinite(got).all())
         first_plain = int(want[-1].argmax())
+        got_shape = got.shape
         del got
         alt = plain.apply(one_ulp_moved(params), batch)[0][0]
         moved = (alt - want).abs().max().item()
         moved_top1 = (alt.argmax(-1) != want.argmax(-1)).float().mean().item()
         del alt, want
+    ok_a = wide_diff <= moved
+    print(f"prefill logits (S, V)={tuple(got_shape)} against the same "
+          f"prefill with each flash_attention call's inputs widened to fp32 "
+          f"and its output rounded back: {differ} differ, max abs diff "
+          f"{wide_diff:.3e} ({wide_diff / scale:.3e} of the largest logit), "
+          f"{wide_diff / moved:.3f} of the 1-ulp yardstick "
+          f"{'ok' if ok_a else 'FAIL'}")
+    check(ok_a, "the bf16 prefill is within the 1-ulp yardstick of its "
+          "widened-kernel counterpart")
     ok = finite and diff <= moved
     print(f"prefill logits, kernels vs plain: max abs diff {diff:.3e} "
           f"({diff / scale:.3e} of the largest logit {scale:.3e}), top-1 "

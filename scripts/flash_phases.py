@@ -3,7 +3,7 @@
 NVIDIA GPU.
 
     python3 scripts/flash_phases.py [--h 16 --kv 1 --s 4096 --d 256 \
-        --window 2048]
+        --window 2048] [--dtype float32|bfloat16] [--parent PATH]
 
 Builds ``csrc/flash_attention.cu`` a second time with
 ``-DFLASH_PHASE_CLOCKS`` (``_build.load`` keeps it apart from the plain
@@ -11,12 +11,19 @@ build under ``build/kernels/``), in which lane 0 of the last warp of every
 CTA sums the clock cycles of each phase of a key block: waiting for the
 copies of K and V (with the two barriers a block), QK^T, the softmax (P
 needs no relayout: the S accumulator is PV's A fragment), and PV. Runs it
-causally at the given shape (the RecurrentGemma-9B prefill by default; q,
-k, v as (B,S,H,D) projections viewed as (B,H,S,D)) and prints the cycles a
-key block of each phase (the mean over the blocks the CTAs walk), the
-m16n8k8 TF32 MMAs a CTA issues in each product there (3 for each fp32
-product), their rate, and the kernel's time with and without the clocks
-(CUDA events). The last line is a JSON object with the same numbers.
+causally at the given shape (the RecurrentGemma-9B prefill by default;
+``--window 0`` for none; q, k, v of ``--dtype`` as (B,S,H,D) projections
+viewed as (B,H,S,D)) and prints the cycles a key block of each phase (the
+mean over the blocks the CTAs walk), the MMAs a CTA issues in each product
+there (fp32: m16n8k8 TF32, 3 for each fp32 product; bf16: m16n8k16 bf16,
+1 for QK^T and 2 for PV, P's two parts), their rate against an SM's dense
+peak of one such MMA a cycle, and the kernel's time with and without the
+clocks (CUDA events). ``--parent PATH`` (another copy of
+``flash_attention.cu``, e.g. from a ``git archive`` of the parent under
+``build/``) does the same for that copy first, in the same process, with
+its own route's MMA count (an older bf16 instance ran on m16n8k8 TF32, 1
+product for QK^T and 2 for PV), and counts the output elements where the
+two copies differ. The last line is a JSON object with the same numbers.
 """
 
 import argparse
@@ -29,6 +36,31 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("wait for K/V", "QK^T", "softmax", "PV")
+DEFINES = ("FLASH_PHASE_CLOCKS",)
+
+
+def declare(lib, dtype):
+    """The C interface this script calls, on any copy of the source."""
+    fwd = lib.flash_attention_fwd_bf16 if dtype == "bfloat16" \
+        else lib.flash_attention_fwd
+    fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    fwd.restype = ctypes.c_int
+    return fwd
+
+
+def mmas_per_block(src: str, dtype: str, d: int, keys: int = 32):
+    """(QK^T, PV) MMAs a CTA issues on a key block when all 8 warps
+    compute (warps skip blocks past their rows at the diagonal), by the
+    route the source takes, and the route's name."""
+    if dtype == "float32":
+        per = 8 * (d // 8) * (keys // 8) * 3
+        return per, per, "3xTF32, m16n8k8"
+    if "m16n8k16" in src:
+        return (8 * (d // 16) * (keys // 8), 8 * (keys // 16) * (d // 8) * 2,
+                "bf16, m16n8k16, P in two parts")
+    return (8 * (d // 8) * (keys // 8), 8 * (keys // 8) * (d // 8) * 2,
+            "TF32 on bf16 operands, m16n8k8")
 
 
 def main() -> int:
@@ -39,7 +71,11 @@ def main() -> int:
     ap.add_argument("--kv", type=int, default=1)
     ap.add_argument("--s", type=int, default=4096)
     ap.add_argument("--d", type=int, default=256)
-    ap.add_argument("--window", type=int, default=2048)
+    ap.add_argument("--window", type=int, default=2048,
+                    help="0 for no window")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--parent", help="another copy of flash_attention.cu")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -54,38 +90,35 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
-    defines = ("FLASH_PHASE_CLOCKS",)
-    lib = FK.bind(_build.load("flash_attention", defines))
-    log = _build._target("flash_attention", defines).with_suffix(".log")
-    spills = [line.strip() for line in log.read_text().splitlines()
-              if re.search(r"[1-9]\d* bytes spill", line)]
-    print(f"instrumented build: {len(spills)} ptxas line(s) with spills"
-          + "".join(f"\n  {line}" for line in spills))
-    lib.flash_attention_phase_cycles.argtypes = [ctypes.c_void_p]
-    lib.flash_attention_phase_cycles.restype = ctypes.c_int
-
-    h, kv, s, d, win = args.h, args.kv, args.s, args.d, args.window
+    h, kv, s, d = args.h, args.kv, args.s, args.d
+    win = args.window if args.window > 0 else None
+    tdt = getattr(torch, args.dtype)
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
 
     def randn(*shape):
         a = rng.standard_normal(shape, dtype=np.float32)
-        return torch.from_numpy(a).to(dev)
+        return torch.from_numpy(a).to(dev).to(tdt)
 
     q = randn(1, s, h, d).transpose(1, 2)
     k = randn(1, s, kv, d).transpose(1, 2)
     v = randn(1, s, kv, d).transpose(1, 2)
-    geo = FK.launch_geometry(1, h, kv, s, s, d, True, win)
-    got = torch.empty_like(q)
+    geo = FK.launch_geometry(1, h, kv, s, s, d, True, win, dtype=tdt)
+    print(f"shape (B,H,KV,S,D)={(1, h, kv, s, d)}, {args.dtype}, causal, "
+          f"window {win}: {geo.rows} rows a CTA, {geo.ctas} CTAs x "
+          f"{geo.threads} threads, {geo.ctas_per_sm} CTA(s) per SM on "
+          f"{geo.n_sms} SMs, {geo.waves} wave(s) (this tree's build)")
 
-    def clocked():
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *got.stride()[:3], 1, h, kv, s, s, d, 1, win, d ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"instrumented launch failed: CUDA error {err}")
+    def caller(fwd, out):
+        def call():
+            err = fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                *out.stride()[:3], 1, h, kv, s, s, d, 1, win or 0,
+                d ** -0.5, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: CUDA error {err}")
+        return call
 
     def time_ms(fn):
         fn()
@@ -99,44 +132,72 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / args.iters
 
-    with torch.no_grad():
-        ms = time_ms(lambda: FK.flash_attention(q, k, v, causal=True,
-                                                window=win))
-        want = FK.flash_attention(q, k, v, causal=True, window=win)
+    def measure(name, src_path, plain_lib, clocked_lib, log=None):
+        if log is not None:
+            spills = [line.strip() for line in log.splitlines()
+                      if re.search(r"[1-9]\d* bytes spill", line)]
+            print(f"{name}: instrumented build, {len(spills)} ptxas "
+                  f"line(s) with spills"
+                  + "".join(f"\n  {line}" for line in spills))
+        want, got = torch.empty_like(q), torch.empty_like(q)
+        plain = caller(declare(plain_lib, args.dtype), want)
+        clocked = caller(declare(clocked_lib, args.dtype), got)
+        clocked_lib.flash_attention_phase_cycles.argtypes = [ctypes.c_void_p]
+        clocked_lib.flash_attention_phase_cycles.restype = ctypes.c_int
         sums = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-        lib.flash_attention_phase_cycles(sums)      # zero the counters
-        clocked()
-        torch.cuda.synchronize()
-        if lib.flash_attention_phase_cycles(sums):
-            raise RuntimeError("reading the phase clocks failed")
-        if not torch.allclose(got, want, rtol=1e-6, atol=1e-6):
-            raise RuntimeError("the instrumented kernel computes otherwise")
-        ms_clocked = time_ms(clocked)
+        with torch.no_grad():
+            ms = time_ms(plain)
+            clocked_lib.flash_attention_phase_cycles(sums)  # zero them
+            clocked()
+            torch.cuda.synchronize()
+            if clocked_lib.flash_attention_phase_cycles(sums):
+                raise RuntimeError("reading the phase clocks failed")
+            tol = 1e-6 if args.dtype == "float32" else 2.0 ** -7
+            if not torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol):
+                raise RuntimeError(f"{name}: the instrumented kernel "
+                                   f"computes otherwise")
+            ms_clocked = time_ms(clocked)
+        blocks = sums[len(PHASES)]
+        per_block = [c / blocks for c in list(sums)[:len(PHASES)]]
+        total = sum(per_block)
+        with open(src_path) as fh:
+            qk, pv, route = mmas_per_block(fh.read(), args.dtype, d)
+        mmas = [0, qk, 0, pv]
+        print(f"{name} ({route}): kernel {ms:.4f} ms; with the clocks "
+              f"{ms_clocked:.4f} ms; {blocks} key blocks of "
+              f"{FK.KEY_BLOCK} walked; {total:.0f} cycles a key block, so "
+              f"{total * blocks / geo.ctas_per_sm / geo.n_sms / ms / 1e6:.3f}"
+              f" GHz over the kernel's time if the SMs were never idle")
+        for phase, cyc, m in zip(PHASES, per_block, mmas):
+            rate = (f", {m / cyc:.3f} MMA a cycle a CTA (an SM's dense "
+                    f"peak is 1)" if m else "")
+            print(f"  {phase}: {cyc:.0f} cycles a key block "
+                  f"({100 * cyc / total:.1f}%), {m} MMAs{rate}")
+        outs[name] = want
+        return {"route": route, "ms": ms, "ms_clocked": ms_clocked,
+                "blocks": blocks,
+                "cycles_per_block": dict(zip(PHASES, per_block)),
+                "mmas_per_block": dict(zip(PHASES, mmas))}
 
-    blocks = sums[len(PHASES)]
-    per_block = [c / blocks for c in list(sums)[:len(PHASES)]]
-    total = sum(per_block)
-    # a CTA's m16n8k8 MMAs a key block when all 8 warps compute (warps skip
-    # blocks past their rows at the diagonal): 3 per fp32 product
-    mma = 8 * (d // 8) * 4 * 3
-    mmas = [0, mma, 0, mma]
-    print(f"shape (B,H,KV,S,D)={(1, h, kv, s, d)}, causal, window {win}: "
-          f"{geo.rows} rows a CTA, {geo.ctas} CTAs x {geo.threads} threads, "
-          f"{geo.ctas_per_sm} CTA(s) per SM on {geo.n_sms} SMs, {geo.waves} "
-          f"wave(s); {blocks} key blocks of {FK.KEY_BLOCK} walked")
-    print(f"kernel {ms:.4f} ms; with the clocks {ms_clocked:.4f} ms; "
-          f"{total:.0f} cycles a key block, so "
-          f"{total * blocks / geo.ctas_per_sm / geo.n_sms / ms / 1e6:.3f} "
-          f"GHz over the kernel's time if the SMs were never idle")
-    for name, cyc, m in zip(PHASES, per_block, mmas):
-        rate = (f", {m / cyc:.3f} MMA a cycle a CTA (an SM's dense TF32 "
-                f"peak is 1)" if m else "")
-        print(f"  {name}: {cyc:.0f} cycles a key block "
-              f"({100 * cyc / total:.1f}%), {m} MMAs{rate}")
-    print(json.dumps({"shape": [1, h, kv, s, d], "window": win, "ms": ms,
-                      "ms_clocked": ms_clocked, "blocks": blocks,
-                      "cycles_per_block": dict(zip(PHASES, per_block)),
-                      "mmas_per_block": dict(zip(PHASES, mmas)),
+    results, outs = {}, {}
+    if args.parent:
+        results["parent"] = measure(
+            "parent", args.parent, _build.load_copy(args.parent, "parent"),
+            _build.load_copy(args.parent, "parent", DEFINES))
+    lib = FK.bind(_build.load("flash_attention", DEFINES))
+    log = _build._target("flash_attention", DEFINES).with_suffix(".log")
+    results["tree"] = measure(
+        "this tree", _build.CSRC / "flash_attention.cu",
+        FK.bind(_build.load("flash_attention")), lib, log.read_text())
+    if args.parent:
+        diff = (outs["parent"].float() - outs["this tree"].float()).abs()
+        results["parent"]["differ_from_tree"] = int((diff > 0).sum())
+        print(f"parent against this tree: {int((diff > 0).sum())} of "
+              f"{diff.numel()} elements differ, max abs diff "
+              f"{diff.max().item():.3e}")
+    print(json.dumps({"shape": [1, h, kv, s, d], "dtype": args.dtype,
+                      "window": win, **results, "card": smi,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -101,19 +101,21 @@ def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         return lib
 
 
-def load_copy(src: "str | os.PathLike", tag: str) -> ctypes.CDLL:
+def load_copy(src: "str | os.PathLike", tag: str,
+              defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Another copy of a kernel source (say, an older commit's, from a
-    ``git archive``), built with the same flags into ``BUILD_DIR`` as
-    ``<stem>-<tag>-<hash>.so`` and loaded, to time one build against
-    another; the caller declares its C interface."""
+    ``git archive``), built with the same flags and any extra ``defines``
+    into ``BUILD_DIR`` as ``<stem>-<tag>-<hash>.so`` and loaded, to time
+    one build against another; the caller declares its C interface."""
     src = Path(src).resolve()
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    flags = _flags(defines)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
                             ).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{tag}-{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp),
                                str(src)], capture_output=True, text=True)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"

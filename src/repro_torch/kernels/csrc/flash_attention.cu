@@ -1,6 +1,7 @@
 // Flash attention forward with GQA, causal and window masks, fp32 or bf16
-// in and out (q, k and v of one type), both products on TF32 tensor cores
-// in split precision (3xTF32), for sm_90a.
+// in and out (q, k and v of one type), for sm_90a: the fp32 instance on TF32
+// tensor cores in split precision (3xTF32), the bf16 instance on bf16 tensor
+// cores with P kept as two bf16 parts.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention -> _fa_kernel). Same function: for query head h, which
@@ -21,7 +22,7 @@
 // 3 x 103 / 495 GFLOP/TFLOP/s = 0.625 ms of tensor-core time.
 //
 // Design. One CTA of 8 warps serves 128 query rows of one head; warp w owns
-// rows 16w..16w+15, the M of mma.sync.m16n8k8.tf32. CTAs are numbered so
+// rows 16w..16w+15, the M of mma.sync. CTAs are numbered so
 // that a q tile's H x B heads come together (the G heads of a KV group read
 // the same K and V blocks from L2 back to back) and the tiles with the most
 // visible keys come first (the last tiles under a causal mask), so the
@@ -33,11 +34,11 @@
 //    read K_{j+1}. Two buffers of each would need 267,264 B at D = 256
 //    against 232,448. Bytes: (160 (D + 16) + 32 (D + 4)) x 4: 207,360 at
 //    D = 256 (1 CTA/SM), 109,056 at 128 and 59,904 at 64 (2 CTAs/SM); in
-//    bf16 (160 (D + 16) + 32 (D + 8)) x 2: 103,936, 54,784 and 30,208.
-//  - Operands from shared memory, split on the fly: big rounded as
+//    bf16 192 (D + 8) x 2: 101,376, 52,224 and 27,648.
+//  - fp32 operands from shared memory, split on the fly: big rounded as
 //    cvt.rna.tf32.f32 rounds (in integer operations), small the same on
-//    x - big. The contraction index of each product is permuted, which the
-//    sum does not see:
+//    x - big, on mma.sync.m16n8k8.tf32. The contraction index of each
+//    product is permuted, which the sum does not see:
 //    QK^T: over d in chunks of 16, lane (g, t) (g = lane / 4, t = lane % 4)
 //      reads one float4 at d = 16c + 4t of Q row g, Q row g + 8 and K row g
 //      of each 8-key tile; its .x/.y are the fragment's k = t and t + 4 of
@@ -71,21 +72,36 @@
 // (B, S, H, D) projections as (B, H, S, D) views); ragged tails are
 // zero-filled by the copies and masked, never padded in memory.
 //
-// bf16 inputs. A bf16 value is exact in TF32 (8 significant bits against
-// 11), so its TF32 form is its bits shifted left by 16 and its small part
-// is 0. The bf16 instance copies Q, K and V as bf16 (16-byte pieces of 8
-// values, half the fp32 bytes), builds each fragment from those bits, and
-// issues only the products whose terms are not all zero, in the fp32
-// instance's order: QK^T is big.big alone, PV is P_small.V then P_big.V
-// (P stays fp32 and is split as in fp32). Adding a product of zeros leaves
-// an accumulator as it is, so the bf16 instance computes, bit for bit, what
-// the fp32 instance computes on the inputs widened to fp32: half the MMAs
-// of QK^T and two thirds of PV's. The output is that fp32 result rounded to
-// bf16 (to nearest, ties to even) at the store. Bank check for its 8-byte
-// fragment loads (a half warp at a time): Q and K rows at pitch D + 16
-// bf16 (= 8 mod 32 words) put lane (g, t)'s words at 8g + 2t; V rows at
-// pitch D + 8 (= 4 mod 16 words) put them at 8t + 2g (rows 2t and 2t + 1
-// are loaded apart): no conflict either way.
+// bf16 inputs (flash_attention_bf16_kernel). At Yi-34B's prefill (H = 56
+// over 8 KV heads, D = 128, S = 4096, causal) the function is 240.6 GFLOP,
+// 0.243 ms at the bf16 tensor-core rate of 989 TFLOP/s. Both products run on
+// mma.sync.m16n8k16.bf16 with fp32 accumulation, operands loaded by
+// ldmatrix (x4: four 8 x 8 matrices a warp instruction):
+//  - QK^T on q and k as stored: Q rows are the A fragment, K rows already
+//    the "col" B fragment (no transpose). bf16 products are exact in fp32,
+//    so S is fp32 sums of exact products. At D <= 128 a warp's Q fragments
+//    stay in registers for the whole key loop (D / 4 a thread); at D = 256
+//    they are read again from shared memory each key block.
+//  - PV with P kept in fp32 as the Pallas kernel keeps it, as two bf16
+//    parts: P_hi = rn(P), P_lo = rn(P - P_hi) (the remainder is exact in
+//    fp32), so |P - P_hi - P_lo| <= 2^-17 |P|, and O += P_lo V + P_hi V,
+//    the small product first. The accumulators of two adjacent 8-key
+//    n-tiles of S, packed in pairs, are exactly one A fragment of P
+//    ({s[n][0..1], s[n][2..3], s[n+1][0..1], s[n+1][2..3]} as bf16x2): P
+//    never leaves the registers. V is read by ldmatrix.trans.
+//    So the route is 1 + 2 bf16 products: 1.5 x 240.6 GFLOP, 0.365 ms.
+//  - Q, K and V rows at pitch D + 8 bf16 (= 4 mod 32 words at D = 64, 128,
+//    256): the 8 rows of 16 bytes that ldmatrix reads at a time fall on 8
+//    distinct 4-bank groups, no conflict.
+//  - The rest is the fp32 instance's: the CTA and its launch order, the
+//    cp.async double buffer of K and V, the masks and the skipped blocks,
+//    the online softmax in base 2, zeros for a row with no key. The output
+//    is the fp32 result rounded to bf16 once, at the store.
+// The bf16 instance is not bit for bit the fp32 instance on the widened
+// inputs: its fp32 sums run in another order and P_lo drops the bits below
+// 2^-17 |P|. Against that fp32 result it is held elementwise within one
+// bf16 ulp of the result plus 2^-14 max|v| (flash_attention.py,
+// bf16_limit).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,28 +116,44 @@ constexpr int BQ = 128;    // query rows a CTA
 constexpr int BK = 32;     // keys a block
 constexpr int NW = 8;      // warps a CTA, 16 rows each
 constexpr int NT = 32 * NW;
-constexpr int QK_PAD = 16;  // Q and K row pitch D + 16 elements
+constexpr int QK_PAD = 16;  // fp32 Q and K row pitch D + 16 elements
+constexpr int V_PAD = 4;    // fp32 V row pitch D + 4
+constexpr int PAD16 = 8;    // bf16 Q, K and V row pitch D + 8
 constexpr int SMEM_LIMIT = 232448;
 static_assert(BQ == 16 * NW, "a warp owns the 16 rows of one MMA tile");
 static_assert(BK == 32, "the softmax walks 4 n-tiles of 8 keys");
+
+// The bf16 instance's key block and the CTAs a SM its launch bounds ask
+// registers for; other values only in builds that time the choice
+// (scripts/flash_knobs.py).
+#ifndef FLASH_BF16_KEYS
+#define FLASH_BF16_KEYS 32
+#endif
+#ifndef FLASH_BF16_MIN_CTAS
+#define FLASH_BF16_MIN_CTAS 1
+#endif
+constexpr int BK16 = FLASH_BF16_KEYS;
+static_assert(BK16 == 32 || BK16 == 64, "whole pairs of 8-key n-tiles");
 
 struct Strides {
   long long b, h, s;
 };
 
-// V row pitch D + v_pad(el) elements, el the bytes of one: 4 for fp32,
-// 8 for bf16 (see the bank checks above)
-__host__ __device__ constexpr int v_pad(int el) { return el == 4 ? 4 : 8; }
+// Shared memory of a CTA. fp32: the Q tile and one K block at pitch
+// D + QK_PAD, one V block at D + V_PAD; bf16: the Q tile, one K and one V
+// block, all at D + PAD16.
+__host__ __device__ constexpr size_t smem_bytes_f32(int d) {
+  return 4 * ((size_t)(BQ + BK) * (d + QK_PAD) + (size_t)BK * (d + V_PAD));
+}
 
-// Elements of shared memory a CTA: the Q tile and one K block at pitch
-// D + QK_PAD, one V block at D + v_pad(el)
-__host__ __device__ constexpr size_t smem_elems(int d, int el) {
-  return (size_t)(BQ + BK) * (d + QK_PAD) + (size_t)BK * (d + v_pad(el));
+__host__ __device__ constexpr size_t smem_bytes_bf16(int d) {
+  return 2 * (size_t)(BQ + 2 * BK16) * (d + PAD16);
 }
 
 template <typename T>
 __host__ __device__ constexpr size_t smem_bytes_of(int d) {
-  return sizeof(T) * smem_elems(d, (int)sizeof(T));
+  return std::is_same<T, float>::value ? smem_bytes_f32(d)
+                                       : smem_bytes_bf16(d);
 }
 
 // Built with -DFLASH_PHASE_CLOCKS (scripts/flash_phases.py), lane 0 of the
@@ -179,12 +211,49 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// The TF32 forms of four consecutive bf16 values of shared memory (one
-// 8-byte load): each value's bits shifted left by 16, exact.
-__device__ __forceinline__ uint4 tf32x4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  return make_uint4(raw.x << 16, raw.x & 0xFFFF0000u, raw.y << 16,
-                    raw.y & 0xFFFF0000u);
+// c += a b on bf16 tensor cores, fp32 accumulation
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
+// row addresses of matrix i; r[i] holds (row lane / 4, columns 2 (lane % 4)
+// and + 1) of matrix i, or with .trans (rows 2 (lane % 4) and + 1, column
+// lane / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
+                                        const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// (x, y) as two bf16 pairs, x in the low halves: hi = rn(x, y) and
+// lo = rn((x, y) - hi), the remainder exact in fp32
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
 }
 
 // 16 bytes, zero-filled where !valid (nothing is read then)
@@ -205,14 +274,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Key blocks [lo, hi) that q tile `tile` walks: those holding a key
-// visible to some row of the tile.
+// Key blocks [lo, hi) of KB keys that q tile `tile` walks: those holding a
+// key visible to some row of the tile.
+template <int KB>
 __device__ __forceinline__ int2 key_range(int tile, int Sq, int Skv,
                                           int causal, int window) {
   const int q0 = tile * BQ;
-  int lo = 0, hi = (Skv + BK - 1) / BK;
-  if (causal) hi = min(hi, (min(q0 + BQ, Sq) - 1) / BK + 1);
-  if (window > 0) lo = max(0, q0 - window + 1) / BK;
+  int lo = 0, hi = (Skv + KB - 1) / KB;
+  if (causal) hi = min(hi, (min(q0 + BQ, Sq) - 1) / KB + 1);
+  if (window > 0) lo = max(0, q0 - window + 1) / KB;
   return make_int2(lo, max(lo, hi));
 }
 
@@ -220,14 +290,15 @@ __device__ __forceinline__ int2 key_range(int tile, int Sq, int Skv,
 // walk, most first; ties in order, the last tile first under a causal
 // mask. Each thread places some tiles (n_tiles steps each); the CTA reads
 // its own through shared memory.
+template <int KB>
 __device__ int tile_at_rank(int rank, int n_tiles, int Sq, int Skv,
                             int causal, int window, int* pick) {
   for (int u = threadIdx.x; u < n_tiles; u += NT) {
-    const int2 ru = key_range(u, Sq, Skv, causal, window);
+    const int2 ru = key_range<KB>(u, Sq, Skv, causal, window);
     const int bu = ru.y - ru.x;
     int pos = 0;
     for (int w = 0; w < n_tiles; ++w) {
-      const int2 rw = key_range(w, Sq, Skv, causal, window);
+      const int2 rw = key_range<KB>(w, Sq, Skv, causal, window);
       const int bw = rw.y - rw.x;
       pos += bw > bu || (bw == bu && (causal ? w > u : w < u));
     }
@@ -263,25 +334,17 @@ __device__ __forceinline__ void store8(float* p, float4 lo, float4 hi) {
   *reinterpret_cast<float4*>(p + 4) = hi;
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, float4 lo,
-                                       float4 hi) {
-  const __nv_bfloat162 w[4] = {
-      __floats2bfloat162_rn(lo.x, lo.y), __floats2bfloat162_rn(lo.z, lo.w),
-      __floats2bfloat162_rn(hi.x, hi.y), __floats2bfloat162_rn(hi.z, hi.w)};
-  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(w);
-}
-
-template <int D, typename T>
+// The fp32 instance: 3xTF32 on mma.sync.m16n8k8.
+template <int D>
 __global__ void __launch_bounds__(NT, 1)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
+    flash_attention_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
                            Strides sq, Strides sk, Strides sv, Strides so,
                            int H, int G, int B, int Sq, int Skv, int causal,
                            int window, float scale_log2) {
-  // bf16 values are exact in TF32: no split, and the all-zero products of
-  // their small parts are not issued
-  constexpr bool EXACT = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int QP = D + QK_PAD, VP = D + v_pad((int)sizeof(T));
+  using T = float;
+  constexpr int QP = D + QK_PAD, VP = D + V_PAD;
   constexpr int NC = D / 32;  // groups of 4 output n-tiles
   extern __shared__ float4 smem4[];
   T* q_s = reinterpret_cast<T*>(smem4);  // BQ x QP
@@ -293,8 +356,9 @@ __global__ void __launch_bounds__(NT, 1)
   // the H x B heads of a q tile together, the heaviest tiles first
   const int n_tiles = (Sq + BQ - 1) / BQ;
   const int hb = blockIdx.x % (H * B);
-  const int tile = tile_at_rank(blockIdx.x / (H * B), n_tiles, Sq, Skv,
-                                causal, window, reinterpret_cast<int*>(q_s));
+  const int tile = tile_at_rank<BK>(blockIdx.x / (H * B), n_tiles, Sq, Skv,
+                                    causal, window,
+                                    reinterpret_cast<int*>(q_s));
   const int h = hb % H, b = hb / H, kvh = h / G;
   const int q0 = tile * BQ;
   const int r_lo = q0 + 16 * warp, r_hi = r_lo + 15;  // this warp's rows
@@ -302,7 +366,7 @@ __global__ void __launch_bounds__(NT, 1)
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
 
-  const int2 range = key_range(tile, Sq, Skv, causal, window);
+  const int2 range = key_range<BK>(tile, Sq, Skv, causal, window);
   const int kb_lo = range.x, kb_hi = range.y;
 
 #ifdef FLASH_PHASE_CLOCKS
@@ -350,40 +414,27 @@ __global__ void __launch_bounds__(NT, 1)
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll 1
       for (int c = 0; c < D / 16; ++c) {
-        if constexpr (EXACT) {
-          const uint4 qa = tf32x4(q_row + 16 * c);
-          const uint4 qc = tf32x4(q_row + 8 * QP + 16 * c);
-          const uint32_t a0[4] = {qa.x, qc.x, qa.y, qc.y};
-          const uint32_t a1[4] = {qa.z, qc.z, qa.w, qc.w};
+        const float4 qa = ld4(q_row + 16 * c);
+        const float4 qc = ld4(q_row + 8 * QP + 16 * c);
+        uint32_t ab0[4], as0[4], ab1[4], as1[4];
+        split(qa.x, ab0[0], as0[0]);
+        split(qc.x, ab0[1], as0[1]);
+        split(qa.y, ab0[2], as0[2]);
+        split(qc.y, ab0[3], as0[3]);
+        split(qa.z, ab1[0], as1[0]);
+        split(qc.z, ab1[1], as1[1]);
+        split(qa.w, ab1[2], as1[2]);
+        split(qc.w, ab1[3], as1[3]);
 #pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const uint4 kk = tf32x4(k_row + 8 * n * QP + 16 * c);
-            mma(s[n], a0, kk.x, kk.y);
-            mma(s[n], a1, kk.z, kk.w);
-          }
-        } else {
-          const float4 qa = ld4(q_row + 16 * c);
-          const float4 qc = ld4(q_row + 8 * QP + 16 * c);
-          uint32_t ab0[4], as0[4], ab1[4], as1[4];
-          split(qa.x, ab0[0], as0[0]);
-          split(qc.x, ab0[1], as0[1]);
-          split(qa.y, ab0[2], as0[2]);
-          split(qc.y, ab0[3], as0[3]);
-          split(qa.z, ab1[0], as1[0]);
-          split(qc.z, ab1[1], as1[1]);
-          split(qa.w, ab1[2], as1[2]);
-          split(qc.w, ab1[3], as1[3]);
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            const float4 kk = ld4(k_row + 8 * n * QP + 16 * c);
-            uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
-            split(kk.x, xb, xs);
-            split(kk.y, yb, ys);
-            split(kk.z, zb, zs);
-            split(kk.w, wb, ws);
-            mma3(s[n], ab0, as0, xb, yb, xs, ys);
-            mma3(s[n], ab1, as1, zb, wb, zs, ws);
-          }
+        for (int n = 0; n < 4; ++n) {
+          const float4 kk = ld4(k_row + 8 * n * QP + 16 * c);
+          uint32_t xb, xs, yb, ys, zb, zs, wb, ws;
+          split(kk.x, xb, xs);
+          split(kk.y, yb, ys);
+          split(kk.z, zb, zs);
+          split(kk.w, wb, ws);
+          mma3(s[n], ab0, as0, xb, yb, xs, ys);
+          mma3(s[n], ab1, as1, zb, wb, zs, ws);
         }
       }
       PHASE_END(1)
@@ -462,32 +513,20 @@ __global__ void __launch_bounds__(NT, 1)
         split(s[n][3], pb[3], ps[3]);
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          if constexpr (EXACT) {
-            const uint4 b0 = tf32x4(v_row + 8 * n * VP + 32 * c);
-            const uint4 b1 = tf32x4(v_row + (8 * n + 1) * VP + 32 * c);
-            const uint32_t x0[4] = {b0.x, b0.y, b0.z, b0.w};
-            const uint32_t x1[4] = {b1.x, b1.y, b1.z, b1.w};
+          const float4 v0 = ld4(v_row + 8 * n * VP + 32 * c);
+          const float4 v1 = ld4(v_row + (8 * n + 1) * VP + 32 * c);
+          uint32_t b0[4], s0[4], b1[4], s1[4];
+          split(v0.x, b0[0], s0[0]);
+          split(v0.y, b0[1], s0[1]);
+          split(v0.z, b0[2], s0[2]);
+          split(v0.w, b0[3], s0[3]);
+          split(v1.x, b1[0], s1[0]);
+          split(v1.y, b1[1], s1[1]);
+          split(v1.z, b1[2], s1[2]);
+          split(v1.w, b1[3], s1[3]);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              mma(acc[c][j], ps, x0[j], x1[j]);
-              mma(acc[c][j], pb, x0[j], x1[j]);
-            }
-          } else {
-            const float4 v0 = ld4(v_row + 8 * n * VP + 32 * c);
-            const float4 v1 = ld4(v_row + (8 * n + 1) * VP + 32 * c);
-            uint32_t b0[4], s0[4], b1[4], s1[4];
-            split(v0.x, b0[0], s0[0]);
-            split(v0.y, b0[1], s0[1]);
-            split(v0.z, b0[2], s0[2]);
-            split(v0.w, b0[3], s0[3]);
-            split(v1.x, b1[0], s1[0]);
-            split(v1.y, b1[1], s1[1]);
-            split(v1.z, b1[2], s1[2]);
-            split(v1.w, b1[3], s1[3]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              mma3(acc[c][j], pb, ps, b0[j], b1[j], s0[j], s1[j]);
-          }
+          for (int j = 0; j < 4; ++j)
+            mma3(acc[c][j], pb, ps, b0[j], b1[j], s0[j], s1[j]);
           // keeps the compiler from hoisting the next groups' V loads,
           // whose registers would spill beside the 128 of the accumulator
           __syncwarp();
@@ -539,12 +578,256 @@ __global__ void __launch_bounds__(NT, 1)
   }
 }
 
+// The bf16 instance: bf16 products on mma.sync.m16n8k16, P as two bf16
+// parts (see the notes at the top). Same phases, masks and skips as the
+// fp32 instance, with key blocks of BK16.
+template <int D>
+__global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
+    flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                __nv_bfloat16* __restrict__ o, Strides sq,
+                                Strides sk, Strides sv, Strides so, int H,
+                                int G, int B, int Sq, int Skv, int causal,
+                                int window, float scale_log2) {
+  using T = __nv_bfloat16;
+  constexpr int P = D + PAD16;     // row pitch of Q, K and V
+  constexpr int KS = D / 16;       // k-steps of QK^T
+  constexpr int NS = BK16 / 8;     // n-tiles of S (8 keys each)
+  constexpr int NO = D / 8;        // n-tiles of O (8 columns each)
+  constexpr bool Q_REGS = D <= 128;
+  extern __shared__ float4 smem4[];
+  T* q_s = reinterpret_cast<T*>(smem4);  // BQ x P
+  T* k_s = q_s + BQ * P;                 // BK16 x P
+  T* v_s = k_s + BK16 * P;               // BK16 x P
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (Sq + BQ - 1) / BQ;
+  const int hb = blockIdx.x % (H * B);
+  const int tile = tile_at_rank<BK16>(blockIdx.x / (H * B), n_tiles, Sq,
+                                      Skv, causal, window,
+                                      reinterpret_cast<int*>(q_s));
+  const int h = hb % H, b = hb / H, kvh = h / G;
+  const int q0 = tile * BQ;
+  const int r_lo = q0 + 16 * warp, r_hi = r_lo + 15;  // this warp's rows
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+
+  const int2 range = key_range<BK16>(tile, Sq, Skv, causal, window);
+  const int kb_lo = range.x, kb_hi = range.y;
+
+#ifdef FLASH_PHASE_CLOCKS
+  long long clocks[N_PHASES] = {};
+  long long last_clock = clock64();
+#endif
+
+  copy_rows<D, P, BQ>(q_s, qb, sq.s, q0, Sq);
+  if (kb_lo < kb_hi) copy_rows<D, P, BK16>(k_s, kb, sk.s, kb_lo * BK16, Skv);
+  cp_async_commit();
+  if (kb_lo < kb_hi) copy_rows<D, P, BK16>(v_s, vb, sv.s, kb_lo * BK16, Skv);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and the first K
+  __syncthreads();
+  PHASE_END(0)
+
+  // ldmatrix row addresses of this lane. Q (A): matrices (rows 0-7, d 0-7),
+  // (rows 8-15, d 0-7), (rows 0-7, d 8-15), (rows 8-15, d 8-15) of a
+  // k-step: a0..a3. K (B, as stored): (keys 0-7, d 0-7), (keys 0-7,
+  // d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15): b0, b1 of two
+  // n-tiles. V (B, transposed): (keys 0-7, cols 0-7), (keys 8-15, cols
+  // 0-7), (keys 0-7, cols 8-15), (keys 8-15, cols 8-15): b0, b1 of two
+  // n-tiles of O.
+  const T* q_ld = q_s + (16 * warp + (lane & 15)) * P + 8 * (lane >> 4);
+  const T* k_ld =
+      k_s + ((lane & 7) + 8 * (lane >> 4)) * P + 8 * ((lane >> 3) & 1);
+  const T* v_ld = v_s + (lane & 15) * P + 8 * (lane >> 4);
+
+  uint32_t qf[Q_REGS ? KS : 1][4];
+  if constexpr (Q_REGS) {
+#pragma unroll
+    for (int c = 0; c < KS; ++c) ldsm_x4(qf[c], q_ld + 16 * c);
+  }
+
+  float acc[NO][4];  // [n-tile of 8 columns][c0..c3]
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  // running max (base 2) and this lane's share of the sum, rows g and g+8
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int blk = kb_lo; blk < kb_hi; ++blk) {
+    const int k0 = blk * BK16;
+    const bool more = blk + 1 < kb_hi;
+    const bool skip = r_lo >= Sq || (causal && k0 > r_hi) ||
+                      (window > 0 && k0 + BK16 - 1 <= r_lo - window);
+    const bool edge = (causal && k0 + BK16 - 1 > r_lo) ||
+                      (window > 0 && k0 <= r_hi - window) || k0 + BK16 > Skv;
+    float s[NS][4];  // [n-tile of 8 keys][c0..c3]
+
+    if (!skip) {
+      // S = Q K^T
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int c = 0; c < KS; ++c) {
+        uint32_t a[4];
+        if constexpr (Q_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = qf[c][i];
+        } else {
+          ldsm_x4(a, q_ld + 16 * c);
+        }
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          uint32_t kf[4];
+          ldsm_x4(kf, k_ld + 8 * n * P + 16 * c);
+          mma16(s[n], a, kf[0], kf[1]);
+          mma16(s[n + 1], a, kf[2], kf[3]);
+        }
+      }
+      PHASE_END(1)
+
+      // online softmax; lane (g, t) holds keys 8n + 2t, 8n + 2t + 1
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          if (edge) {
+            const int row = r_lo + g + (e >> 1) * 8;
+            const int key = k0 + 8 * n + 2 * t + (e & 1);
+            const bool vis = key < Skv && (!causal || key <= row) &&
+                             (window <= 0 || key > row - window);
+            x = vis ? x : -INFINITY;
+          }
+          s[n][e] = x;
+        }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      // a row with no visible key yet keeps p = 0 and alpha = 0
+      const float mu0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float mu1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
+      m0 = mn0;
+      m1 = mn1;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        s[n][0] = exp2f(s[n][0] - mu0);
+        s[n][1] = exp2f(s[n][1] - mu0);
+        s[n][2] = exp2f(s[n][2] - mu1);
+        s[n][3] = exp2f(s[n][3] - mu1);
+        sum0 += s[n][0] + s[n][1];
+        sum1 += s[n][2] + s[n][3];
+      }
+      l0 = l0 * al0 + sum0;
+      l1 = l1 * al1 + sum1;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        acc[j][0] *= al0;
+        acc[j][1] *= al0;
+        acc[j][2] *= al1;
+        acc[j][3] *= al1;
+      }
+      PHASE_END(2)
+    }
+
+    cp_async_wait<0>();  // V of this block
+    __syncthreads();     // every warp is done with K
+    if (more) copy_rows<D, P, BK16>(k_s, kb, sk.s, k0 + BK16, Skv);
+    cp_async_commit();
+    PHASE_END(0)
+
+    if (!skip) {
+      // O += P_lo V + P_hi V, k-step kk over keys 16kk .. 16kk + 15: the S
+      // accumulators of n-tiles 2kk and 2kk + 1 are P's A fragment
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, v_ld + 16 * kk * P + 8 * j);
+          mma16(acc[j], pl, vf[0], vf[1]);
+          mma16(acc[j + 1], pl, vf[2], vf[3]);
+          mma16(acc[j], ph, vf[0], vf[1]);
+          mma16(acc[j + 1], ph, vf[2], vf[3]);
+        }
+      }
+      PHASE_END(3)
+    }
+
+    cp_async_wait<0>();  // K of the next block
+    __syncthreads();     // every warp is done with V
+    if (more) copy_rows<D, P, BK16>(v_s, vb, sv.s, k0 + BK16, Skv);
+    cp_async_commit();
+    PHASE_END(0)
+  }
+  cp_async_wait<0>();
+
+#ifdef FLASH_PHASE_CLOCKS
+  if (tid == CLOCK_TID) {
+    for (int i = 0; i < N_PHASES; ++i)
+      atomicAdd(&phase_cycles[i], (unsigned long long)clocks[i]);
+    atomicAdd(&phase_cycles[N_PHASES], (unsigned long long)(kb_hi - kb_lo));
+  }
+#endif
+
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
+  const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
+  T* ob = o + b * so.b + h * so.h;
+  const int row0 = r_lo + g, row1 = row0 + 8;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * so.s + col) =
+          __floats2bfloat162_rn(acc[j][0] * inv0, acc[j][1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * so.s + col) =
+          __floats2bfloat162_rn(acc[j][2] * inv1, acc[j][3] * inv1);
+  }
+}
+
+// The instance for elements of type T at head dim D.
+template <int D, typename T>
+constexpr auto kernel_of() {
+  if constexpr (std::is_same<T, float>::value)
+    return flash_attention_kernel<D>;
+  else
+    return flash_attention_bf16_kernel<D>;
+}
+
 template <int D, typename T>
 bool prepare(size_t* smem) {
   static_assert(smem_bytes_of<T>(D) <= SMEM_LIMIT,
                 "the tiles fit one CTA's shared memory");
   *smem = smem_bytes_of<T>(D);
-  return cudaFuncSetAttribute(flash_attention_kernel<D, T>,
+  return cudaFuncSetAttribute(kernel_of<D, T>(),
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)*smem) == cudaSuccess;
 }
@@ -555,7 +838,7 @@ int max_active() {
   if (!prepare<D, T>(&smem)) return -(int)cudaGetLastError();
   int n = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &n, flash_attention_kernel<D, T>, NT, smem);
+      &n, kernel_of<D, T>(), NT, smem);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -570,7 +853,8 @@ int launch(const T* q, const T* k, const T* v, T* o, Strides sq, Strides sk,
   if (!prepare<D, T>(&smem)) return (int)cudaGetLastError();
   const long long ctas = (long long)((Sq + BQ - 1) / BQ) * H * B;
   if (ctas < 1 || ctas > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<D, T><<<(unsigned)ctas, NT, smem, stream>>>(
+  const auto kernel = kernel_of<D, T>();
+  kernel<<<(unsigned)ctas, NT, smem, stream>>>(
       q, k, v, o, sq, sk, sv, so, H, G, B, Sq, Skv, causal, window,
       scale_log2);
   const cudaError_t err = cudaGetLastError();
@@ -616,14 +900,15 @@ extern "C" {
 
 int flash_attention_rows(void) { return BQ; }
 
-int flash_attention_key_block(void) { return BK; }
+// Keys a block of the instance for elements of el bytes (4: fp32, 2: bf16).
+int flash_attention_key_block(int el) { return el == 2 ? BK16 : BK; }
 
 int flash_attention_threads(void) { return NT; }
 
 // Shared memory of one CTA at head dim d for elements of el bytes (4:
 // fp32, 2: bf16).
 int flash_attention_smem_bytes(int d, int el) {
-  return (int)(el * smem_elems(d, el));
+  return (int)(el == 2 ? smem_bytes_bf16(d) : smem_bytes_f32(d));
 }
 
 // The last launch's CTAs, threads and shared bytes, into out[3].
@@ -657,8 +942,8 @@ int flash_attention_fwd(const float* q, const float* k, const float* v,
                  stream);
 }
 
-// flash_attention_fwd on bf16 q, k, v and o: bit for bit the fp32 result on
-// the widened inputs, rounded to bf16 to nearest even.
+// flash_attention_fwd on bf16 q, k, v and o, on bf16 tensor cores with P
+// in two bf16 parts; the fp32 result rounded to bf16 to nearest even.
 int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                              const __nv_bfloat16* v, __nv_bfloat16* o,
                              long long sqb, long long sqh, long long sqs,

@@ -9,15 +9,16 @@ views of its (B,S,H,D) projections without a copy, and the output keeps
 q's layout. The TPU kernel's block arguments (``bq``, ``bk``,
 ``interpret``) are gone: the kernel uses its own tiles.
 
-The kernel computes both products on TF32 tensor cores in split precision
-(3xTF32), ``ROWS`` query rows of one head a CTA; :func:`geometry` is its
-launch in plain Python. :func:`split_tf32` and
-:func:`flash_attention_3xtf32` are its arithmetic in plain PyTorch, the
-yardstick the route was chosen by. It takes q, k and v in fp32 or in bf16
-(all three of one type) and returns q's type. A bf16 value is exact in
-TF32, so the bf16 instance skips the products of zero small parts and
-gives, bit for bit, the fp32 instance's result on the widened inputs,
-rounded to bf16.
+It takes q, k and v in fp32 or in bf16 (all three of one type) and
+returns q's type, ``ROWS`` query rows of one head a CTA; :func:`geometry`
+is its launch in plain Python. The fp32 instance computes both products on
+TF32 tensor cores in split precision (3xTF32); :func:`split_tf32` and
+:func:`flash_attention_3xtf32` are its arithmetic in plain PyTorch. The
+bf16 instance computes them on bf16 tensor cores with P kept as two bf16
+parts; :func:`split_bf16` and :func:`flash_attention_bf16_2part` are its
+arithmetic. Its sums run in another order than the fp32 instance's, so
+against the fp32 instance on the widened inputs it is held within
+:func:`bf16_limit`, not bit for bit.
 """
 
 from __future__ import annotations
@@ -35,22 +36,23 @@ from .ref import flash_attention as plain
 
 __all__ = ["flash_attention", "plain", "launches", "bind", "Geometry",
            "geometry", "launch_geometry", "last_launch", "smem_bytes",
-           "split_tf32", "DTYPES",
-           "flash_attention_3xtf32", "HEAD_DIMS", "ROWS", "KEY_BLOCK",
-           "THREADS", "SMEM_LIMIT"]
+           "split_tf32", "split_bf16", "bf16_limit", "DTYPES",
+           "flash_attention_3xtf32", "flash_attention_bf16_2part",
+           "HEAD_DIMS", "ROWS", "KEY_BLOCK", "THREADS", "SMEM_LIMIT"]
 
 #: kernel launches made by :func:`flash_attention` in this process
 launches = 0
 
 #: head dims the kernel is built for
 HEAD_DIMS = (64, 128, 256)
-#: input types the kernel is built for, and the pad (elements) after each
-#: shared V row in each (bank spread; Q and K rows take 16)
+#: input types the kernel is built for, and by element bytes the pad
+#: (elements) after each shared Q and K row and each V row (bank spread)
 DTYPES = (torch.float32, torch.bfloat16)
+QK_PAD = {4: 16, 2: 8}
 V_PAD = {4: 4, 2: 8}
 #: query rows a CTA, as ``flash_attention_rows``
 ROWS = 128
-#: keys a block of the loop, as ``flash_attention_key_block``
+#: keys a block of the loop, as ``flash_attention_key_block`` (both types)
 KEY_BLOCK = 32
 #: threads a CTA, as ``flash_attention_threads``
 THREADS = 256
@@ -82,12 +84,14 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("flash_attention_rows", "flash_attention_key_block",
                  "flash_attention_threads"):
         getattr(lib, name).restype = _I
+    lib.flash_attention_key_block.argtypes = [_I]
     lib.flash_attention_last_launch.argtypes = [_P]
     lib.flash_attention_last_launch.restype = None
-    if ((lib.flash_attention_rows(), lib.flash_attention_key_block(),
-         lib.flash_attention_threads()) != (ROWS, KEY_BLOCK, THREADS)
-            or any(lib.flash_attention_smem_bytes(d, el) != smem_bytes(d, el)
-                   for d in HEAD_DIMS for el in V_PAD)):
+    if ((lib.flash_attention_rows(), lib.flash_attention_threads())
+            != (ROWS, THREADS)
+            or any(lib.flash_attention_key_block(el) != KEY_BLOCK
+                   or lib.flash_attention_smem_bytes(d, el)
+                   != smem_bytes(d, el) for d in HEAD_DIMS for el in V_PAD)):
         raise RuntimeError("flash_attention.cu and its wrapper disagree on "
                            "the rows, the key block, the threads or shared "
                            "memory")
@@ -96,9 +100,11 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def smem_bytes(d: int, el: int = 4) -> int:
     """Shared memory of one CTA for elements of ``el`` bytes (4: fp32, 2:
-    bf16), as ``smem_elems`` in the kernel: the Q tile and one K block at
-    row pitch d + 16, one V block at d + 4 (fp32) or d + 8 (bf16)."""
-    return el * ((ROWS + KEY_BLOCK) * (d + 16) + KEY_BLOCK * (d + V_PAD[el]))
+    bf16), as ``flash_attention_smem_bytes`` in the kernel: the Q tile and
+    one K block at row pitch d + 16, one V block at d + 4 (fp32); all three
+    at d + 8 (bf16)."""
+    return el * ((ROWS + KEY_BLOCK) * (d + QK_PAD[el])
+                 + KEY_BLOCK * (d + V_PAD[el]))
 
 
 def _element_size(dtype) -> int:
@@ -252,7 +258,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     all three fp32 or all three bf16, any strides with the last dim
     contiguous and 16-byte aligned rows; H a multiple of KV; D in
     ``HEAD_DIMS``. Returns (B,H,Sq,D) of q's type in q's layout; in bf16,
-    the fp32 kernel's result on the widened inputs, rounded.
+    within :func:`bf16_limit` of the fp32 kernel's result on the widened
+    inputs.
     Differentiable: the backward recomputes through :func:`plain` and
     differentiates that (``autograd.py``)."""
     return recompute(
@@ -353,3 +360,63 @@ def flash_attention_3xtf32(q: torch.Tensor, k: torch.Tensor,
     out = torch.where(l_sum > 0, out / torch.where(l_sum > 0, l_sum, 1.0),
                       0.0)
     return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def split_bf16(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
+    """(hi, lo) as fp32 tensors of bf16 values, as the bf16 instance splits
+    P: ``hi`` is fp32 ``x`` rounded to bf16 (to nearest, ties to even) and
+    ``lo`` the remainder ``x - hi`` (exact in fp32) rounded the same way, so
+    that ``|x - hi - lo| <= 2**-17 * |x|`` for normal values."""
+    x = x.float()
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def flash_attention_bf16_2part(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               window: "int | None" = None) -> torch.Tensor:
+    """:func:`plain` as the bf16 instance computes it: S = QK^T of the bf16
+    q and k summed in fp32 (the products are exact), P = exp(S - max) in
+    fp32 split as :func:`split_bf16`, PV = P_lo V + P_hi V in fp32 (the
+    small product first), normalised by the fp32 sum of P after PV and
+    rounded to q's type. Any device."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, kv, h // kv, sq, d).float()
+    logits = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) \
+        * (d ** -0.5)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    top = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - torch.where(torch.isinf(top), 0.0, top))
+    l_sum = p.sum(-1, keepdim=True)
+    p_hi, p_lo = split_bf16(p)
+    vf = v.float()[:, :, None]
+    out = torch.matmul(p_lo, vf) + torch.matmul(p_hi, vf)
+    out = torch.where(l_sum > 0, out / torch.where(l_sum > 0, l_sum, 1.0),
+                      0.0)
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of |x| (8 significant bits: 2^(floor(log2|x|) - 7)),
+    0 where x is 0."""
+    _, e = torch.frexp(x.abs().float())          # |x| = m 2^e, m in [0.5, 1)
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x == 0, 0.0, ulp)
+
+
+def bf16_limit(wide: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The elementwise limit on ``|got - wide|`` for the bf16 instance's
+    output ``got`` against ``wide``, the fp32 instance's unrounded output
+    on the same inputs widened to fp32: one bf16 ulp of ``|wide|`` (the
+    store's rounding, half an ulp of a result that lies beside ``wide``)
+    plus ``2**-14 * max|v|`` (P_lo's dropped bits, at most 2^-17 of each P,
+    and the fp32 sums taken in another order, with 8x or more to spare)."""
+    return _bf16_ulp(wide) + 2.0 ** -14 * v.float().abs().max()

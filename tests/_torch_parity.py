@@ -7,6 +7,9 @@ and handed to the JAX package and the port alike; parameters go from a JAX
 
 from __future__ import annotations
 
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -152,3 +155,13 @@ def mlstm_b_i_scales(cfg, names) -> dict:
     return {name: name[:-len("b_i")] + "w_i" for name in names
             if name.endswith("/b_i")
             and kinds[int(name.split("/")[2][1:])] == "mlstm"}
+
+
+def chip_smoke():
+    """The repo's ``chip_smoke.py`` as a module (its helpers: the 1-ulp
+    yardstick, ``WidenedFlash``); importing it starts nothing."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

@@ -9,7 +9,6 @@ blocks and its fp64 sums; the bf16 launch geometry of both kernels; and
 chip_smoke.py's 1-ulp yardstick and widened-kernel wrapper."""
 
 import importlib.util
-import os
 import pathlib
 import threading
 
@@ -21,7 +20,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 from _torch_parity import (ATTN_TOL, _reset_port,  # noqa: E402,F401
-                           decode_inputs, flash_inputs, n, t)
+                           chip_smoke, decode_inputs, flash_inputs, n, t)
 
 import repro.core as jrc  # noqa: E402
 from repro.configs import get_arch as jax_arch  # noqa: E402
@@ -332,7 +331,7 @@ def test_widened_flash_in_fp64_is_the_plain_path_summed_wider():
     calls fp64 q, k and v and rounds their output back: the yi-9b smoke
     prefill from fp32 parameters stays fp32 and within 1e-5 of its largest
     logit of the unwidened plain path."""
-    cs = _chip_smoke()
+    cs = chip_smoke()
     _, tcfg, _, tp = _smoke_bf16("yi-9b")
     params = tree_map(lambda x: x.float(), tp)
     model = Model(tcfg, kernel_impl="plain")
@@ -353,25 +352,27 @@ def test_widened_flash_in_fp64_is_the_plain_path_summed_wider():
 
 @pytest.mark.parametrize("d", FK.HEAD_DIMS)
 def test_flash_bf16_tiles_fit_shared_memory(d):
-    """bf16 tiles: the Q tile and one K block at row pitch d + 16, one V
-    block at d + 8, two bytes an element."""
+    """bf16 tiles: the Q tile, one K and one V block, all at row pitch
+    d + 8 (4 words mod 32, so ldmatrix's 8 rows of 16 bytes meet no bank
+    twice), two bytes an element."""
     geo = FK.geometry(1, 56, 8, 4096, 4096, d, True, None,
                       dtype=torch.bfloat16)
     assert geo.el == 2
     assert geo.smem_bytes == FK.smem_bytes(d, 2) == \
-        2 * (160 * (d + 16) + 32 * (d + 8))
+        2 * (160 * (d + 8) + 32 * (d + 8))
+    assert (d + 8) * 2 // 4 % 32 == 4
     assert geo.smem_bytes < FK.smem_bytes(d) <= FK.SMEM_LIMIT
 
 
 def test_flash_geometry_at_the_yi_34b_shape_in_bf16():
     """Yi-34B's prefill (56 heads over 8 KV heads of 128, S=4096, causal):
-    the fp32 launch with half the shared memory and half the K and V bytes
-    from L2."""
+    the fp32 launch with less than half the shared memory (pitch d + 8, not
+    d + 16) and half the K and V bytes from L2."""
     geo = FK.geometry(1, 56, 8, 4096, 4096, 128, True, None,
                       dtype=torch.bfloat16)
     fp32 = FK.geometry(1, 56, 8, 4096, 4096, 128, True, None)
-    assert (geo.tiles, geo.ctas, geo.smem_bytes) == (32, 1792, 54784)
-    assert geo.plan == (1792, 256, 54784)
+    assert (geo.tiles, geo.ctas, geo.smem_bytes) == (32, 1792, 52224)
+    assert geo.plan == (1792, 256, 52224)
     assert geo.order == fp32.order and geo.key_rows == fp32.key_rows
     assert geo.l2_bytes * 2 == fp32.l2_bytes
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -412,19 +413,11 @@ def test_cpu_wrappers_take_bf16_and_return_its_type():
 # chip_smoke.py's yardstick and widened-kernel wrapper, on the CPU
 # --------------------------------------------------------------------------
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.fspath(ROOT / "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_one_ulp_moved_steps_a_bf16_table_by_one_ulp():
     """A bf16 table moves to each element's next value away from zero (a
     scale by 1 + 2^-23 would round back to the same table); an fp32 table
     is scaled by 1 + 2^-23, as the fp32 phases have always moved it."""
-    cs = _chip_smoke()
+    cs = chip_smoke()
     table = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (64, 32)).astype(np.float32))
     table[0, :3] = torch.tensor([0.0, -0.0, 1.0])
@@ -447,7 +440,7 @@ def test_widened_flash_is_the_bf16_prefill_bit_for_bit_on_cpu():
     on the CPU (the plain version, which widens the same way) the yi-34b
     smoke prefill from bf16 parameters is unchanged bit for bit, and a
     stand-in that sees the calls gets bf16 in and fp32 in."""
-    cs = _chip_smoke()
+    cs = chip_smoke()
     _, tcfg, _, tp = _smoke_bf16("yi-34b")
     model = Model(tcfg)
     toks = {"tokens": torch.from_numpy(_tokens(2, 40, tcfg.vocab_size))}

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_parity import (ATTN_TOL, MLSTM_TOL, RGLRU_TOL,  # noqa: F401
-                           SLSTM_TOL, _reset_port, cuda_device,
+                           SLSTM_TOL, _reset_port, chip_smoke, cuda_device,
                            decode_inputs, flash_inputs, mlstm_b_i_scales,
                            mlstm_inputs, n, rglru_inputs, slstm_inputs, t)
 
@@ -247,10 +247,11 @@ _BF16_DECODE_CASES = {
 def test_bf16_kernel_is_fp32_kernel_on_widened_inputs_on_card(cuda_device,
                                                               case):
     """Each kernel on bf16 inputs (flash: q, k and v; decode: q, on a bf16
-    or an fp32 cache) returns bf16, equal bit for bit to its fp32 kernel on
-    the inputs widened to fp32, rounded to bf16 (a bf16 value is exact in
-    TF32 and in fp32, and the skipped products are all zero), and within
-    the bf16 tolerance of its plain version."""
+    or an fp32 cache) returns bf16 within the bf16 tolerance of its plain
+    version, and against its fp32 kernel on the inputs widened to fp32:
+    decode equal bit for bit to it rounded to bf16 (the bf16 q is widened
+    on its load); flash, whose bf16 route sums in another order and keeps
+    P as two bf16 parts, within ``FK.bf16_limit`` of it unrounded."""
     bf = torch.bfloat16
     if case in _BF16_CASES:
         b, kv, g, s, d, causal, window = _BF16_CASES[case]
@@ -282,8 +283,12 @@ def test_bf16_kernel_is_fp32_kernel_on_widened_inputs_on_card(cuda_device,
         wide = ops.decode_attention(q.float(), k, v, ln)
         want = DK.plain(q, k, v, ln)
     assert got.dtype == bf and wide.dtype == torch.float32
-    assert torch.equal(got.view(torch.int16),
-                       wide.to(bf).view(torch.int16))
+    if case in _BF16_CASES:
+        assert ((got.float() - wide).abs()
+                <= FK.bf16_limit(wide, v)).all()
+    else:
+        assert torch.equal(got.view(torch.int16),
+                           wide.to(bf).view(torch.int16))
     np.testing.assert_allclose(n(got.float()), n(want.float()),
                                **ATTN_TOL["bfloat16"])
 
@@ -538,9 +543,11 @@ def test_narrow_bf16_model_is_its_widened_kernel_path_on_card(cuda_device,
                                                               monkeypatch):
     """A narrow bf16 attn model at Yi-34B's head shape (2 layers, 14 heads
     over 2 KV heads of 128, G=7): its prefill (one flash_attention launch a
-    layer on bf16 q, k and v) equals bit for bit the same prefill with each
-    flash_attention call's inputs widened to fp32 and its output rounded
-    back; its decode steps (bf16 q on a bf16 and on an fp32 cache) equal
+    layer on bf16 q, k and v) lies within the 1-ulp yardstick of the same
+    prefill with each flash_attention call's inputs widened to fp32 and its
+    output rounded back (the yardstick: that widened prefill with the
+    embeddings moved by one bf16 ulp, ``chip_smoke.one_ulp_moved``); its
+    decode steps (bf16 q on a bf16 and on an fp32 cache) equal bit for bit
     those with each decode_attention call's q widened and its output
     rounded back."""
     from repro_torch.configs import ArchConfig
@@ -579,10 +586,14 @@ def test_narrow_bf16_model_is_its_widened_kernel_path_on_card(cuda_device,
         monkeypatch.setattr(ops, "flash_attention", widened_flash)
         monkeypatch.setattr(ops, "decode_attention", widened_decode)
         want, _ = model.apply(params, {"tokens": toks})
+        alt, _ = model.apply(chip_smoke().one_ulp_moved(params),
+                             {"tokens": toks})
         for c, got_steps in steps.items():
             for g_, w_ in zip(got_steps, decode_8(c)):
                 assert torch.equal(g_, w_)
-    assert torch.isfinite(got).all() and torch.equal(got, want)
+    moved = (alt - want).abs().max().item()
+    assert torch.isfinite(got).all() and moved > 0
+    assert (got - want).abs().max().item() <= moved
 
 
 @pytest.mark.requires_cuda

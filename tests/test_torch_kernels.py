@@ -206,6 +206,94 @@ def test_flash_3xtf32_matches_jax_kernel(b, kv, g, s, d, causal, window):
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
 
 
+# --------------------------------------------------------------------------
+# the bf16 instance's arithmetic: P as two bf16 parts (plain, no card)
+# --------------------------------------------------------------------------
+
+# x and (hi, lo) by hand. 1 + 2^-9 + 2^-17: hi = 1, the remainder
+# 2^-9 (1 + 2^-8) ties between 2^-9 and 2^-9 + 2^-16 and goes to the even
+# 2^-9, leaving 2^-17: the bound is reached.
+BF16_TIES = [(1 + 2 ** -9 + 2 ** -17, 1.0, 2 ** -9),
+             (1 + 2 ** -8, 1.0, 2 ** -8),
+             (1 + 3 * 2 ** -8, 1 + 2 ** -6, -(2 ** -8)),
+             (1 + 2 ** -8 + 2 ** -20, 1 + 2 ** -7, -(2 ** -8)),
+             (0.5, 0.5, 0.0), (0.0, 0.0, 0.0),
+             (2 ** -20 * (1 + 2 ** -9 + 2 ** -17), 2 ** -20, 2 ** -29)]
+
+
+@pytest.mark.parametrize("x,hi,lo", BF16_TIES)
+def test_split_bf16_rounds_ties_to_even(x, hi, lo):
+    h, l_ = FK.split_bf16(torch.tensor([x], dtype=torch.float32))
+    assert (h.item(), l_.item()) == (hi, lo)
+    assert abs(x - h.item() - l_.item()) <= 2 ** -17 * abs(x)
+
+
+def test_split_bf16_keeps_p_within_2_to_minus_17():
+    """|P - P_hi - P_lo| <= 2^-17 |P| for P = exp(-x) as the softmax makes
+    it, and for exact ties of both roundings; P_hi and P_lo are bf16
+    values and P_hi is P rounded to nearest even."""
+    rng = np.random.default_rng(26)
+    p = np.exp(-rng.exponential(4.0, 8192)).astype(np.float32)
+    # ties of P_hi: bit 15 set and the 15 bits below clear; ties of P_lo:
+    # a remainder led by bit 14 whose 9th significant bit (bit 6) is set
+    # and nothing below, its 8th (bit 7) odd or even
+    bits = rng.integers(0x30000000, 0x3F800000, 1024, dtype=np.uint32)
+    top = bits & ~np.uint32(0xFFFF)
+    ties = [(top | np.uint32(low)).view(np.float32)
+            for low in (0x8000, 0x40C0, 0x4040)]
+    p = np.concatenate([p, *ties]).astype(np.float32)
+    hi, lo = (n(a) for a in FK.split_bf16(torch.from_numpy(p)))
+    assert not (hi.view(np.uint32) & 0xFFFF).any()
+    assert not (lo.view(np.uint32) & 0xFFFF).any()
+    np.testing.assert_array_equal(hi, n(torch.from_numpy(p).to(
+        torch.bfloat16).float()))
+    err = np.abs(p.astype(np.float64) - hi - lo)
+    assert np.all(err <= 2.0 ** -17 * p)
+    assert err.max() / p[np.argmax(err)] > 2.0 ** -18   # the bound is near
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window",
+                         [c[:7] for c in FLASH_CASES])
+def test_flash_bf16_2part_matches_jax_kernel(b, kv, g, s, d, causal, window):
+    """The bf16 route's arithmetic on bf16 q, k and v against the Pallas
+    kernel (interpret mode) on the same bf16 inputs, at the bf16
+    tolerance."""
+    jargs, targs = _cast(flash_inputs(b + s + d, b, kv, g, s, d), "bfloat16")
+    got = FK.flash_attention_bf16_2part(*targs, causal=causal, window=window)
+    want = jax_flash_attention(*jargs, causal=causal, window=window, bq=64,
+                               bk=64, interpret=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, kv * g, s, d)
+    np.testing.assert_allclose(n(got.float()), n(want.astype(jnp.float32)),
+                               **ATTN_TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window",
+                         [c[:7] for c in FLASH_CASES])
+def test_flash_bf16_2part_within_limit_of_3xtf32_on_widened_inputs(
+        b, kv, g, s, d, causal, window):
+    """The bf16 route against the fp32 instance's arithmetic on the bf16
+    inputs widened to fp32, unrounded: within ``bf16_limit`` everywhere,
+    with most of the limit to spare."""
+    q, k, v = (t(a).to(torch.bfloat16)
+               for a in flash_inputs(b + s + d + 2, b, kv, g, s, d))
+    got = FK.flash_attention_bf16_2part(q, k, v, causal=causal,
+                                        window=window)
+    wide = FK.flash_attention_3xtf32(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+    share = ((got.float() - wide).abs() / FK.bf16_limit(wide, v)).max()
+    assert share <= 1.0
+    # the store's rounding alone fills at most half the limit
+    assert share <= 0.5 + 2.0 ** -8
+
+
+def test_bf16_limit_is_one_ulp_plus_a_share_of_v():
+    wide = torch.tensor([0.0, 1.0, 1.5, -3.0, 2.0 ** -10])
+    v = torch.tensor([[-4.0, 2.0]], dtype=torch.bfloat16)
+    want = torch.tensor([0.0, 2.0 ** -7, 2.0 ** -7, 2.0 ** -6, 2.0 ** -17]) \
+        + 4 * 2.0 ** -14
+    assert torch.equal(FK.bf16_limit(wide, v), want)
+
+
 FLASH_GEOMETRIES = [  # b, h, kv, sq, skv, d, causal, window
     (1, 16, 1, 4096, 4096, 256, True, 2048),   # RecurrentGemma-9B prefill
     (1, 16, 1, 1100, 1100, 256, True, 300),
