@@ -1,52 +1,36 @@
 #!/usr/bin/env python3
-"""The bf16 flash instance's two tuning knobs, each timed both ways in one
-run on one NVIDIA GPU.
+"""The bf16 flash instance's CTAs a SM, timed both ways in one run on one
+NVIDIA GPU.
 
     python3 scripts/flash_knobs.py [--h 56 --kv 8 --s 4096 --d 128] \
         [--rounds 3]
 
-Builds ``csrc/flash_attention.cu`` four ways (``_build.load`` with
-defines, each build apart under ``build/kernels/``): as it is (key blocks
-of 32, launch bounds asking registers for 1 CTA a SM), with
-``FLASH_BF16_MIN_CTAS=2`` (registers for 2 CTAs a SM), with
-``FLASH_BF16_KEYS=64`` (key blocks of 64) and with both. Prints each
-build's ptxas lines for the bf16 instance at ``--d`` (registers, spills),
-its resident CTAs a SM on the card, and holds its output at the Yi-34B
-prefill's shape (bf16, causal, no window; q, k, v as (B,S,H,D) projections
-viewed as (B,H,S,D)) against the fp32 kernel on the widened inputs within
-``bf16_limit``. Then times the builds by CUDA events in ``--rounds``
-rounds, each in the order as-is, knobs..., then the same backwards, and
-prints each build's mean and spread. The last line is a JSON object with
-the same numbers.
+The bf16 instance's launch bounds ask registers for 2 CTAs a SM at
+D <= 128 (``bf16_min_ctas`` in ``csrc/flash_attention.cu``). This builds
+the source as it is and an edited copy whose ``bf16_min_ctas`` asks for 1
+(written under ``build/kernels/edited/`` and built by
+``_build.load_copy``), prints each build's ptxas lines for the bf16
+instance at ``--d`` (registers, spills) and its resident CTAs a SM on the
+card, and holds its output at the Yi-34B prefill's shape (bf16, causal, no
+window; q, k, v as (B,S,H,D) projections viewed as (B,H,S,D)) against the
+fp32 kernel on the widened inputs within ``bf16_limit``. Then times the
+builds by CUDA events in ``--rounds`` rounds, each in the order as-is,
+edited, then the same backwards, and prints each build's mean and spread.
+The last line is a JSON object with the same numbers.
 """
 
 import argparse
-import ctypes
 import json
-import os
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BUILDS = {"as is": (), "2 CTAs/SM": ("FLASH_BF16_MIN_CTAS=2",),
-          "64-key blocks": ("FLASH_BF16_KEYS=64",),
-          "both": ("FLASH_BF16_MIN_CTAS=2", "FLASH_BF16_KEYS=64")}
+import flash_builds as fb
 
-
-def ptxas_lines(log: str, d: int) -> list:
-    """ptxas's register and spill lines for flash_attention_bf16_kernel<d>
-    (its mangled name holds d as ILi<d>E)."""
-    out, on = [], False
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            on = "flash_attention_bf16_kernel" in line and f"ILi{d}E" in line
-        elif on and ("registers" in line or "spill" in line):
-            out.append(line.strip())
-    return out
+#: build name -> (text of the source, its replacement); each found once
+EDITS = {"as is": None,
+         "1 CTA/SM": ("  return d <= 128 ? 2 : 1;", "  return 1;")}
 
 
 def main() -> int:
-    import numpy as np
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--h", type=int, default=56)
@@ -59,82 +43,54 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_knobs: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FK
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = fb.card()
     print(smi)
     h, kv, s, d = args.h, args.kv, args.s, args.d
-    rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
-
-    def randn(*shape):
-        a = rng.standard_normal(shape, dtype=np.float32)
-        return torch.from_numpy(a).to(dev).to(torch.bfloat16)
-
-    q = randn(1, s, h, d).transpose(1, 2)
-    k = randn(1, s, kv, d).transpose(1, 2)
-    v = randn(1, s, kv, d).transpose(1, 2)
+    q, k, v = fb.inputs(h, kv, s, d, torch.bfloat16)
     wide = FK.flash_attention(q.float(), k.float(), v.float(), causal=True)
     limit = FK.bf16_limit(wide, v)
+    src = _build.CSRC / "flash_attention.cu"
 
     calls, report = {}, {}
-    for name, defines in BUILDS.items():
-        lib = _build.load("flash_attention", defines)
-        fwd = lib.flash_attention_fwd_bf16
-        fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                        + [ctypes.c_int] * 8
-                        + [ctypes.c_float, ctypes.c_void_p])
-        fwd.restype = ctypes.c_int
-        lib.flash_attention_max_active.argtypes = [ctypes.c_int] * 2
-        lib.flash_attention_max_active.restype = ctypes.c_int
+    for name, edit in EDITS.items():
+        if edit is None:
+            lib = _build.load("flash_attention")
+            log = _build._target("flash_attention").with_suffix(".log")
+        else:
+            text = src.read_text()
+            if text.count(edit[0]) != 1:
+                raise RuntimeError(f"{name}: {edit[0]!r} is not in the "
+                                   f"source exactly once")
+            slug = name.replace("/", "-").replace(" ", "_")
+            copy = _build.BUILD_DIR / "edited" / slug / src.name
+            copy.parent.mkdir(parents=True, exist_ok=True)
+            copy.write_text(text.replace(*edit))
+            lib = _build.load_copy(copy, "edited")
+            log = _build.copy_target(copy, "edited").with_suffix(".log")
         out = torch.empty_like(q)
-
-        def call(fwd=fwd, out=out):
-            err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                      *v.stride()[:3], *out.stride()[:3], 1, h, kv, s, s, d,
-                      1, 0, d ** -0.5,
-                      torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"launch failed: CUDA error {err}")
-
+        call = fb.caller(lib, q, k, v, out)
         call()
         torch.cuda.synchronize()
         share = ((out.float() - wide).abs() / limit).max().item()
-        log = _build._target("flash_attention", defines).with_suffix(
-            ".log").read_text()
-        ptxas = ptxas_lines(log, d)
-        per_sm = lib.flash_attention_max_active(d, 2)
-        print(f"{name} {defines}: {per_sm} CTA(s) a SM; largest share of "
-              f"the limit {share:.4f} {'ok' if share <= 1 else 'FAIL'}; "
-              f"ptxas: {'; '.join(ptxas) or 'not found'}")
+        ptxas = fb.ptxas_lines(log.read_text(),
+                               "flash_attention_bf16_kernel", d)
+        per_sm = fb.max_active(lib, d, 2)
+        print(f"{name}: {per_sm} CTA(s) a SM; largest share of the limit "
+              f"{share:.4f} {'ok' if share <= 1 else 'FAIL'}; ptxas: "
+              f"{'; '.join(ptxas) or 'not found'}")
         if share > 1:
             raise RuntimeError(f"{name}: outside the limit")
         calls[name] = call
-        report[name] = {"defines": list(defines), "ctas_per_sm": per_sm,
+        report[name] = {"edit": edit, "ctas_per_sm": per_sm,
                         "limit_share": share, "ptxas": ptxas, "ms": []}
 
-    def time_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.iters
-
-    order = list(BUILDS)
+    order = list(EDITS)
     for _ in range(args.rounds):
         for name in order + order[::-1]:
-            report[name]["ms"].append(time_ms(calls[name]))
+            report[name]["ms"].append(fb.time_ms(calls[name], args.iters))
     for name, r in report.items():
         ms = r["ms"]
         r["mean_ms"] = sum(ms) / len(ms)

@@ -3,7 +3,8 @@
 NVIDIA GPU.
 
     python3 scripts/flash_phases.py [--h 16 --kv 1 --s 4096 --d 256 \
-        --window 2048] [--dtype float32|bfloat16] [--parent PATH]
+        --window 2048] [--dtype float32|bfloat16] \
+        [--parent PATH [--parent-route 3xtf32|tf32|bf16]]
 
 Builds ``csrc/flash_attention.cu`` a second time with
 ``-DFLASH_PHASE_CLOCKS`` (``_build.load`` keeps it apart from the plain
@@ -15,56 +16,32 @@ causally at the given shape (the RecurrentGemma-9B prefill by default;
 ``--window 0`` for none; q, k, v of ``--dtype`` as (B,S,H,D) projections
 viewed as (B,H,S,D)) and prints the cycles a key block of each phase (the
 mean over the blocks the CTAs walk), the MMAs a CTA issues in each product
-there (fp32: m16n8k8 TF32, 3 for each fp32 product; bf16: m16n8k16 bf16,
-1 for QK^T and 2 for PV, P's two parts), their rate against an SM's dense
-peak of one such MMA a cycle, and the kernel's time with and without the
-clocks (CUDA events). ``--parent PATH`` (another copy of
-``flash_attention.cu``, e.g. from a ``git archive`` of the parent under
-``build/``) does the same for that copy first, in the same process, with
-its own route's MMA count (an older bf16 instance ran on m16n8k8 TF32, 1
-product for QK^T and 2 for PV), and counts the output elements where the
-two copies differ. The last line is a JSON object with the same numbers.
+there (``flash_builds.mmas_per_block``: fp32 on the 3xtf32 route, bf16 on
+the bf16 route), their rate a CTA and an SM (times the CTAs resident on
+it) against an SM's dense peak of one such MMA a cycle, and the kernel's
+time with and without the clocks (CUDA events). ``--parent PATH``
+(another copy of ``flash_attention.cu``, e.g. from a ``git archive`` of
+the parent under ``build/``) does the same for that copy first, in the
+same process, counting MMAs by ``--parent-route`` (the tree's route by
+default; ``tf32`` for a bf16 instance on m16n8k8 TF32), and counts the
+output elements where the two copies differ. The last line is a JSON
+object with the same numbers.
 """
 
 import argparse
-import ctypes
 import json
-import os
 import re
-import subprocess
 import sys
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+import flash_builds as fb
+
 PHASES = ("wait for K/V", "QK^T", "softmax", "PV")
 DEFINES = ("FLASH_PHASE_CLOCKS",)
 
 
-def declare(lib, dtype):
-    """The C interface this script calls, on any copy of the source."""
-    fwd = lib.flash_attention_fwd_bf16 if dtype == "bfloat16" \
-        else lib.flash_attention_fwd
-    fwd.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
-                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
-    fwd.restype = ctypes.c_int
-    return fwd
-
-
-def mmas_per_block(src: str, dtype: str, d: int, keys: int = 32):
-    """(QK^T, PV) MMAs a CTA issues on a key block when all 8 warps
-    compute (warps skip blocks past their rows at the diagonal), by the
-    route the source takes, and the route's name."""
-    if dtype == "float32":
-        per = 8 * (d // 8) * (keys // 8) * 3
-        return per, per, "3xTF32, m16n8k8"
-    if "m16n8k16" in src:
-        return (8 * (d // 16) * (keys // 8), 8 * (keys // 16) * (d // 8) * 2,
-                "bf16, m16n8k16, P in two parts")
-    return (8 * (d // 8) * (keys // 8), 8 * (keys // 8) * (d // 8) * 2,
-            "TF32 on bf16 operands, m16n8k8")
-
-
 def main() -> int:
-    import numpy as np
+    import ctypes
+
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--h", type=int, default=16)
@@ -76,77 +53,47 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
     ap.add_argument("--parent", help="another copy of flash_attention.cu")
+    ap.add_argument("--parent-route", choices=sorted(fb.ROUTES),
+                    help="the route the parent's instance takes (default: "
+                         "this tree's)")
     ap.add_argument("--iters", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_phases: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as FK
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = fb.card()
     print(smi)
     h, kv, s, d = args.h, args.kv, args.s, args.d
     win = args.window if args.window > 0 else None
     tdt = getattr(torch, args.dtype)
-    rng = np.random.default_rng(0)
-    dev = torch.device("cuda")
-
-    def randn(*shape):
-        a = rng.standard_normal(shape, dtype=np.float32)
-        return torch.from_numpy(a).to(dev).to(tdt)
-
-    q = randn(1, s, h, d).transpose(1, 2)
-    k = randn(1, s, kv, d).transpose(1, 2)
-    v = randn(1, s, kv, d).transpose(1, 2)
+    el = torch.empty((), dtype=tdt).element_size()
+    route = "3xtf32" if args.dtype == "float32" else "bf16"
+    q, k, v = fb.inputs(h, kv, s, d, tdt)
     geo = FK.launch_geometry(1, h, kv, s, s, d, True, win, dtype=tdt)
     print(f"shape (B,H,KV,S,D)={(1, h, kv, s, d)}, {args.dtype}, causal, "
           f"window {win}: {geo.rows} rows a CTA, {geo.ctas} CTAs x "
           f"{geo.threads} threads, {geo.ctas_per_sm} CTA(s) per SM on "
           f"{geo.n_sms} SMs, {geo.waves} wave(s) (this tree's build)")
 
-    def caller(fwd, out):
-        def call():
-            err = fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *out.stride()[:3], 1, h, kv, s, s, d, 1, win or 0,
-                d ** -0.5, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"launch failed: CUDA error {err}")
-        return call
-
-    def time_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.iters
-
-    def measure(name, src_path, plain_lib, clocked_lib, log=None):
+    def measure(name, route, plain_lib, clocked_lib, log=None):
         if log is not None:
             spills = [line.strip() for line in log.splitlines()
                       if re.search(r"[1-9]\d* bytes spill", line)]
             print(f"{name}: instrumented build, {len(spills)} ptxas "
                   f"line(s) with spills"
                   + "".join(f"\n  {line}" for line in spills))
+        per_sm = fb.max_active(plain_lib, d, el)
         want, got = torch.empty_like(q), torch.empty_like(q)
-        plain = caller(declare(plain_lib, args.dtype), want)
-        clocked = caller(declare(clocked_lib, args.dtype), got)
+        plain = fb.caller(plain_lib, q, k, v, want, window=win)
+        clocked = fb.caller(clocked_lib, q, k, v, got, window=win)
         clocked_lib.flash_attention_phase_cycles.argtypes = [ctypes.c_void_p]
         clocked_lib.flash_attention_phase_cycles.restype = ctypes.c_int
         sums = (ctypes.c_ulonglong * (len(PHASES) + 1))()
         with torch.no_grad():
-            ms = time_ms(plain)
+            ms = fb.time_ms(plain, args.iters)
             clocked_lib.flash_attention_phase_cycles(sums)  # zero them
             clocked()
             torch.cuda.synchronize()
@@ -157,25 +104,27 @@ def main() -> int:
                                   atol=tol):
                 raise RuntimeError(f"{name}: the instrumented kernel "
                                    f"computes otherwise")
-            ms_clocked = time_ms(clocked)
+            ms_clocked = fb.time_ms(clocked, args.iters)
         blocks = sums[len(PHASES)]
         per_block = [c / blocks for c in list(sums)[:len(PHASES)]]
         total = sum(per_block)
-        with open(src_path) as fh:
-            qk, pv, route = mmas_per_block(fh.read(), args.dtype, d)
+        qk, pv = fb.mmas_per_block(route, d)
         mmas = [0, qk, 0, pv]
-        print(f"{name} ({route}): kernel {ms:.4f} ms; with the clocks "
-              f"{ms_clocked:.4f} ms; {blocks} key blocks of "
-              f"{FK.KEY_BLOCK} walked; {total:.0f} cycles a key block, so "
-              f"{total * blocks / geo.ctas_per_sm / geo.n_sms / ms / 1e6:.3f}"
-              f" GHz over the kernel's time if the SMs were never idle")
+        print(f"{name} ({fb.ROUTES[route]}, {per_sm} CTA(s) a SM): kernel "
+              f"{ms:.4f} ms; with the clocks {ms_clocked:.4f} ms; {blocks} "
+              f"key blocks of {FK.KEY_BLOCK} walked; {total:.0f} cycles a "
+              f"key block, so "
+              f"{total * blocks / per_sm / geo.n_sms / ms / 1e6:.3f} GHz "
+              f"over the kernel's time if the SMs were never idle")
         for phase, cyc, m in zip(PHASES, per_block, mmas):
-            rate = (f", {m / cyc:.3f} MMA a cycle a CTA (an SM's dense "
+            rate = (f", {m / cyc:.3f} MMA a cycle a CTA, {per_sm * m / cyc:.3f}"
+                    f" an SM with all its CTAs in this phase (an SM's dense "
                     f"peak is 1)" if m else "")
             print(f"  {phase}: {cyc:.0f} cycles a key block "
                   f"({100 * cyc / total:.1f}%), {m} MMAs{rate}")
         outs[name] = want
-        return {"route": route, "ms": ms, "ms_clocked": ms_clocked,
+        return {"route": fb.ROUTES[route], "ctas_per_sm": per_sm, "ms": ms,
+                "ms_clocked": ms_clocked,
                 "blocks": blocks,
                 "cycles_per_block": dict(zip(PHASES, per_block)),
                 "mmas_per_block": dict(zip(PHASES, mmas))}
@@ -183,13 +132,14 @@ def main() -> int:
     results, outs = {}, {}
     if args.parent:
         results["parent"] = measure(
-            "parent", args.parent, _build.load_copy(args.parent, "parent"),
+            "parent", args.parent_route or route,
+            _build.load_copy(args.parent, "parent"),
             _build.load_copy(args.parent, "parent", DEFINES))
     lib = FK.bind(_build.load("flash_attention", DEFINES))
     log = _build._target("flash_attention", DEFINES).with_suffix(".log")
     results["tree"] = measure(
-        "this tree", _build.CSRC / "flash_attention.cu",
-        FK.bind(_build.load("flash_attention")), lib, log.read_text())
+        "this tree", route, FK.bind(_build.load("flash_attention")), lib,
+        log.read_text())
     if args.parent:
         diff = (outs["parent"].float() - outs["this tree"].float()).abs()
         results["parent"]["differ_from_tree"] = int((diff > 0).sum())

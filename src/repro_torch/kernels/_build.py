@@ -101,22 +101,32 @@ def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
         return lib
 
 
+def copy_target(src: "str | os.PathLike", tag: str,
+                defines: tuple[str, ...] = ()) -> Path:
+    """Where :func:`load_copy` builds ``src``: ``BUILD_DIR`` /
+    ``<stem>-<tag>-<hash>.so``, the hash over the source and the flags."""
+    src = Path(src).resolve()
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(_flags(defines)).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{tag}-{digest}.so"
+
+
 def load_copy(src: "str | os.PathLike", tag: str,
               defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Another copy of a kernel source (say, an older commit's, from a
     ``git archive``), built with the same flags and any extra ``defines``
-    into ``BUILD_DIR`` as ``<stem>-<tag>-<hash>.so`` and loaded, to time
-    one build against another; the caller declares its C interface."""
+    at :func:`copy_target` (nvcc's output, with ptxas's report, beside it
+    as ``.log``) and loaded, to time one build against another; the caller
+    declares its C interface."""
     src = Path(src).resolve()
-    flags = _flags(defines)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}-{tag}-{digest}.so"
+    out = copy_target(src, tag, defines)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp),
+        proc = subprocess.run([_nvcc(), *_flags(defines), "-o", str(tmp),
                                str(src)], capture_output=True, text=True)
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}"
                                f"{proc.stderr}")

@@ -79,9 +79,10 @@
 // ldmatrix (x4: four 8 x 8 matrices a warp instruction):
 //  - QK^T on q and k as stored: Q rows are the A fragment, K rows already
 //    the "col" B fragment (no transpose). bf16 products are exact in fp32,
-//    so S is fp32 sums of exact products. At D <= 128 a warp's Q fragments
-//    stay in registers for the whole key loop (D / 4 a thread); at D = 256
-//    they are read again from shared memory each key block.
+//    so S is fp32 sums of exact products. Where the registers allow (D =
+//    64) a warp's Q fragments stay in registers for the whole key loop
+//    (D / 4 a thread); else they are read again from shared memory each
+//    key block.
 //  - PV with P kept in fp32 as the Pallas kernel keeps it, as two bf16
 //    parts: P_hi = rn(P), P_lo = rn(P - P_hi) (the remainder is exact in
 //    fp32), so |P - P_hi - P_lo| <= 2^-17 |P|, and O += P_lo V + P_hi V,
@@ -93,6 +94,8 @@
 //  - Q, K and V rows at pitch D + 8 bf16 (= 4 mod 32 words at D = 64, 128,
 //    256): the 8 rows of 16 bytes that ldmatrix reads at a time fall on 8
 //    distinct 4-bank groups, no conflict.
+//  - 2 CTAs a SM at D <= 128 (launch bounds of 128 registers a thread; see
+//    bf16_min_ctas), 1 at D = 256.
 //  - The rest is the fp32 instance's: the CTA and its launch order, the
 //    cp.async double buffer of K and V, the masks and the skipped blocks,
 //    the online softmax in base 2, zeros for a row with no key. The output
@@ -120,20 +123,22 @@ constexpr int QK_PAD = 16;  // fp32 Q and K row pitch D + 16 elements
 constexpr int V_PAD = 4;    // fp32 V row pitch D + 4
 constexpr int PAD16 = 8;    // bf16 Q, K and V row pitch D + 8
 constexpr int SMEM_LIMIT = 232448;
+// bf16 row strides lie below this, so that copy_rows16's 32-bit offsets
+// (row x stride, row < BQ) stay below 2^31
+constexpr long long BF16_STRIDE_LIMIT = 1LL << 24;
+static_assert(BQ * BF16_STRIDE_LIMIT <= (1LL << 31), "32-bit offsets");
 static_assert(BQ == 16 * NW, "a warp owns the 16 rows of one MMA tile");
 static_assert(BK == 32, "the softmax walks 4 n-tiles of 8 keys");
 
-// The bf16 instance's key block and the CTAs a SM its launch bounds ask
-// registers for; other values only in builds that time the choice
-// (scripts/flash_knobs.py).
-#ifndef FLASH_BF16_KEYS
-#define FLASH_BF16_KEYS 32
-#endif
-#ifndef FLASH_BF16_MIN_CTAS
-#define FLASH_BF16_MIN_CTAS 1
-#endif
-constexpr int BK16 = FLASH_BF16_KEYS;
-static_assert(BK16 == 32 || BK16 == 64, "whole pairs of 8-key n-tiles");
+// The CTAs a SM the bf16 instance's launch bounds ask registers for: 2 at
+// D <= 128, 1 at D = 256 (whose accumulator alone takes 128 registers a
+// thread). Timed at Yi-34B's prefill against 1 at D = 128
+// (scripts/flash_knobs.py; PERF.md): a second CTA's warps hide the copies,
+// barriers and softmax of the first, which pays for Q's fragments read
+// again from shared memory (128 registers a thread).
+__host__ __device__ constexpr int bf16_min_ctas(int d) {
+  return d <= 128 ? 2 : 1;
+}
 
 struct Strides {
   long long b, h, s;
@@ -147,7 +152,7 @@ __host__ __device__ constexpr size_t smem_bytes_f32(int d) {
 }
 
 __host__ __device__ constexpr size_t smem_bytes_bf16(int d) {
-  return 2 * (size_t)(BQ + 2 * BK16) * (d + PAD16);
+  return 2 * (size_t)(BQ + 2 * BK) * (d + PAD16);
 }
 
 template <typename T>
@@ -220,26 +225,23 @@ __device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four 8 x 8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
-// row addresses of matrix i; r[i] holds (row lane / 4, columns 2 (lane % 4)
-// and + 1) of matrix i, or with .trans (rows 2 (lane % 4) and + 1, column
-// lane / 4).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4],
-                                        const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// Four 8 x 8 bf16 matrices from shared memory (a 32-bit shared address),
+// lanes 8i..8i+7 giving the row addresses of matrix i; r[i] holds (row
+// lane / 4, columns 2 (lane % 4) and + 1) of matrix i, or with .trans (rows
+// 2 (lane % 4) and + 1, column lane / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+      : "r"(addr));
 }
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const __nv_bfloat16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+                                              uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
+      : "r"(addr));
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
@@ -265,6 +267,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                : "memory");
 }
 
+// The same at a 32-bit shared address
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* gmem,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(gmem), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -274,15 +284,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Key blocks [lo, hi) of KB keys that q tile `tile` walks: those holding a
-// key visible to some row of the tile.
-template <int KB>
+// Key blocks [lo, hi) that q tile `tile` walks: those holding a key
+// visible to some row of the tile.
 __device__ __forceinline__ int2 key_range(int tile, int Sq, int Skv,
                                           int causal, int window) {
   const int q0 = tile * BQ;
-  int lo = 0, hi = (Skv + KB - 1) / KB;
-  if (causal) hi = min(hi, (min(q0 + BQ, Sq) - 1) / KB + 1);
-  if (window > 0) lo = max(0, q0 - window + 1) / KB;
+  int lo = 0, hi = (Skv + BK - 1) / BK;
+  if (causal) hi = min(hi, (min(q0 + BQ, Sq) - 1) / BK + 1);
+  if (window > 0) lo = max(0, q0 - window + 1) / BK;
   return make_int2(lo, max(lo, hi));
 }
 
@@ -290,15 +299,14 @@ __device__ __forceinline__ int2 key_range(int tile, int Sq, int Skv,
 // walk, most first; ties in order, the last tile first under a causal
 // mask. Each thread places some tiles (n_tiles steps each); the CTA reads
 // its own through shared memory.
-template <int KB>
 __device__ int tile_at_rank(int rank, int n_tiles, int Sq, int Skv,
                             int causal, int window, int* pick) {
   for (int u = threadIdx.x; u < n_tiles; u += NT) {
-    const int2 ru = key_range<KB>(u, Sq, Skv, causal, window);
+    const int2 ru = key_range(u, Sq, Skv, causal, window);
     const int bu = ru.y - ru.x;
     int pos = 0;
     for (int w = 0; w < n_tiles; ++w) {
-      const int2 rw = key_range<KB>(w, Sq, Skv, causal, window);
+      const int2 rw = key_range(w, Sq, Skv, causal, window);
       const int bw = rw.y - rw.x;
       pos += bw > bu || (bw == bu && (causal ? w > u : w < u));
     }
@@ -325,6 +333,29 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* src,
     const bool ok = r0 + r < limit;
     cp_async16(dst + r * P + E * c,
                ok ? src + (long long)(r0 + r) * stride + E * c : src, ok);
+  }
+}
+
+// copy_rows for bf16 rows less than BF16_STRIDE_LIMIT elements apart into
+// shared memory at the 32-bit address dst: each thread's pieces lie NT / V
+// rows apart in one column, so only its first piece's offsets are computed,
+// and the others' row x stride (row < ROWS <= 128) in 32 bits: registers are
+// scarce at 2 CTAs a SM, and 64-bit offsets spill at D = 128.
+template <int D, int P, int ROWS>
+__device__ __forceinline__ void copy_rows16(uint32_t dst,
+                                            const __nv_bfloat16* src,
+                                            int stride, int r0, int limit) {
+  constexpr int V = D / 8;  // 16-byte pieces a row
+  static_assert(NT % V == 0 && ROWS * V % NT == 0,
+                "every thread copies as many pieces, one column each");
+  const int r = threadIdx.x / V, c = threadIdx.x % V;
+  dst += 2 * (r * P + 8 * c);
+  const __nv_bfloat16* first = src + (long long)(r0 + r) * stride + 8 * c;
+#pragma unroll
+  for (int i = 0; i < ROWS * V / NT; ++i) {
+    const int row = i * (NT / V);
+    const bool ok = r0 + r + row < limit;
+    cp_async16(dst + 2 * row * P, ok ? first + row * stride : src, ok);
   }
 }
 
@@ -356,7 +387,7 @@ __global__ void __launch_bounds__(NT, 1)
   // the H x B heads of a q tile together, the heaviest tiles first
   const int n_tiles = (Sq + BQ - 1) / BQ;
   const int hb = blockIdx.x % (H * B);
-  const int tile = tile_at_rank<BK>(blockIdx.x / (H * B), n_tiles, Sq, Skv,
+  const int tile = tile_at_rank(blockIdx.x / (H * B), n_tiles, Sq, Skv,
                                     causal, window,
                                     reinterpret_cast<int*>(q_s));
   const int h = hb % H, b = hb / H, kvh = h / G;
@@ -366,7 +397,7 @@ __global__ void __launch_bounds__(NT, 1)
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
 
-  const int2 range = key_range<BK>(tile, Sq, Skv, causal, window);
+  const int2 range = key_range(tile, Sq, Skv, causal, window);
   const int kb_lo = range.x, kb_hi = range.y;
 
 #ifdef FLASH_PHASE_CLOCKS
@@ -579,10 +610,12 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // The bf16 instance: bf16 products on mma.sync.m16n8k16, P as two bf16
-// parts (see the notes at the top). Same phases, masks and skips as the
-// fp32 instance, with key blocks of BK16.
+// parts (see the notes at the top). Same phases, masks, skips and softmax
+// as the fp32 instance, with key blocks of BK; written apart so that the
+// fp32 instance's instructions stay as they were (RecurrentGemma's prefill
+// check reads it near its limit).
 template <int D>
-__global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
+__global__ void __launch_bounds__(NT, bf16_min_ctas(D))
     flash_attention_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                                 const __nv_bfloat16* __restrict__ k,
                                 const __nv_bfloat16* __restrict__ v,
@@ -593,21 +626,21 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
   using T = __nv_bfloat16;
   constexpr int P = D + PAD16;     // row pitch of Q, K and V
   constexpr int KS = D / 16;       // k-steps of QK^T
-  constexpr int NS = BK16 / 8;     // n-tiles of S (8 keys each)
+  constexpr int NS = BK / 8;     // n-tiles of S (8 keys each)
   constexpr int NO = D / 8;        // n-tiles of O (8 columns each)
-  constexpr bool Q_REGS = D <= 128;
+  // Q's fragments in registers where the launch bounds leave room: D / 4
+  // a thread beside the D / 2 of the accumulator
+  constexpr bool Q_REGS = D * bf16_min_ctas(D) <= 128;
   extern __shared__ float4 smem4[];
-  T* q_s = reinterpret_cast<T*>(smem4);  // BQ x P
-  T* k_s = q_s + BQ * P;                 // BK16 x P
-  T* v_s = k_s + BK16 * P;               // BK16 x P
+  // Q (BQ x P), then K and V (BK x P each), by 32-bit shared address
+  int* pick = reinterpret_cast<int*>(smem4);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int n_tiles = (Sq + BQ - 1) / BQ;
   const int hb = blockIdx.x % (H * B);
-  const int tile = tile_at_rank<BK16>(blockIdx.x / (H * B), n_tiles, Sq,
-                                      Skv, causal, window,
-                                      reinterpret_cast<int*>(q_s));
+  const int tile = tile_at_rank(blockIdx.x / (H * B), n_tiles, Sq,
+                                      Skv, causal, window, pick);
   const int h = hb % H, b = hb / H, kvh = h / G;
   const int q0 = tile * BQ;
   const int r_lo = q0 + 16 * warp, r_hi = r_lo + 15;  // this warp's rows
@@ -615,7 +648,7 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
 
-  const int2 range = key_range<BK16>(tile, Sq, Skv, causal, window);
+  const int2 range = key_range(tile, Sq, Skv, causal, window);
   const int kb_lo = range.x, kb_hi = range.y;
 
 #ifdef FLASH_PHASE_CLOCKS
@@ -623,10 +656,15 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
   long long last_clock = clock64();
 #endif
 
-  copy_rows<D, P, BQ>(q_s, qb, sq.s, q0, Sq);
-  if (kb_lo < kb_hi) copy_rows<D, P, BK16>(k_s, kb, sk.s, kb_lo * BK16, Skv);
+  const uint32_t q_sa =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem4));
+  const uint32_t k_sa = q_sa + 2 * BQ * P, v_sa = k_sa + 2 * BK * P;
+  copy_rows16<D, P, BQ>(q_sa, qb, (int)sq.s, q0, Sq);
+  if (kb_lo < kb_hi)
+    copy_rows16<D, P, BK>(k_sa, kb, (int)sk.s, kb_lo * BK, Skv);
   cp_async_commit();
-  if (kb_lo < kb_hi) copy_rows<D, P, BK16>(v_s, vb, sv.s, kb_lo * BK16, Skv);
+  if (kb_lo < kb_hi)
+    copy_rows16<D, P, BK>(v_sa, vb, (int)sv.s, kb_lo * BK, Skv);
   cp_async_commit();
   cp_async_wait<1>();  // Q and the first K
   __syncthreads();
@@ -638,16 +676,18 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
   // d 8-15), (keys 8-15, d 0-7), (keys 8-15, d 8-15): b0, b1 of two
   // n-tiles. V (B, transposed): (keys 0-7, cols 0-7), (keys 8-15, cols
   // 0-7), (keys 0-7, cols 8-15), (keys 8-15, cols 8-15): b0, b1 of two
-  // n-tiles of O.
-  const T* q_ld = q_s + (16 * warp + (lane & 15)) * P + 8 * (lane >> 4);
-  const T* k_ld =
-      k_s + ((lane & 7) + 8 * (lane >> 4)) * P + 8 * ((lane >> 3) & 1);
-  const T* v_ld = v_s + (lane & 15) * P + 8 * (lane >> 4);
+  // n-tiles of O. 32-bit shared addresses in bytes (2 an element): the
+  // offsets of the unrolled loops below fold into the instructions.
+  const uint32_t q_ld =
+      q_sa + 2 * ((16 * warp + (lane & 15)) * P + 8 * (lane >> 4));
+  const uint32_t k_ld =
+      k_sa + 2 * (((lane & 7) + 8 * (lane >> 4)) * P + 8 * ((lane >> 3) & 1));
+  const uint32_t v_ld = v_sa + 2 * ((lane & 15) * P + 8 * (lane >> 4));
 
   uint32_t qf[Q_REGS ? KS : 1][4];
   if constexpr (Q_REGS) {
 #pragma unroll
-    for (int c = 0; c < KS; ++c) ldsm_x4(qf[c], q_ld + 16 * c);
+    for (int c = 0; c < KS; ++c) ldsm_x4(qf[c], q_ld + 2 * 16 * c);
   }
 
   float acc[NO][4];  // [n-tile of 8 columns][c0..c3]
@@ -659,33 +699,34 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   for (int blk = kb_lo; blk < kb_hi; ++blk) {
-    const int k0 = blk * BK16;
+    const int k0 = blk * BK;
     const bool more = blk + 1 < kb_hi;
     const bool skip = r_lo >= Sq || (causal && k0 > r_hi) ||
-                      (window > 0 && k0 + BK16 - 1 <= r_lo - window);
-    const bool edge = (causal && k0 + BK16 - 1 > r_lo) ||
-                      (window > 0 && k0 <= r_hi - window) || k0 + BK16 > Skv;
+                      (window > 0 && k0 + BK - 1 <= r_lo - window);
+    const bool edge = (causal && k0 + BK - 1 > r_lo) ||
+                      (window > 0 && k0 <= r_hi - window) || k0 + BK > Skv;
     float s[NS][4];  // [n-tile of 8 keys][c0..c3]
 
     if (!skip) {
-      // S = Q K^T
+      // S = Q K^T (Q from shared memory: unrolled by 2, which 128
+      // registers a thread hold without spilling)
 #pragma unroll
       for (int n = 0; n < NS; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
+#pragma unroll(Q_REGS ? KS : 2)
       for (int c = 0; c < KS; ++c) {
         uint32_t a[4];
         if constexpr (Q_REGS) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) a[i] = qf[c][i];
         } else {
-          ldsm_x4(a, q_ld + 16 * c);
+          ldsm_x4(a, q_ld + 2 * 16 * c);
         }
 #pragma unroll
         for (int n = 0; n < NS; n += 2) {
           uint32_t kf[4];
-          ldsm_x4(kf, k_ld + 8 * n * P + 16 * c);
+          ldsm_x4(kf, k_ld + 2 * (8 * n * P + 16 * c));
           mma16(s[n], a, kf[0], kf[1]);
           mma16(s[n + 1], a, kf[2], kf[3]);
         }
@@ -749,7 +790,11 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
 
     cp_async_wait<0>();  // V of this block
     __syncthreads();     // every warp is done with K
-    if (more) copy_rows<D, P, BK16>(k_s, kb, sk.s, k0 + BK16, Skv);
+    // the K and V bases are computed again at each refill, not held in
+    // registers across the loop
+    if (more)
+      copy_rows16<D, P, BK>(k_sa, k + b * sk.b + kvh * sk.h, (int)sk.s,
+                              k0 + BK, Skv);
     cp_async_commit();
     PHASE_END(0)
 
@@ -766,7 +811,7 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
 #pragma unroll
         for (int j = 0; j < NO; j += 2) {
           uint32_t vf[4];
-          ldsm_x4_trans(vf, v_ld + 16 * kk * P + 8 * j);
+          ldsm_x4_trans(vf, v_ld + 2 * (16 * kk * P + 8 * j));
           mma16(acc[j], pl, vf[0], vf[1]);
           mma16(acc[j + 1], pl, vf[2], vf[3]);
           mma16(acc[j], ph, vf[0], vf[1]);
@@ -778,7 +823,9 @@ __global__ void __launch_bounds__(NT, FLASH_BF16_MIN_CTAS)
 
     cp_async_wait<0>();  // K of the next block
     __syncthreads();     // every warp is done with V
-    if (more) copy_rows<D, P, BK16>(v_s, vb, sv.s, k0 + BK16, Skv);
+    if (more)
+      copy_rows16<D, P, BK>(v_sa, v + b * sv.b + kvh * sv.h, (int)sv.s,
+                              k0 + BK, Skv);
     cp_async_commit();
     PHASE_END(0)
   }
@@ -900,8 +947,7 @@ extern "C" {
 
 int flash_attention_rows(void) { return BQ; }
 
-// Keys a block of the instance for elements of el bytes (4: fp32, 2: bf16).
-int flash_attention_key_block(int el) { return el == 2 ? BK16 : BK; }
+int flash_attention_key_block(void) { return BK; }
 
 int flash_attention_threads(void) { return NT; }
 
@@ -953,6 +999,10 @@ int flash_attention_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                              int B, int H, int KV, int Sq, int Skv, int D,
                              int causal, int window, float scale,
                              cudaStream_t stream) {
+  // q, k and v rows are copied through 32-bit offsets (copy_rows16)
+  if (sqs >= BF16_STRIDE_LIMIT || sks >= BF16_STRIDE_LIMIT ||
+      svs >= BF16_STRIDE_LIMIT)
+    return (int)cudaErrorInvalidValue;
   return forward(q, k, v, o, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob,
                  soh, sos, B, H, KV, Sq, Skv, D, causal, window, scale,
                  stream);

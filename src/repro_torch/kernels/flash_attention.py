@@ -36,9 +36,10 @@ from .ref import flash_attention as plain
 
 __all__ = ["flash_attention", "plain", "launches", "bind", "Geometry",
            "geometry", "launch_geometry", "last_launch", "smem_bytes",
-           "split_tf32", "split_bf16", "bf16_limit", "DTYPES",
+           "split_tf32", "split_bf16", "bf16_ulp", "bf16_limit", "DTYPES",
            "flash_attention_3xtf32", "flash_attention_bf16_2part",
-           "HEAD_DIMS", "ROWS", "KEY_BLOCK", "THREADS", "SMEM_LIMIT"]
+           "HEAD_DIMS", "ROWS", "KEY_BLOCK", "THREADS", "SMEM_LIMIT",
+           "BF16_TWO_CTAS_MAX_D", "BF16_STRIDE_LIMIT"]
 
 #: kernel launches made by :func:`flash_attention` in this process
 launches = 0
@@ -56,8 +57,14 @@ ROWS = 128
 KEY_BLOCK = 32
 #: threads a CTA, as ``flash_attention_threads``
 THREADS = 256
+#: the bf16 instance's launch bounds ask registers for 2 CTAs a SM at head
+#: dims up to this one (1 above it; the fp32 instance's for 1)
+BF16_TWO_CTAS_MAX_D = 128
 #: shared memory one CTA may take on the card
 SMEM_LIMIT = 232448
+#: bf16 row strides lie below this many elements, as ``BF16_STRIDE_LIMIT``
+#: in the kernel: its copies take row x stride (row < ``ROWS``) in 32 bits
+BF16_STRIDE_LIMIT = 2 ** 24
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -84,14 +91,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("flash_attention_rows", "flash_attention_key_block",
                  "flash_attention_threads"):
         getattr(lib, name).restype = _I
-    lib.flash_attention_key_block.argtypes = [_I]
     lib.flash_attention_last_launch.argtypes = [_P]
     lib.flash_attention_last_launch.restype = None
-    if ((lib.flash_attention_rows(), lib.flash_attention_threads())
-            != (ROWS, THREADS)
-            or any(lib.flash_attention_key_block(el) != KEY_BLOCK
-                   or lib.flash_attention_smem_bytes(d, el)
-                   != smem_bytes(d, el) for d in HEAD_DIMS for el in V_PAD)):
+    if ((lib.flash_attention_rows(), lib.flash_attention_key_block(),
+         lib.flash_attention_threads()) != (ROWS, KEY_BLOCK, THREADS)
+            or any(lib.flash_attention_smem_bytes(d, el) != smem_bytes(d, el)
+                   for d in HEAD_DIMS for el in V_PAD)):
         raise RuntimeError("flash_attention.cu and its wrapper disagree on "
                            "the rows, the key block, the threads or shared "
                            "memory")
@@ -201,14 +206,16 @@ def _check_head_dim(d: int) -> None:
 
 def geometry(b: int, h: int, kv: int, sq: int, skv: int, d: int,
              causal: bool = True, window: "int | None" = None, *,
-             n_sms: int = 132, ctas_per_sm: int = 1,
+             n_sms: int = 132, ctas_per_sm: "int | None" = None,
              dtype=torch.float32) -> Geometry:
     """The launch for q (b,h,sq,d) against k, v (b,kv,skv,d) of ``dtype``
     (fp32 or bf16) on a card of ``n_sms`` SMs holding ``ctas_per_sm`` CTAs
-    each (by default one, the count the kernel's launch bounds ask
-    registers for)."""
+    each (by default the count the instance's launch bounds ask registers
+    for: 2 for bf16 up to ``BF16_TWO_CTAS_MAX_D``, else 1)."""
     _check_head_dim(d)
     el = _element_size(dtype)
+    if ctas_per_sm is None:
+        ctas_per_sm = 2 if el == 2 and d <= BF16_TWO_CTAS_MAX_D else 1
     if min(b, h, kv, sq, skv, n_sms) < 1 or h % kv:
         raise ValueError(f"flash_attention needs b, h, kv, sq, skv, n_sms "
                          f">= 1 and h a multiple of kv, got {b}, {h}, {kv}, "
@@ -256,7 +263,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: "int | None" = None) -> torch.Tensor:
     """Attention on the card. q: (B,H,Sq,D); k, v: (B,KV,Skv,D), CUDA,
     all three fp32 or all three bf16, any strides with the last dim
-    contiguous and 16-byte aligned rows; H a multiple of KV; D in
+    contiguous and 16-byte aligned rows (in bf16 less than 2^24 elements
+    apart); H a multiple of KV; D in
     ``HEAD_DIMS``. Returns (B,H,Sq,D) of q's type in q's layout; in bf16,
     within :func:`bf16_limit` of the fp32 kernel's result on the widened
     inputs.
@@ -265,6 +273,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return recompute(
         functools.partial(_launch, causal=causal, window=window),
         functools.partial(plain, causal=causal, window=window), q, k, v)
+
+
+def _check_rows(name: str, t: torch.Tensor, el: int) -> None:
+    """Raise unless the kernel can copy ``t``'s rows of ``el``-byte
+    elements: a contiguous last dim, 16-byte aligned rows and, in bf16, a
+    row stride below ``BF16_STRIDE_LIMIT``."""
+    if (t.stride(3) != 1 or any(st * el % 16 for st in t.stride()[:3])
+            or t.data_ptr() % 16):
+        raise ValueError(f"{name} needs a contiguous last dim and "
+                         f"16-byte aligned rows")
+    if el == 2 and t.stride(2) >= BF16_STRIDE_LIMIT:
+        raise ValueError(f"{name}'s rows lie {t.stride(2)} elements apart: "
+                         f"the bf16 kernel takes row strides below 2^24")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -283,10 +304,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {shape}")
-        if (t.stride(3) != 1 or any(st * el % 16 for st in t.stride()[:3])
-                or t.data_ptr() % 16):
-            raise ValueError(f"{name} needs a contiguous last dim and "
-                             f"16-byte aligned rows")
+        _check_rows(name, t, el)
     if h % kv:
         raise ValueError(f"{h} query heads do not split over {kv} KV heads")
     _check_head_dim(d)
@@ -374,12 +392,17 @@ def split_bf16(x: torch.Tensor) -> "tuple[torch.Tensor, torch.Tensor]":
 
 def flash_attention_bf16_2part(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
-                               window: "int | None" = None) -> torch.Tensor:
+                               window: "int | None" = None,
+                               parts: int = 2) -> torch.Tensor:
     """:func:`plain` as the bf16 instance computes it: S = QK^T of the bf16
     q and k summed in fp32 (the products are exact), P = exp(S - max) in
     fp32 split as :func:`split_bf16`, PV = P_lo V + P_hi V in fp32 (the
     small product first), normalised by the fp32 sum of P after PV and
-    rounded to q's type. Any device."""
+    rounded to q's type. Any device. ``parts=1`` drops P_lo (P rounded once
+    to bf16, as a route on one bf16 PV product would): the control that
+    :func:`bf16_limit` rejects."""
+    if parts not in (1, 2):
+        raise ValueError(f"P is kept in 1 or 2 bf16 parts, not {parts}")
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
     qg = q.reshape(b, kv, h // kv, sq, d).float()
@@ -398,13 +421,15 @@ def flash_attention_bf16_2part(q: torch.Tensor, k: torch.Tensor,
     l_sum = p.sum(-1, keepdim=True)
     p_hi, p_lo = split_bf16(p)
     vf = v.float()[:, :, None]
-    out = torch.matmul(p_lo, vf) + torch.matmul(p_hi, vf)
+    out = torch.matmul(p_hi, vf)
+    if parts == 2:
+        out = torch.matmul(p_lo, vf) + out
     out = torch.where(l_sum > 0, out / torch.where(l_sum > 0, l_sum, 1.0),
                       0.0)
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
-def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp of |x| (8 significant bits: 2^(floor(log2|x|) - 7)),
     0 where x is 0."""
     _, e = torch.frexp(x.abs().float())          # |x| = m 2^e, m in [0.5, 1)
@@ -419,4 +444,4 @@ def bf16_limit(wide: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     store's rounding, half an ulp of a result that lies beside ``wide``)
     plus ``2**-14 * max|v|`` (P_lo's dropped bits, at most 2^-17 of each P,
     and the fp32 sums taken in another order, with 8x or more to spare)."""
-    return _bf16_ulp(wide) + 2.0 ** -14 * v.float().abs().max()
+    return bf16_ulp(wide) + 2.0 ** -14 * v.float().abs().max()

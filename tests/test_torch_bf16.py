@@ -373,10 +373,35 @@ def test_flash_geometry_at_the_yi_34b_shape_in_bf16():
     fp32 = FK.geometry(1, 56, 8, 4096, 4096, 128, True, None)
     assert (geo.tiles, geo.ctas, geo.smem_bytes) == (32, 1792, 52224)
     assert geo.plan == (1792, 256, 52224)
+    # the bf16 launch bounds ask registers for 2 CTAs a SM up to D=128
+    assert (geo.ctas_per_sm, geo.waves, fp32.ctas_per_sm) == (2, 7, 1)
+    assert FK.geometry(1, 16, 1, 4096, 4096, 256, dtype=torch.bfloat16
+                       ).ctas_per_sm == 1
     assert geo.order == fp32.order and geo.key_rows == fp32.key_rows
     assert geo.l2_bytes * 2 == fp32.l2_bytes
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         FK.geometry(1, 56, 8, 64, 64, 128, dtype=torch.float16)
+
+
+@pytest.mark.parametrize("dtype,row_stride,ok", [
+    (torch.bfloat16, 2 ** 24 - 8, True),
+    (torch.bfloat16, 2 ** 24, False),
+    (torch.bfloat16, 2 ** 31, False),
+    (torch.float32, 2 ** 33, True)])
+def test_flash_row_stride_bound(dtype, row_stride, ok):
+    """The bf16 kernel takes row strides below 2^24 elements, so that its
+    copies' 32-bit offsets (row x stride, row < 128) stay below 2^31; the
+    fp32 kernel any. Checked on views with no storage (meta)."""
+    assert FK.BF16_STRIDE_LIMIT * FK.ROWS == 2 ** 31
+    x = torch.empty_strided((1, 1, 4, 128), (4 * row_stride, 4 * row_stride,
+                                             row_stride, 1),
+                            dtype=dtype, device="meta")
+    el = x.element_size()
+    if ok:
+        FK._check_rows("q", x, el)
+    else:
+        with pytest.raises(ValueError, match="below 2\\^24"):
+            FK._check_rows("q", x, el)
 
 
 def test_decode_geometry_with_a_bf16_q():

@@ -210,6 +210,18 @@ def test_flash_launch_geometry_on_card(cuda_device, d):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bf16_launch_geometry_on_card(cuda_device, d):
+    """The bf16 instance holds as many CTAs a SM as its launch bounds ask
+    registers for (2 up to D=128, 1 at D=256), as the plain geometry
+    says."""
+    geo = FK.launch_geometry(1, 56, 8, 4096, 4096, d, True, None,
+                             cuda_device, dtype=torch.bfloat16)
+    assert geo == FK.geometry(1, 56, 8, 4096, 4096, d, True, None,
+                              n_sms=geo.n_sms, dtype=torch.bfloat16)
+
+
+@pytest.mark.requires_cuda
 def test_flash_kernel_reads_strided_views_on_card(cuda_device):
     """(B,H,S,D) views of (B,S,H,D) tensors, as the model passes them; the
     output keeps q's layout."""
@@ -219,6 +231,34 @@ def test_flash_kernel_reads_strided_views_on_card(cuda_device):
     assert got.stride() == q.stride()
     want = FK.plain(q, k, v, causal=True, window=64)
     np.testing.assert_allclose(n(got), n(want), **ATTN_TOL["float32"])
+
+
+@pytest.mark.requires_cuda
+def test_flash_bf16_kernel_reads_rows_far_apart_on_card(cuda_device):
+    """bf16 q, k and v whose rows lie just under ``FK.BF16_STRIDE_LIMIT``
+    (2^24) elements apart, in a 4 GiB buffer of 128 such rows: the Q tile's
+    last rows lie near 2^31 elements past its first. The output equals, bit
+    for bit, the kernel's on contiguous copies; rows 2^24 apart are
+    refused."""
+    s, d, stride = 128, 128, FK.BF16_STRIDE_LIMIT - 8
+    buf = torch.empty(s * FK.BF16_STRIDE_LIMIT, dtype=torch.bfloat16,
+                      device=cuda_device)
+    rows = buf[:s * stride].view(s, stride)
+    rng = np.random.default_rng(7)
+    rows[:, :3 * d] = t(rng.standard_normal((s, 3 * d), dtype=np.float32),
+                        cuda_device).to(torch.bfloat16)
+    q, k, v = (rows[None, None, :, i * d:(i + 1) * d] for i in range(3))
+    assert q.stride(2) == stride and stride * (s - 16) >= 2 ** 30
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    far = buf.view(s, FK.BF16_STRIDE_LIMIT)[None, None, :, :d]
+    with pytest.raises(ValueError, match="below 2\\^24"):
+        ops.flash_attention(far, k, v, causal=True)
+    del buf, rows, q, k, v, far
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    torch.cuda.empty_cache()
 
 
 _BF16_CASES = {  # the flash cases: b, kv, g, s, d, causal, window

@@ -71,7 +71,10 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
        ROOT / "examples" / "param_server_torch.py",
        ROOT / "examples" / "async_hyperband_torch.py",
        ROOT / "scripts" / "train_divergence.py",
-       ROOT / "scripts" / "profile_torch.py"]),
+       ROOT / "scripts" / "profile_torch.py",
+       ROOT / "scripts" / "flash_builds.py",
+       ROOT / "scripts" / "flash_phases.py",
+       ROOT / "scripts" / "flash_knobs.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_repro_or_jax(path):
     assert not _IMPORT_REPRO.findall(path.read_text())

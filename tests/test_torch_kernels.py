@@ -286,6 +286,31 @@ def test_flash_bf16_2part_within_limit_of_3xtf32_on_widened_inputs(
     assert share <= 0.5 + 2.0 ** -8
 
 
+@pytest.mark.parametrize("b,kv,g,s,d,causal,window",
+                         [c[:7] for c in FLASH_CASES])
+def test_flash_bf16_1part_control_exceeds_limit_of_3xtf32(
+        b, kv, g, s, d, causal, window):
+    """The control: the same arithmetic with P rounded once to bf16 (no
+    P_lo, the precision of a route on one bf16 PV product) on the same
+    inputs leaves ``bf16_limit`` on every shape, so the limit holds the
+    route to two parts and not only to gross faults."""
+    q, k, v = (t(a).to(torch.bfloat16)
+               for a in flash_inputs(b + s + d + 2, b, kv, g, s, d))
+    one = FK.flash_attention_bf16_2part(q, k, v, causal=causal,
+                                        window=window, parts=1)
+    wide = FK.flash_attention_3xtf32(q.float(), k.float(), v.float(),
+                                     causal=causal, window=window)
+    share = ((one.float() - wide).abs() / FK.bf16_limit(wide, v)).max()
+    assert share > 1.0
+
+
+def test_flash_bf16_2part_takes_one_or_two_parts():
+    q, k, v = (t(a).to(torch.bfloat16)
+               for a in flash_inputs(0, 1, 1, 2, 16, 64))
+    with pytest.raises(ValueError, match="1 or 2 bf16 parts"):
+        FK.flash_attention_bf16_2part(q, k, v, parts=3)
+
+
 def test_bf16_limit_is_one_ulp_plus_a_share_of_v():
     wide = torch.tensor([0.0, 1.0, 1.5, -3.0, 2.0 ** -10])
     v = torch.tensor([[-4.0, 2.0]], dtype=torch.bfloat16)
