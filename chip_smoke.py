@@ -141,6 +141,21 @@ drawn from the seed on the card in bf16, 68.78 GB; nothing cut) takes it:
       decode_attention launches) with its device time, wall time and idle
       share; the 512-token request's decode-path logits held against the
       prefill step within TOL_DECODE_REL_BF16, beside the yardstick.
+Then Yi-34B is freed and MiniCPM3-4B (62 mla layers, d_model 2560, 40
+heads, latents r_q 768 and r_kv 256, q.k at 64 + 32 dims and v at 64, d_ff
+6400, vocab 73448; 4.26 B fp32 parameters, random from the seed on the
+card; nothing cut) takes it. Its path runs no kernel, as the reference's
+runs no Pallas kernel there:
+  3g. the prefill step at B=1, S=4096 with every launch count 0, its
+      last-position logits held against the same model summed in fp64
+      (``mla_logits_fp64``) within 1e-4 of the largest logit, beside the
+      1-ulp yardstick, and timed, with tokens/s and peak memory;
+  4g. the decode Server for minicpm3-4b answering 6 short requests and one
+      of 256 tokens (cut from 512 for time) through the absorbed-latent
+      decode; one decode step at B=4 with every latent cache holding 4096
+      positions (no launch) with its device time, wall time and idle
+      share; the long request's decode-path logits held against the
+      expanded prefill within 1e-3.
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel, and one more for each attention kernel at
 Yi-9B's, qwen2-moe's and Yi-34B's (bf16) shapes; the last line is
@@ -208,6 +223,16 @@ MAX_FLIP_SHARE = 0.01
 # large share of the largest. fp32's 1e-3 does not apply.
 YI34_DEC_LENGTHS = (1, 1000, 4096, 4096)
 TOL_DECODE_REL_BF16 = 0.1
+# MiniCPM3-4B (phases 3g, 4g): prefill length, decode batch, the Server's
+# long request; its path runs no kernel, so its fp32 prefill is held
+# against the same model summed in fp64 (``mla_logits_fp64``) within
+# TOL_PREFILL_REL, and its absorbed decode against the expanded prefill
+# within TOL_DECODE_REL. The long request is cut from 512 tokens to 256:
+# a decode step's wall is ~140-200 ms (host-bound, ~75 launches a layer
+# over 62 layers), and at 512 tokens phase 4g alone took 193 s
+MLA_S = 4096
+MLA_DEC_B = 4
+MLA_LONG = 256
 # training (phase 5): examples/train_lm.py --full's batch and length;
 # limits: the loss within 1e-4 relative, each grad leaf within 1e-3 of
 # that leaf's largest plain grad (the mLSTM input-gate bias b_i on its
@@ -509,6 +534,13 @@ def main() -> int:
           f"{free / 1e9:.2f} of {total / 1e9:.2f} GB free")
     yi34_phases(dev, rng, kernels, smi)
 
+    # -- MiniCPM3-4B: Yi-34B is freed when yi34_phases returns ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"after yi-34b is freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    minicpm3_phases(dev, rng, smi)
+
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -516,17 +548,19 @@ def main() -> int:
     return 0
 
 
-def serve_traffic(server, rng, vocab: int) -> tuple[dict, list]:
-    """Six 4-token requests and one of 512 tokens (drawn from ``rng``),
-    submitted as futures under plan("threads") to ``server``'s running
-    loop, each printed as it resolves; checks that each gets 16 tokens.
+def serve_traffic(server, rng, vocab: int,
+                  long_len: int = 512) -> tuple[dict, list]:
+    """Six 4-token requests and one of ``long_len`` tokens (drawn from
+    ``rng``), submitted as futures under plan("threads") to ``server``'s
+    running loop, each printed as it resolves; checks that each gets 16
+    tokens.
     Returns the replies by request and the long prompt."""
     import repro_torch.core as rc
     rc.plan("threads", workers=4)
     loop = threading.Thread(target=server.serve_loop, daemon=True)
     loop.start()
     prompts = [rng.integers(0, vocab, size=4).tolist() for _ in range(6)]
-    prompts.append(rng.integers(0, vocab, size=512).tolist())
+    prompts.append(rng.integers(0, vocab, size=long_len).tolist())
     t0 = time.perf_counter()
     pending = {i: (server.submit(p), time.perf_counter())
                for i, p in enumerate(prompts)}
@@ -2331,6 +2365,209 @@ def yi34_phases(dev, rng, kernels: dict, smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("4f")
+
+
+def mla_logits_fp64(cfg, params, tokens):
+    """The logits (B, S, V) of an ``mla`` model's prefill at positions
+    0..S-1 with every product, sum, norm and softmax taken in fp64 on the
+    parameters' device, written here apart from the port's layers (which
+    widen to fp32 at most). Each block's parameters are widened when it
+    runs and dropped after it, so at most one block's fp64 copy sits
+    beside the model's tree. The RoPE angles are the model's constants,
+    fp32 positions times fp32 frequencies as ``layers.apply_rope`` (and the
+    reference) makes them; their cosines and sines are taken in fp64."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import rope_freqs
+    from repro_torch.tree import tree_map
+    check(cfg.norm == "rmsnorm" and cfg.mlp_kind == "swiglu"
+          and cfg.rope_kind == "rope" and not cfg.tie_embeddings
+          and not cfg.logits_softcap
+          and set(cfg.layer_pattern) == {"mla"},
+          "the fp64 reference covers rmsnorm, swiglu, rope, mla blocks")
+    f64, dims, eps = torch.float64, cfg.mla, cfg.norm_eps
+    h, r_kv = dims.n_heads, dims.kv_lora_rank
+    dn, dr, dv = dims.qk_nope_dim, dims.qk_rope_dim, dims.v_head_dim
+    b, s = tokens.shape
+    dev = tokens.device
+
+    def norm(p, x):
+        return (x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps)
+                * p["scale"])
+
+    freqs = torch.from_numpy(rope_freqs(dr, cfg.rope_theta)).to(
+        device=dev, dtype=torch.float32)
+    ang = (torch.arange(s, device=dev).float()[:, None] * freqs).to(f64)
+    cos, sin = ang.cos()[:, None], ang.sin()[:, None]           # (S,1,dr/2)
+
+    def rope(t):                                                # (B,S,*,dr)
+        t1, t2 = t.chunk(2, -1)
+        return torch.cat([t1 * cos - t2 * sin, t1 * sin + t2 * cos], -1)
+
+    future = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
+    x = params["embed"]["table"][tokens].to(f64)
+    for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
+        for r in range(repeat):
+            for bi in range(len(pattern)):
+                lp = tree_map(lambda t: (t[r] if repeat > 1 else t).to(f64),
+                              sp[f"b{bi}"])
+                a, m = lp["attn"], lp["mlp"]
+                hx = norm(lp["ln1"], x)
+                q = (norm(a["q_a_norm"], hx @ a["wq_a"]) @ a["wq_b"]
+                     ).reshape(b, s, h, dn + dr)
+                kv_a = hx @ a["wkv_a"]
+                c_kv = norm(a["kv_a_norm"], kv_a[..., :r_kv])
+                kv = (c_kv @ a["wkv_b"]).reshape(b, s, h, dn + dv)
+                qq = torch.cat([q[..., :dn], rope(q[..., dn:])], -1)
+                k = torch.cat([kv[..., :dn], rope(kv_a[:, :, None, r_kv:])
+                               .expand(b, s, h, dr)], -1)
+                scores = torch.einsum("bqhd,bkhd->bhqk", qq, k) \
+                    * (dn + dr) ** -0.5
+                probs = scores.masked_fill_(future, -1e30).softmax(-1)
+                del scores
+                o = torch.einsum("bhqk,bkhd->bqhd", probs, kv[..., dn:])
+                del probs
+                x = x + o.reshape(b, s, h * dv) @ a["wo"]
+                hm = norm(lp["ln2"], x)
+                x = x + (F.silu(hm @ m["w_gate"]) * (hm @ m["w_up"])) \
+                    @ m["w_down"]
+                del lp, a, m, hx, q, kv_a, c_kv, kv, qq, k, o, hm
+    x = norm(tree_map(lambda t: t.to(f64), params["final_norm"]), x)
+    return x @ params["unembed"]["table"].to(f64).T
+
+
+def minicpm3_phases(dev, rng, smi: str) -> None:
+    """Phases 3g and 4g: MiniCPM3-4B at full width and full depth. Its
+    MLA path runs no kernel (the reference's prefill is the plain masked
+    attention, its absorbed decode plain einsums), so every launch count
+    must stay 0."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.serve import Server
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    counters = kernel_modules()
+    cfg = get_arch("minicpm3-4b")
+    dims = cfg.mla
+
+    # -- 3g. the prefill step at full width and full depth, fp32 -------------
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"minicpm3-4b: {model.param_count() / 1e9:.3f} B fp32 parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; "
+          f"{cfg.n_layers} mla layers, H={dims.n_heads}, r_q="
+          f"{dims.q_lora_rank}, r_kv={dims.kv_lora_rank}, q.k at "
+          f"{dims.qk_nope_dim + dims.qk_rope_dim}, v at {dims.v_head_dim}")
+    torch.cuda.reset_peak_memory_stats()
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(1, MLA_S))).to(dev)
+    batch = {"tokens": tokens}
+    prefill = make_prefill_step(model)
+    zero_counts()
+    first = prefill(params, batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"prefill launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0),
+          "the MLA prefill launches no kernel")
+    check(tuple(first.shape) == (1, 1) and first.dtype == torch.int32,
+          "prefill returns (1, 1) int32 tokens")
+    ms = cuda_ms(lambda: prefill(params, batch), 2)
+    print(f"prefill (B,S)={(1, MLA_S)}: {ms:.1f} ms, "
+          f"{MLA_S / ms * 1e3:.0f} tokens/s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB ({smi})")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = model.apply(params, batch)[0][0]                 # (S, V)
+        want = mla_logits_fp64(cfg, params, tokens)[0]
+        torch.cuda.synchronize()
+        wide_s = time.perf_counter() - t0
+        scale = want[-1].abs().max().item()
+        diff = (got[-1] - want[-1]).abs().max().item()
+        diff_all = (got - want).abs().max().item()
+        scale_all = want.abs().max().item()
+        top2 = want[-1].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        finite = bool(torch.isfinite(got).all())
+        want_tok = int(want[-1].argmax())
+        got = got[-1].clone()
+        del want
+        alt = model.apply(one_ulp_moved(params), batch)[0][0, -1]
+        moved = (alt - got).abs().max().item() / scale
+        del alt, got
+    rel = diff / scale
+    ok = finite and rel <= TOL_PREFILL_REL
+    print(f"prefill last-position logits, fp32 vs the same model summed in "
+          f"fp64 (both forwards {wide_s:.1f} s): max abs diff {diff:.3e}, "
+          f"relative "
+          f"{rel:.3e} (tolerance {TOL_PREFILL_REL}, "
+          f"{rel / TOL_PREFILL_REL:.3f} of it) {'ok' if ok else 'FAIL'}; "
+          f"over all {MLA_S} positions {diff_all / scale_all:.3e} of the "
+          f"largest logit; first token: fp32 {int(first)}, fp64 {want_tok}, "
+          f"top-2 margin {margin:.3e}")
+    print(f"  yardstick: the fp32 prefill with the embeddings moved by 1 "
+          f"ulp, relative {moved:.3e} ({moved / TOL_PREFILL_REL:.3f} of the "
+          f"tolerance)")
+    check(ok, "the fp32 MLA prefill disagrees with its fp64 sums")
+    if margin > TOL_PREFILL_REL * scale:
+        check(int(first) == want_tok,
+              "the prefill step's first token is the fp64 model's")
+    else:
+        print("  top-2 margin below the tolerance: logits compared only")
+    print(f"peak device memory so far: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del first, tokens, batch
+    torch.cuda.empty_cache()
+    phase_done("3g")
+
+    # -- 4g. the Server for minicpm3-4b, absorbed-latent decode --------------
+    server = Server("minicpm3-4b", smoke=False, slots=4, max_new=16,
+                    device=dev, params=params)
+    zero_counts()
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size,
+                                         long_len=MLA_LONG)
+    check(read_counts() == dict.fromkeys(counters, 0),
+          "the MLA Server launches no kernel")
+    del server
+
+    # one decode step at B=4 with every latent cache holding MLA_S positions
+    step = make_serve_step(model)
+    cache = model.init_cache(MLA_DEC_B, max_seq=MLA_S, device=dev,
+                             dtype=torch.float32)
+    for stage in cache:
+        for block in stage.values():
+            block["pos"].fill_(MLA_S)
+    cache_gb = sum(t.numel() * t.element_size() for stage in cache
+                   for block in stage.values() for t in block.values()) / 1e9
+    print(f"latent caches: {cache_gb:.3f} GB fp32 at "
+          f"{dims.kv_lora_rank + dims.qk_rope_dim} values a token a layer")
+    tok = torch.zeros(MLA_DEC_B, 1, dtype=torch.int64, device=dev)
+    zero_counts()
+    step(params, cache, tok)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"decode step launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0),
+          "an MLA decode step launches no kernel")
+    time_decode_step(step, params, cache, tok,
+                     f"B={MLA_DEC_B}, latent caches of {MLA_S} full", smi)
+    del cache
+    torch.cuda.empty_cache()
+
+    hold_long_request(model, params, long_prompt, replies[6][0],
+                      model.init_cache(1, max_seq=len(long_prompt),
+                                       device=dev, dtype=torch.float32))
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("4g")
 
 
 if __name__ == "__main__":

@@ -2,18 +2,19 @@
 """Where the time goes in the PyTorch port's serving path on one GPU.
 
     python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b|yi-34b|
-                                             qwen2-moe-a2.7b]
+                                             qwen2-moe-a2.7b|minicpm3-4b]
                                      [--dtype float32|bfloat16]
 
 Runs an arch at full width with random weights (seed 0) drawn in
 ``--dtype`` (fp32 by default; bf16 for yi-34b, whose 34.4 B parameters
 fit the card only so) and, under ``torch.profiler``, one prefill step and
 16 decode steps at B=4: xLSTM-125M (the default) prefills B=8, S=2048;
-RecurrentGemma-9B, Yi-9B, Yi-34B and Qwen1.5-MoE-A2.7B prefill B=1,
-S=4096 and decode with every attention cache full (RecurrentGemma's ring
-buffers, the others' 4096-position global caches, of the parameters'
-type). For each it prints the wall time (host clock around work
-that ends in ``torch.cuda.synchronize()``), the device time summed over
+RecurrentGemma-9B, Yi-9B, Yi-34B, Qwen1.5-MoE-A2.7B and MiniCPM3-4B
+prefill B=1, S=4096 and decode with every attention cache full
+(RecurrentGemma's ring buffers, the others' 4096-position global caches,
+MiniCPM3's 4096-position latent caches, of the parameters' type). For
+each it prints the wall time (host clock around work that ends in
+``torch.cuda.synchronize()``), the device time summed over
 the kernels that ran, the device's idle share (1 - device / wall), and the
 kernels that took the most device time; for an MoE arch also the device
 time of each part of its MoE layers (router and dispatch, expert products,
@@ -65,7 +66,7 @@ def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
 #: full-width prefill shape (batch, sequence) of each arch
 PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096),
            "yi-9b": (1, 4096), "yi-34b": (1, 4096),
-           "qwen2-moe-a2.7b": (1, 4096)}
+           "qwen2-moe-a2.7b": (1, 4096), "minicpm3-4b": (1, 4096)}
 
 #: the parts of an MoE layer, by the functions of ``models/moe.py`` that
 #: ``moe_apply`` calls for each

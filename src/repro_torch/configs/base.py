@@ -3,10 +3,9 @@
 Every architecture file in this package registers exactly one full-size
 config (the published numbers) plus a ``smoke`` reduced config of the same
 family for CPU tests. The port registers xLSTM-125M, RecurrentGemma-9B,
-the GQA family (Yi-9B, Yi-34B, Nemotron-4-340B, Qwen2-VL-72B) and the MoE
-family (Qwen1.5-MoE-A2.7B, DeepSeekMoE-16B); the MLA and audio configs
-(and the MLA ``*Dims`` type, typed ``Optional[object]`` below until its
-model arrives) come with their models in later slices.
+the GQA family (Yi-9B, Yi-34B, Nemotron-4-340B, Qwen2-VL-72B), the MoE
+family (Qwen1.5-MoE-A2.7B, DeepSeekMoE-16B) and MLA (MiniCPM3-4B); the
+audio config comes with its model in a later slice.
 """
 
 from __future__ import annotations
@@ -14,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from ..models.mla import MLADims
 from ..models.moe import MoEDims
 from ..models.rglru import RGLRUDims
 from ..models.xlstm import XLSTMDims
@@ -47,7 +47,7 @@ class ArchConfig:
     moe: Optional[MoEDims] = None
     moe_first_dense: int = 0
     moe_dense_ff: int = 0
-    mla: Optional[object] = None
+    mla: Optional[MLADims] = None
     rglru: Optional[RGLRUDims] = None
     xlstm: Optional[XLSTMDims] = None
     # frontend stubs
@@ -169,7 +169,7 @@ def _ensure_loaded():
     global _loaded
     if _loaded:
         return
-    from . import (deepseek_moe_16b, nemotron_4_340b,  # noqa: F401
-                   qwen2_moe_a2_7b, qwen2_vl_72b, recurrentgemma_9b,
-                   xlstm_125m, yi_9b, yi_34b)
+    from . import (deepseek_moe_16b, minicpm3_4b,  # noqa: F401
+                   nemotron_4_340b, qwen2_moe_a2_7b, qwen2_vl_72b,
+                   recurrentgemma_9b, xlstm_125m, yi_9b, yi_34b)
     _loaded = True

@@ -5,6 +5,7 @@ Block kinds of the port so far:
   attn    pre-norm GQA/MQA attention + pre-norm MLP (yi, nemotron, qwen2-vl)
   moe     pre-norm attention + pre-norm MoE (shared + routed experts)
   dense   like attn with an MLP of width ``moe_dense_ff or d_ff``
+  mla     pre-norm Multi-head Latent Attention + pre-norm MLP (minicpm3)
   mlstm   self-contained mLSTM block (xLSTM)
   slstm   self-contained sLSTM block (xLSTM)
   rglru   RG-LRU recurrent temporal mixing + MLP (recurrentgemma)
@@ -32,6 +33,7 @@ from ..device import resolve_device
 from ..kernels.ops import KERNEL_IMPLS
 from ..tree import leaves, tree_map
 from . import layers as L
+from . import mla as MLA
 from . import moe as MOE
 from . import rglru as RG
 from . import xlstm as XL
@@ -43,17 +45,11 @@ else:
 
 Params = dict
 
-#: block kinds of the JAX package that later slices of the port bring
-_LATER = {"mla": "the MLA slice"}
-_KINDS = ("attn", "dense", "moe", "mlstm", "slstm", "rglru", "lattn")
+_KINDS = ("attn", "dense", "moe", "mla", "mlstm", "slstm", "rglru", "lattn")
 _ATTN_KINDS = ("attn", "dense", "moe", "lattn")
 
 
 def _unsupported(kind: str) -> NotImplementedError:
-    if kind in _LATER:
-        return NotImplementedError(
-            f"block kind {kind!r} is not ported yet; it comes with "
-            f"{_LATER[kind]}")
     return NotImplementedError(f"unknown block kind {kind!r}")
 
 
@@ -100,6 +96,12 @@ def block_init(gen: torch.Generator, cfg: ArchConfig, kind: str, dtype,
                     else cfg.d_ff)
             p["mlp"] = L.mlp_init(gen, d, d_ff, cfg.mlp_kind, dtype, device)
         return p
+    if kind == "mla":
+        return {"ln1": norm_init(d, dtype, device),
+                "attn": MLA.mla_init(gen, cfg.mla, dtype, device),
+                "ln2": norm_init(d, dtype, device),
+                "mlp": L.mlp_init(gen, d, cfg.d_ff, cfg.mlp_kind, dtype,
+                                  device)}
     if kind == "rglru":
         return {"ln1": norm_init(d, dtype, device),
                 "rec": RG.rglru_block_init(gen, cfg.rglru, dtype, device),
@@ -142,6 +144,14 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
         else:
             y = L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
         return x + y, aux, new_cache
+    if kind == "mla":
+        h, new_cache = MLA.mla_apply(
+            p["attn"], _norm(cfg, p["ln1"], x), cfg.mla,
+            positions=positions, cache=cache, rope_theta=cfg.rope_theta,
+            norm_eps=cfg.norm_eps)
+        x = x + h
+        y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
+        return x + y, aux, new_cache
     if kind == "rglru":
         h, new_cache = RG.rglru_block_apply(
             p["rec"], _norm(cfg, p["ln1"], x), cfg.rglru, cache=cache,
@@ -165,13 +175,15 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
 def block_cache_init(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                      dtype, device) -> Params:
     # the recurrent caches are fp32 whatever dtype the attention caches take
+    if (kind in _ATTN_KINDS or kind == "mla") and max_seq < 1:
+        raise ValueError("an attention cache needs max_seq >= 1")
     if kind in _ATTN_KINDS:
         smax = (min(max_seq, cfg.attn_window or max_seq) if kind == "lattn"
                 else max_seq)
-        if smax < 1:
-            raise ValueError("an attention cache needs max_seq >= 1")
         return L.attention_cache_init(batch, smax, _attn_dims(cfg), dtype,
                                       device)
+    if kind == "mla":
+        return MLA.mla_cache_init(batch, max_seq, cfg.mla, dtype, device)
     if kind == "rglru":
         return RG.rglru_cache_init(batch, cfg.rglru, torch.float32, device)
     if kind == "mlstm":
@@ -322,7 +334,8 @@ class Model:
     def init_cache(self, batch: int, max_seq: int = 0, *, device=None,
                    dtype=torch.bfloat16) -> list:
         """Per-block decode state, stacked like the parameters. The
-        recurrent states are fp32; attention caches take ``dtype`` and hold
+        recurrent states are fp32; attention caches (MLA's latent ones too)
+        take ``dtype`` and hold
         ``max_seq`` positions (``min(max_seq, attn_window)`` for local
         attention), as in the JAX package; a global cache past ``max_seq``
         keeps its first ``max_seq`` positions. The xLSTM state does not

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import importlib.util
 import pathlib
+import threading
 
 import numpy as np
 import pytest
@@ -165,3 +166,68 @@ def chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def jax_serve_example():
+    """The JAX package's ``examples/serve.py`` as a module (its
+    ``Server``)."""
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_example", ROOT / "examples" / "serve.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def serve_all(server, api, prompts) -> list:
+    """Submits every prompt to ``server`` before its loop starts (so the
+    JAX Server and the port's batch them alike: 4 then 2), runs the loop
+    on a thread and returns the values of the futures of ``api`` (JAX's
+    Future API or the port's) in order. Each pending request holds a
+    worker of the plan, so the plan needs at least as many workers as
+    there are prompts."""
+    futures = [server.submit(p) for p in prompts]
+    loop = threading.Thread(target=server.serve_loop, daemon=True)
+    loop.start()
+    try:
+        return [api.value(f) for f in futures]
+    finally:
+        server._stop = True
+        loop.join(timeout=10)
+        assert not loop.is_alive()
+
+
+def decided(logits, tol: float) -> np.ndarray:
+    """Rows whose top-2 margin exceeds ``tol`` of the largest |logit|:
+    there the greedy token is decided, whatever the rounding."""
+    x = n(logits).astype(np.float32).reshape(-1, logits.shape[-1])
+    top2 = np.sort(x, -1)[:, -2:]
+    return (top2[:, 1] - top2[:, 0]) > tol * np.abs(x).max()
+
+
+def jax_greedy(jcfg, jp, batch, tol: float, max_new: int = 16) -> tuple:
+    """The JAX Server's ``_decode_batch`` on ``batch`` (prompts), through
+    ``decode_step`` so that the logits are seen: each request's tokens and,
+    for each, whether the reference's top-2 margin decided it."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import Model as JModel
+    jm = JModel(jcfg)
+    step = jax.jit(jm.decode_step)
+    cache = jm.init_cache(len(batch), max_seq=64, dtype=jnp.float32)
+    maxlen = max(len(p) for p in batch)
+    toks = [[] for _ in batch]
+    sure = [[] for _ in batch]
+    last = [0] * len(batch)
+    for s in range(maxlen + max_new):
+        col = [p[s] if s < len(p) else last[i] for i, p in enumerate(batch)]
+        logits, cache = step(jp, cache, jnp.asarray(col, jnp.int32)[:, None])
+        last = [int(x) for x in np.asarray(logits[:, -1].argmax(-1))]
+        rows = decided(logits[:, -1], tol)
+        for i, p in enumerate(batch):
+            if s >= len(p) - 1:
+                toks[i].append(last[i])
+                sure[i].append(bool(rows[i]))
+    return ([x[:max_new] for x in toks], [x[:max_new] for x in sure])

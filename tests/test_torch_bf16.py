@@ -8,10 +8,6 @@ cache against the Pallas decode kernel; the plain flash version's query-row
 blocks and its fp64 sums; the bf16 launch geometry of both kernels; and
 chip_smoke.py's 1-ulp yardstick and widened-kernel wrapper."""
 
-import importlib.util
-import pathlib
-import threading
-
 import numpy as np
 import pytest
 
@@ -20,7 +16,8 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 from _torch_parity import (ATTN_TOL, _reset_port,  # noqa: E402,F401
-                           chip_smoke, decode_inputs, flash_inputs, n, t)
+                           chip_smoke, decided, decode_inputs, flash_inputs,
+                           jax_greedy, jax_serve_example, n, serve_all, t)
 
 import repro.core as jrc  # noqa: E402
 from repro.configs import get_arch as jax_arch  # noqa: E402
@@ -40,7 +37,6 @@ from repro_torch.serve import Server  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 from repro_torch.tree import tree_map  # noqa: E402
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ["yi-9b", "yi-34b"]
 B = 2
 #: the bf16 tolerance, relative to the largest logit
@@ -74,14 +70,6 @@ def _assert_close(got, want, tol=TOL):
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= tol * scale, \
         (np.abs(got - want).max(), scale)
-
-
-def _decided(logits, tol=TOL) -> np.ndarray:
-    """Rows whose top-2 margin exceeds the tolerance: there the greedy
-    token is decided, whatever the rounding."""
-    x = n(logits).astype(np.float32).reshape(-1, logits.shape[-1])
-    top2 = np.sort(x, -1)[:, -2:]
-    return (top2[:, 1] - top2[:, 0]) > tol * np.abs(x).max()
 
 
 @pytest.mark.parametrize("s", [32, 160])
@@ -129,9 +117,9 @@ def test_prefill_step_tokens_from_bf16_params_match_reference(arch):
     got = make_prefill_step(Model(tcfg))(tp, {"tokens":
                                              torch.from_numpy(toks)})
     assert got.dtype == torch.int32 and got.shape == (B, 1)
-    decided = _decided(logits[:, -1])
-    assert decided.any()
-    np.testing.assert_array_equal(n(got)[decided, 0], n(want)[decided, 0])
+    sure = decided(logits[:, -1], TOL)
+    assert sure.any()
+    np.testing.assert_array_equal(n(got)[sure, 0], n(want)[sure, 0])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -153,48 +141,10 @@ def test_serve_step_tokens_from_bf16_params_match_reference(arch):
         logits, lcache = jdecode(jp, lcache, jt)
         jt, jcache = jstep(jp, jcache, jt)
         assert tt.dtype == torch.int32 and tt.shape == (B, 1)
-        decided = _decided(logits[:, -1])
-        decided_any |= bool(decided.any())
-        np.testing.assert_array_equal(n(tt)[decided, 0], n(jt)[decided, 0])
+        sure = decided(logits[:, -1], TOL)
+        decided_any |= bool(sure.any())
+        np.testing.assert_array_equal(n(tt)[sure, 0], n(jt)[sure, 0])
     assert decided_any
-
-
-_EXAMPLE = ROOT / "examples" / "serve.py"
-
-
-def _serve(server, api, prompts):
-    futures = [server.submit(p) for p in prompts]
-    loop = threading.Thread(target=server.serve_loop, daemon=True)
-    loop.start()
-    try:
-        return [api.value(f) for f in futures]
-    finally:
-        server._stop = True
-        loop.join(timeout=10)
-        assert not loop.is_alive()
-
-
-def _jax_greedy(jcfg, jp, batch, max_new=16):
-    """The JAX Server's ``_decode_batch`` on ``batch`` (prompts), through
-    ``decode_step`` so that the logits are seen: each request's tokens and,
-    for each, whether the reference's top-2 margin decided it."""
-    jm = JModel(jcfg)
-    step = jax.jit(jm.decode_step)
-    cache = jm.init_cache(len(batch), max_seq=64, dtype=jnp.float32)
-    maxlen = max(len(p) for p in batch)
-    toks = [[] for _ in batch]
-    decided = [[] for _ in batch]
-    last = [0] * len(batch)
-    for s in range(maxlen + max_new):
-        col = [p[s] if s < len(p) else last[i] for i, p in enumerate(batch)]
-        logits, cache = step(jp, cache, jnp.asarray(col, jnp.int32)[:, None])
-        last = [int(x) for x in np.asarray(logits[:, -1].argmax(-1))]
-        sure = _decided(logits[:, -1])
-        for i, p in enumerate(batch):
-            if s >= len(p) - 1:
-                toks[i].append(last[i])
-                decided[i].append(bool(sure[i]))
-    return ([x[:max_new] for x in toks], [x[:max_new] for x in decided])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -205,10 +155,7 @@ def test_server_from_bf16_params_matches_jax_server_tokens(arch):
     top-2 margin in the reference is within the tolerance: there greedy
     decoding of a bf16 model may go either way, and every later token
     follows that choice. At least 16 of the 96 tokens are held so."""
-    spec = importlib.util.spec_from_file_location("jax_serve_example",
-                                                  _EXAMPLE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = jax_serve_example()
     jcfg, tcfg, jp, tp = _smoke_bf16(arch)
     jrc.plan("threads", workers=8)
     jserver = mod.Server(arch=arch)
@@ -216,15 +163,15 @@ def test_server_from_bf16_params_matches_jax_server_tokens(arch):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jcfg.vocab_size, size=4).tolist()
                for _ in range(6)]
-    want = _serve(jserver, jrc, prompts)
+    want = serve_all(jserver, jrc, prompts)
     jrc.shutdown()
 
     rc.plan("threads", workers=8)
     server = Server(arch, device="cpu", params=tp)
-    got = _serve(server, rc, prompts)
+    got = serve_all(server, rc, prompts)
     assert all(len(toks) == 16 for toks in got)
     # the JAX Server's two batches: the first 4 requests, then 2
-    first, second = (_jax_greedy(jcfg, jp, batch)
+    first, second = (jax_greedy(jcfg, jp, batch, TOL)
                      for batch in (prompts[:4], prompts[4:]))
     ref_toks, sure = first[0] + second[0], first[1] + second[1]
     held = 0

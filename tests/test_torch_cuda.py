@@ -666,6 +666,54 @@ def test_moe_apply_on_card_matches_cpu(cuda_device, arch):
 
 
 @pytest.mark.requires_cuda
+def test_narrow_mla_model_on_card_matches_cpu(cuda_device):
+    """A narrow MLA model at MiniCPM3's head shape (2 mla layers, 8 heads,
+    q.k at 64 + 32 dims, v at 64, latents r_q 128 and r_kv 64) on the card
+    against the same parameters on the CPU: the prefill's logits within
+    1e-4 of the largest, then 8 absorbed decode steps on 6-slot fp32
+    caches (the last two writes dropped past the end), each within 1e-4,
+    with the final caches; no kernel launches on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.models.mla import MLADims
+    from repro_torch.tree import leaves, tree_map
+
+    cfg = dataclasses.replace(
+        get_arch("minicpm3-4b"), n_layers=2, d_model=256, n_heads=8,
+        n_kv_heads=8, d_ff=512, vocab_size=512,
+        mla=MLADims(d_model=256, n_heads=8, q_lora_rank=128,
+                    kv_lora_rank=64))
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    on_card = tree_map(lambda x: x.to(cuda_device), params)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 200)))
+    smoke = chip_smoke()
+    counters = smoke.kernel_modules()
+    smoke.zero_counts()
+    with torch.no_grad():
+        got, _ = model.apply(on_card, {"tokens": toks.to(cuda_device)})
+        want, _ = model.apply(params, {"tokens": toks})
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * scale
+    caches = [model.init_cache(2, max_seq=6, device=d, dtype=torch.float32)
+              for d in (cuda_device, "cpu")]
+    for i in range(8):
+        step_g, caches[0] = model.decode_step(
+            on_card, caches[0], toks[:, i:i + 1].to(cuda_device))
+        step_w, caches[1] = model.decode_step(params, caches[1],
+                                              toks[:, i:i + 1])
+        assert (step_g.cpu() - step_w).abs().max().item() <= 1e-4 * scale
+    for a, b in zip(leaves(caches[0]), leaves(caches[1])):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    assert caches[0][0]["b0"]["pos"].tolist() == [[8, 8], [8, 8]]
+    torch.cuda.synchronize()
+    assert smoke.read_counts() == dict.fromkeys(counters, 0)
+
+
+@pytest.mark.requires_cuda
 def test_trainer_on_card_with_checkpoint_round_trip(cuda_device, tmp_path):
     """Two steps of the Trainer on the card through the kernels, a
     checkpoint at each, and the last restored bit for bit."""

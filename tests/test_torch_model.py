@@ -21,6 +21,7 @@ from repro.train import make_serve_step as jax_serve  # noqa: E402
 from repro_torch.configs import ArchConfig, get_arch  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
+from repro_torch.models.mla import MLADims  # noqa: E402
 from repro_torch.models.moe import MoEDims  # noqa: E402
 from repro_torch.train import make_prefill_step, make_serve_step  # noqa: E402
 
@@ -158,17 +159,27 @@ def test_init_is_seeded_and_placed():
 
 
 def test_other_block_kinds_name_their_slice():
-    """The kinds still refused name the slice that brings them; so does
-    the audio frontend. ``attn`` and ``dense`` came with the GQA slice,
-    ``moe`` with the MoE slice."""
+    """The audio frontend, still refused, names the slice that brings it;
+    an unknown kind is refused by name. ``attn`` and ``dense`` came with
+    the GQA slice, ``moe`` with the MoE slice, ``mla`` with the MLA slice:
+    each builds, and an ``mla`` block runs."""
     base = ArchConfig(name="tiny", family="dense", n_layers=1, d_model=8,
                       n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=16,
                       scan_layers=False,
                       moe=MoEDims(d_model=8, n_experts=4, top_k=2,
-                                  d_expert=8))
-    with pytest.raises(NotImplementedError, match="MLA slice"):
-        Model(dataclasses.replace(base, pattern=("mla",)))
+                                  d_expert=8),
+                      mla=MLADims(d_model=8, n_heads=2, q_lora_rank=6,
+                                  kv_lora_rank=4, qk_nope_dim=2,
+                                  qk_rope_dim=2, v_head_dim=3))
     with pytest.raises(NotImplementedError, match="hubert slice"):
         Model(dataclasses.replace(base, frontend="audio"))
-    for kind in ("attn", "dense", "moe"):
+    with pytest.raises(NotImplementedError, match="'conv'"):
+        Model(dataclasses.replace(base, pattern=("conv",)))
+    for kind in ("attn", "dense", "moe", "mla"):
         Model(dataclasses.replace(base, pattern=(kind,)))
+    mla = Model(dataclasses.replace(base, pattern=("mla",)))
+    params = mla.init(torch.Generator().manual_seed(0), device="cpu")
+    assert params["stages"][0]["b0"]["attn"]["wkv_b"].shape == (4, 2 * 5)
+    logits, _ = mla.apply(params, {"tokens": torch.zeros(1, 3,
+                                                         dtype=torch.long)})
+    assert logits.shape == (1, 3, 16) and torch.isfinite(logits).all()

@@ -15,9 +15,6 @@ before any value, so a top-k flip shows as a routing mismatch, not as a
 stray error in y."""
 
 import dataclasses
-import importlib.util
-import os
-import threading
 
 import numpy as np
 import pytest
@@ -27,7 +24,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 from _torch_parity import (MODEL_TOL, _reset_port, jax_params,  # noqa: E402,F401
-                           n, torch_params)
+                           jax_serve_example, n, serve_all, torch_params)
 
 import repro.core as jrc  # noqa: E402
 from repro.configs import get_arch as jax_arch  # noqa: E402
@@ -412,42 +409,23 @@ def test_params_from_jax_converts_bf16_bit_for_bit():
 # the Server
 # --------------------------------------------------------------------------
 
-_EXAMPLE = os.path.join(os.path.dirname(__file__), os.pardir, "examples",
-                        "serve.py")
-
-
-def _serve(server, api, prompts):
-    futures = [server.submit(p) for p in prompts]
-    loop = threading.Thread(target=server.serve_loop, daemon=True)
-    loop.start()
-    try:
-        return [api.value(f) for f in futures]
-    finally:
-        server._stop = True
-        loop.join(timeout=10)
-        assert not loop.is_alive()
-
-
 def test_qwen2_moe_server_matches_jax_server_tokens():
     """The qwen2-moe smoke Server on the CPU answers 6 requests (4 then 2
     in a batch) with the JAX Server's greedy tokens. It prefills by
     single-token decode steps, so no capacity ever binds."""
-    spec = importlib.util.spec_from_file_location("jax_serve_example",
-                                                  _EXAMPLE)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = jax_serve_example()
     jrc.plan("threads", workers=8)
     jserver = mod.Server(arch="qwen2-moe-a2.7b")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, jserver.cfg.vocab_size, size=4).tolist()
                for _ in range(6)]
-    want = _serve(jserver, jrc, prompts)
+    want = serve_all(jserver, jrc, prompts)
     jrc.shutdown()
 
     rc.plan("threads", workers=8)
     np_params = jax.tree_util.tree_map(np.asarray, jserver.params)
     server = Server("qwen2-moe-a2.7b", device="cpu",
                     params=torch_params(np_params, jserver.cfg))
-    got = _serve(server, rc, prompts)
+    got = serve_all(server, rc, prompts)
     assert got == want
     assert all(len(toks) == 16 for toks in got)
