@@ -156,10 +156,28 @@ runs no Pallas kernel there:
       positions (no launch) with its device time, wall time and idle
       share; the long request's decode-path logits held against the
       expanded prefill within 1e-3.
+Then MiniCPM3-4B is freed and HuBERT-XLarge (48 attn layers, d_model 1280,
+16 heads of 80, non-causal, the audio frontend; 0.959 B fp32 parameters,
+random from the seed on the card; nothing cut) takes it, on B=8 clips of
+S=1500 frames. An encoder has no decode step, so it has no Server phase:
+  2h. flash attention at its shape (B=8, H=KV=16, S=1500, D=80,
+      non-causal) in fp32 and in bf16, each as in 2c and 2f: against the
+      plain version, the bf16 instance also against the fp32 kernel on
+      the widened inputs within ``bf16_limit``; times, bounds and one
+      library call;
+  3h. the forward through ``make_prefill_step`` (48 flash_attention
+      launches and no other kernel), timed, with frames/s and peak memory;
+      its logits at every position and ``make_eval_step``'s loss held
+      against the plain path with its attention in fp64 within 1e-4 of
+      the largest logit and of the loss, beside the 1-ulp yardstick; then
+      the same forward from the tree rounded to bf16 (48 launches on bf16
+      q, k and v), held against its widened-kernel forward and against
+      the plain path within HUBERT_BF16_YARDSTICKS of the 1-ulp bf16
+      yardstick of the same run.
 Each phase prints its seconds. The line before the last is a JSON object
 with one entry per kernel, and one more for each attention kernel at
-Yi-9B's, qwen2-moe's and Yi-34B's (bf16) shapes; the last line is
-``{"ok": true, "device": {...}}``.
+Yi-9B's, qwen2-moe's, Yi-34B's (bf16) and HuBERT-XLarge's (fp32 and bf16)
+shapes; the last line is ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits non-zero and prints no result.
 """
 
@@ -233,6 +251,20 @@ TOL_DECODE_REL_BF16 = 0.1
 MLA_S = 4096
 MLA_DEC_B = 4
 MLA_LONG = 256
+# HuBERT-XLarge (phases 2h, 3h): B clips of S frames, eight 30-second clips
+# at 20 ms a frame, the unit of offline transcription and labelling; 1500
+# = 11 x 128 + 92 = 46 x 32 + 28, so every launch has a ragged query tile
+# and a ragged key block. The fp32 forward's logits and eval loss are held
+# against the plain path with its attention in fp64 within TOL_PREFILL_REL.
+# The bf16 forward (the fp32 tree rounded to bf16) is held against its
+# widened-kernel counterpart and against the plain path within
+# HUBERT_BF16_YARDSTICKS times the 1-ulp bf16 yardstick of the same run:
+# over 48 random bf16 layers any rounding difference grows to the
+# yardstick's size (Yi-34B's read 0.82-0.84 of one yardstick over 60), so
+# one yardstick would test the seed, while a kernel that drops keys or
+# columns moves the logits by a large share of the largest
+HUBERT_B, HUBERT_S = 8, 1500
+HUBERT_BF16_YARDSTICKS = 2.0
 # training (phase 5): examples/train_lm.py --full's batch and length;
 # limits: the loss within 1e-4 relative, each grad leaf within 1e-3 of
 # that leaf's largest plain grad (the mLSTM input-gate bias b_i on its
@@ -541,6 +573,13 @@ def main() -> int:
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     minicpm3_phases(dev, rng, smi)
 
+    # -- HuBERT-XLarge: MiniCPM3-4B is freed when minicpm3_phases returns ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"after minicpm3-4b is freed: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    hubert_phases(dev, rng, kernels, smi)
+
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -642,18 +681,26 @@ def hold_long_request(model, params, long_prompt: list, server_first: int,
 
 
 def one_ulp_moved(params) -> dict:
-    """``params`` with the embedding table moved by one ulp of its own
-    type, away from zero: the yardstick's input, how far rounding alone
-    carries a model. An fp32 table is scaled by 1 + 2^-23 (one or two ulps,
-    as every fp32 phase has moved it); a bf16 table steps each element to
-    its next value (its int16 view plus one), since a scale by 1 + 2^-23
-    rounds back to a bf16 table unchanged."""
+    """``params`` with the first table the model reads moved by one ulp of
+    its own type, away from zero: the yardstick's input, how far rounding
+    alone carries a model. That table is the embedding table, or under the
+    audio frontend the frames' projection ``frontend/proj``. An fp32
+    embedding table is scaled by 1 + 2^-23 (one or two ulps, as every fp32
+    phase has moved it); a bf16 table, since a scale by 1 + 2^-23 rounds
+    back to it unchanged, and the projection in either type step each
+    element to its next value (its integer view plus one)."""
     import torch
+
+    def step(table):
+        ints = torch.int16 if table.element_size() == 2 else torch.int32
+        return (table.view(ints) + 1).view(table.dtype)
+
+    if "frontend" in params:
+        front = params["frontend"]
+        return dict(params, frontend=dict(front, proj=step(front["proj"])))
     table = params["embed"]["table"]
-    if table.dtype == torch.float32:
-        moved = table * (1 + 2 ** -23)
-    else:
-        moved = (table.view(torch.int16) + 1).view(table.dtype)
+    moved = (table * (1 + 2 ** -23) if table.dtype == torch.float32
+             else step(table))
     return dict(params, embed={"table": moved})
 
 
@@ -1442,68 +1489,74 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
 
 
 def flash_case(dev, randn, h, kv, s, hd, smi: str,
-               dtype: str = "float32") -> dict:
-    """Flash attention at a prefill's shape (B=1, causal, no window), q, k
-    and v of ``dtype`` drawn by ``randn`` as the model holds them ((B,S,H,D)
-    viewed as (B,H,S,D)): the launch against its geometry, the error, the
-    kernel's, the plain version's and one library call's times, both
-    bounds; in bf16 also the kernel against the fp32 kernel on the widened
-    inputs, within ``bf16_limit`` (``hold_flash_bf16``). Returns a kernel
-    entry without its name and launches."""
+               dtype: str = "float32", b: int = 1,
+               causal: bool = True) -> dict:
+    """Flash attention at a prefill's shape (B=``b``, causal or not, no
+    window), q, k and v of ``dtype`` drawn by ``randn`` as the model holds
+    them ((B,S,H,D) viewed as (B,H,S,D)): the launch against its geometry,
+    the error, the kernel's, the plain version's and one library call's
+    times, both bounds; in bf16 also the kernel against the fp32 kernel on
+    the widened inputs, within ``bf16_limit`` (``hold_flash_bf16``).
+    Returns a kernel entry without its name and launches."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as FK
     tdt = getattr(torch, dtype)
-    q = randn(1, s, h, hd).to(tdt).transpose(1, 2)
-    k = randn(1, s, kv, hd).to(tdt).transpose(1, 2)
-    v = randn(1, s, kv, hd).to(tdt).transpose(1, 2)
-    fgeo = FK.launch_geometry(1, h, kv, s, s, hd, True, None, dtype=tdt)
+    q = randn(b, s, h, hd).to(tdt).transpose(1, 2)
+    k = randn(b, s, kv, hd).to(tdt).transpose(1, 2)
+    v = randn(b, s, kv, hd).to(tdt).transpose(1, 2)
+    fgeo = FK.launch_geometry(b, h, kv, s, s, hd, causal, None, dtype=tdt)
     print(f"  flash_attention geometry ({dtype}): {fgeo.rows} query rows a "
           f"CTA, {fgeo.ctas} CTAs x {fgeo.threads} threads, {fgeo.ctas_per_sm} "
           f"CTA(s) per SM on {fgeo.n_sms} SMs, {fgeo.waves} wave(s), "
           f"{fgeo.smem_bytes} B of shared memory a CTA, tiles in the order "
           f"{fgeo.order[:3]}...; {fgeo.key_rows} K and as many V rows, "
           f"{fgeo.l2_bytes} B, read from L2")
-    out = FK.flash_attention(q, k, v, causal=True)
+    out = FK.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     check(FK.last_launch() == fgeo.plan,
           f"flash_attention launched {FK.last_launch()}, its geometry says "
           f"{fgeo.plan}")
-    shape = f"(B,H,S,D)={(1, h, s, hd)}, KV={kv}"
-    ref = FK.plain(q, k, v, causal=True)
-    err = _close(f"flash_attention {shape}, {dtype}, causal, no window",
+    shape = f"(B,H,S,D)={(b, h, s, hd)}, KV={kv}"
+    mask = "causal" if causal else "non-causal"
+    ref = FK.plain(q, k, v, causal=causal)
+    err = _close(f"flash_attention {shape}, {dtype}, {mask}, no window",
                  out, ref, TOL_ATTN[dtype])
     if dtype != "float32":
         # the fp32 kernel on the widened inputs: held against the plain
         # version at fp32's tolerance, then the bf16 kernel against it
         qf, kf, vf = q.float(), k.float(), v.float()
-        wide = FK.flash_attention(qf, kf, vf, causal=True)
+        wide = FK.flash_attention(qf, kf, vf, causal=causal)
         _close(f"flash_attention {shape}, float32 on the widened inputs",
-               wide, FK.plain(qf, kf, vf, causal=True), TOL_ATTN["float32"])
+               wide, FK.plain(qf, kf, vf, causal=causal),
+               TOL_ATTN["float32"])
         hold_flash_bf16(out, wide, v)
         # the control, printed without a limit: the same arithmetic with P
         # rounded once to bf16, as a route on one bf16 PV product keeps it
-        one = FK.flash_attention_bf16_2part(q, k, v, causal=True, parts=1)
+        one = FK.flash_attention_bf16_2part(q, k, v, causal=causal,
+                                            parts=1)
         share = ((one.float() - wide).abs()
                  / FK.bf16_limit(wide, v)).max().item()
         print(f"  control, P as one bf16 part (plain PyTorch on the same "
               f"inputs): largest share of the limit {share:.4f}")
         del qf, kf, vf, wide, one
     del out, ref
-    pairs = s * (s + 1) // 2              # visible (q, k) pairs per head
+    # visible (q, k) pairs per head
+    pairs = s * (s + 1) // 2 if causal else s * s
     el = q.element_size()
-    flops, nbytes = 4.0 * hd * pairs * h, el * (2 * h + 2 * kv) * s * hd
+    flops = 4.0 * hd * pairs * h * b
+    nbytes = el * (2 * h + 2 * kv) * s * hd * b
     fp32_ms, fp32_by = bound(flops, nbytes)
     fa = dict(
         route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:28",
         max_abs_err=err,
-        ms=cuda_ms(lambda: FK.flash_attention(q, k, v, causal=True), 5),
-        plain_ms=cuda_ms(lambda: FK.plain(q, k, v, causal=True), 2),
+        ms=cuda_ms(lambda: FK.flash_attention(q, k, v, causal=causal), 5),
+        plain_ms=cuda_ms(lambda: FK.plain(q, k, v, causal=causal), 2),
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 5))
+            q, k, v, is_causal=causal, enable_gqa=True), 5))
     if dtype == "float32":
         fa["bound_ms"], fa["bound_by"] = bound(3 * flops, nbytes,
                                                PEAK_TF32_FLOPS)
@@ -1522,7 +1575,7 @@ def flash_case(dev, randn, h, kv, s, hd, smi: str,
     print(f"  flash_attention: {pairs} visible (q, k) pairs per head, "
           f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; kernel "
           f"{fa['ms']:.4f} ms, plain {fa['plain_ms']:.4f} ms, library "
-          f"(scaled_dot_product_attention, is_causal) "
+          f"(scaled_dot_product_attention, is_causal={causal}) "
           f"{fa['library_ms']:.4f} ms; bound as fp32 SIMT {fp32_ms:.4f} ms "
           f"({fp32_by}), {route} {fa['bound_ms']:.4f} ms ({fa['bound_by']}) "
           f"({smi})")
@@ -2568,6 +2621,169 @@ def minicpm3_phases(dev, rng, smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("4g")
+
+
+
+def hubert_phases(dev, rng, kernels: dict, smi: str) -> None:
+    """Phases 2h and 3h: HuBERT-XLarge's encoder at full width and full
+    depth, on B=8 clips of S=1500 frames: flash attention at head dim 80,
+    non-causal, in both instances, then the forward through the entry
+    points (``Model.apply``, ``make_prefill_step``, ``make_eval_step``).
+    An encoder has no decode step, so there is no Server phase."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train import make_eval_step, make_prefill_step
+    from repro_torch.tree import tree_map
+
+    counters = kernel_modules()
+
+    def randn(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32)).to(dev)
+
+    cfg = get_arch("hubert-xlarge")
+    H, KV, HD = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n_a = sum(kind == "attn" for kind in cfg.layer_pattern)
+    b, s = HUBERT_B, HUBERT_S
+
+    # -- 2h. flash attention at HuBERT's shape, both instances ---------------
+    print(f"hubert-xlarge flash attention at full width (B={b}, S={s}, "
+          f"H={H}, KV={KV}, G={H // KV}, D={HD}, non-causal, no window):")
+    for dtype, name in (("float32", "flash_attention@hubert-xlarge"),
+                        ("bfloat16", "flash_attention@hubert-xlarge-bf16")):
+        kernels[name] = dict(name=name, **flash_case(
+            dev, randn, H, KV, s, HD, smi, dtype=dtype, b=b, causal=False))
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_done("2h")
+
+    # -- 3h. the forward at full width and full depth, fp32 then bf16 --------
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    torch.cuda.synchronize()
+    print(f"hubert-xlarge: {model.param_count() / 1e9:.3f} B fp32 parameters "
+          f"drawn on the card in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; "
+          f"{cfg.n_layers} attn layers, H={H}, D={HD}, non-causal, the "
+          f"audio frontend (frames of {cfg.frontend_dim}, convpos kernel "
+          f"{params['frontend']['convpos']['w'].shape[0]}, 16 groups)")
+    torch.cuda.reset_peak_memory_stats()
+    frames = randn(b, s, cfg.frontend_dim)
+    labels = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, size=(b, s))).to(dev)
+    batch = {"frames": frames, "labels": labels}
+    prefill = make_prefill_step(model)
+    zero_counts()
+    first = prefill(params, {"frames": frames})
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"forward launches: {launches}")
+    check(launches == dict.fromkeys(counters, 0) | {"flash_attention": n_a},
+          f"the forward must launch flash_attention {n_a}x and nothing else")
+    check(tuple(first.shape) == (b, 1) and first.dtype == torch.int32,
+          f"prefill returns ({b}, 1) int32 tokens")
+    kernels["flash_attention@hubert-xlarge"]["launches"] = n_a
+    ms = cuda_ms(lambda: prefill(params, {"frames": frames}), 2)
+    print(f"forward (B,S)={(b, s)}: {ms:.1f} ms, {b * s / ms * 1e3:.0f} "
+          f"frames/s ({b * s / ms * 1e3 * 0.02:.0f} s of audio a second); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+          f" GB ({smi})")
+    # the plain path sums its attention in fp64, as phase 3b's reference
+    plain = Model(cfg, kernel_impl="plain")
+    evals = {m: make_eval_step(m) for m in (model, plain)}
+    with torch.no_grad():
+        got = model.apply(params, batch)[0]                   # (B, S, V)
+        loss = evals[model](params, batch)["loss"].item()
+        with WidenedFlash(torch.float64):
+            want = plain.apply(params, batch)[0]
+            want_loss = evals[plain](params, batch)["loss"].item()
+            moved = one_ulp_moved(params)
+            alt = plain.apply(moved, batch)[0]
+            alt_loss = evals[plain](moved, batch)["loss"].item()
+            del moved
+    scale = want.abs().max().item()
+    rel = (got - want).abs().max().item() / scale
+    moved_rel = (alt - want).abs().max().item() / scale
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    moved_loss = abs(alt_loss - want_loss) / abs(want_loss)
+    top2 = want[:, -1].topk(2).values
+    sure = (top2[:, 0] - top2[:, 1]) > TOL_PREFILL_REL * scale
+    finite = bool(torch.isfinite(got).all()) and np.isfinite(loss)
+    ok = finite and rel <= TOL_PREFILL_REL
+    print(f"forward logits (B, S, V)={tuple(got.shape)}, kernels vs plain "
+          f"(attention in fp64): max abs diff "
+          f"{(got - want).abs().max().item():.3e}, relative {rel:.3e} "
+          f"(tolerance {TOL_PREFILL_REL}, {rel / TOL_PREFILL_REL:.3f} of it)"
+          f" {'ok' if ok else 'FAIL'}; yardstick (plain with the frames' "
+          f"projection moved by 1 ulp) {moved_rel:.3e} "
+          f"({moved_rel / TOL_PREFILL_REL:.3f} of the tolerance)")
+    check(ok, "the forward with the kernels disagrees with the plain path")
+    ok = loss_rel <= TOL_PREFILL_REL
+    print(f"eval loss: kernels {loss:.6f}, plain (attention in fp64) "
+          f"{want_loss:.6f}, relative {loss_rel:.3e} (tolerance "
+          f"{TOL_PREFILL_REL}) {'ok' if ok else 'FAIL'}; yardstick "
+          f"{moved_loss:.3e}")
+    check(ok, "the eval loss with the kernels disagrees with the plain path")
+    got_first = first[:, 0].cpu()
+    check(bool((got_first == want[:, -1].argmax(-1).cpu())[sure.cpu()]
+               .all()),
+          "the prefill step's tokens are the plain path's where the top-2 "
+          "margin exceeds the tolerance")
+    print(f"  last-frame tokens: kernels {got_first.tolist()}; "
+          f"{int(sure.sum())} of {b} rows decided beyond the tolerance")
+    del got, want, alt, first
+    torch.cuda.empty_cache()
+
+    # the same forward from the tree rounded to bf16: the bf16 instance on
+    # the path (48 launches on bf16 q, k and v)
+    params16 = tree_map(lambda x: x.to(torch.bfloat16), params)
+    del params
+    batch16 = {"frames": frames.to(torch.bfloat16)}
+    zero_counts()
+    with torch.no_grad():
+        got = model.apply(params16, batch16)[0]
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"bf16 forward launches: {launches}")
+        check(launches == dict.fromkeys(counters, 0)
+              | {"flash_attention": n_a},
+              f"the bf16 forward must launch flash_attention {n_a}x and "
+              f"nothing else")
+        kernels["flash_attention@hubert-xlarge-bf16"]["launches"] = n_a
+        ms = cuda_ms(lambda: model.apply(params16, batch16), 2)
+        with WidenedFlash():
+            wide = model.apply(params16, batch16)[0]
+        want = plain.apply(params16, batch16)[0]
+        alt = plain.apply(one_ulp_moved(params16), batch16)[0]
+    scale = want.abs().max().item()
+    moved = (alt - want).abs().max().item()
+    wide_diff = (got - wide).abs().max().item()
+    diff = (got - want).abs().max().item()
+    limit = HUBERT_BF16_YARDSTICKS * moved
+    finite = bool(torch.isfinite(got).all())
+    print(f"bf16 forward (B,S)={(b, s)}: {ms:.1f} ms, "
+          f"{b * s / ms * 1e3:.0f} frames/s; logits against the same forward "
+          f"with each flash_attention call widened to fp32: max abs diff "
+          f"{wide_diff:.3e} ({wide_diff / moved:.3f} of the 1-ulp yardstick "
+          f"{moved:.3e}, {moved / scale:.3e} of the largest logit); against "
+          f"the plain path {diff:.3e} ({diff / moved:.3f} of it); limit "
+          f"{HUBERT_BF16_YARDSTICKS} yardsticks "
+          f"{'ok' if finite and max(wide_diff, diff) <= limit else 'FAIL'}")
+    check(finite and wide_diff <= limit,
+          "the bf16 forward is within the yardstick limit of its "
+          "widened-kernel counterpart")
+    check(diff <= limit, "the bf16 forward with the kernels is within the "
+          "yardstick limit of the plain path")
+    print(f"peak device memory: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del model, params16, got, wide, want, alt
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("3h")
 
 
 if __name__ == "__main__":

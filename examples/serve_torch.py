@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 import repro_torch.core as rc
-from repro_torch.configs import all_archs
+from repro_torch.configs import all_archs, get_arch
 from repro_torch.serve import Server
 
 
@@ -33,7 +33,10 @@ def main():
                     help="cuda (default) or cpu")
     ap.add_argument("--full", action="store_true",
                     help="serve the full-width config, not the smoke one")
-    ap.add_argument("--arch", default="xlstm-125m", choices=all_archs())
+    # an encoder-only arch (hubert-xlarge) has no decode step to serve
+    ap.add_argument("--arch", default="xlstm-125m",
+                    choices=[a for a in all_archs()
+                             if get_arch(a).decode_capable])
     args = ap.parse_args()
 
     rc.plan("threads", workers=4)
@@ -41,7 +44,6 @@ def main():
     if args.full and args.device != "cpu":
         # draw full-width weights with the card's generator: the CPU one
         # takes tens of seconds for 10 B values
-        from repro_torch.configs import get_arch
         from repro_torch.models import Model
         params = Model(get_arch(args.arch)).init(
             torch.Generator(device="cuda").manual_seed(0))

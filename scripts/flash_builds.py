@@ -29,8 +29,9 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def inputs(h: int, kv: int, s: int, d: int, dtype, seed: int = 0):
-    """q (B=1, H, S, D) and k, v (1, KV, S, D) of ``dtype`` on the card,
+def inputs(h: int, kv: int, s: int, d: int, dtype, seed: int = 0,
+           b: int = 1):
+    """q (B, H, S, D) and k, v (B, KV, S, D) of ``dtype`` on the card,
     drawn from ``seed`` as (B,S,H,D) projections viewed as (B,H,S,D)."""
     import numpy as np
     import torch
@@ -40,9 +41,9 @@ def inputs(h: int, kv: int, s: int, d: int, dtype, seed: int = 0):
         a = rng.standard_normal(shape, dtype=np.float32)
         return torch.from_numpy(a).to("cuda").to(dtype)
 
-    return (randn(1, s, h, d).transpose(1, 2),
-            randn(1, s, kv, d).transpose(1, 2),
-            randn(1, s, kv, d).transpose(1, 2))
+    return (randn(b, s, h, d).transpose(1, 2),
+            randn(b, s, kv, d).transpose(1, 2),
+            randn(b, s, kv, d).transpose(1, 2))
 
 
 def caller(lib: ctypes.CDLL, q, k, v, out, *, causal: bool = True,

@@ -2,8 +2,8 @@
 """Where the flash attention kernel's time goes, phase by phase, on one
 NVIDIA GPU.
 
-    python3 scripts/flash_phases.py [--h 16 --kv 1 --s 4096 --d 256 \
-        --window 2048] [--dtype float32|bfloat16] \
+    python3 scripts/flash_phases.py [--b 1 --h 16 --kv 1 --s 4096 --d 256 \
+        --window 2048 --causal 1] [--dtype float32|bfloat16] \
         [--parent PATH [--parent-route 3xtf32|tf32|bf16]]
 
 Builds ``csrc/flash_attention.cu`` a second time with
@@ -12,9 +12,10 @@ build under ``build/kernels/``), in which lane 0 of the last warp of every
 CTA sums the clock cycles of each phase of a key block: waiting for the
 copies of K and V (with the two barriers a block), QK^T, the softmax (P
 needs no relayout: the S accumulator is PV's A fragment), and PV. Runs it
-causally at the given shape (the RecurrentGemma-9B prefill by default;
-``--window 0`` for none; q, k, v of ``--dtype`` as (B,S,H,D) projections
-viewed as (B,H,S,D)) and prints the cycles a key block of each phase (the
+at the given shape (the RecurrentGemma-9B prefill by default, causal;
+``--window 0`` for none, ``--causal 0`` for no mask, as HuBERT-XLarge's
+``--b 8 --h 16 --kv 16 --s 1500 --d 80 --window 0 --causal 0``; q, k, v of
+``--dtype`` as (B,S,H,D) projections viewed as (B,H,S,D)) and prints the cycles a key block of each phase (the
 mean over the blocks the CTAs walk), the MMAs a CTA issues in each product
 there (``flash_builds.mmas_per_block``: fp32 on the 3xtf32 route, bf16 on
 the bf16 route), their rate a CTA and an SM (times the CTAs resident on
@@ -44,12 +45,14 @@ def main() -> int:
 
     import torch
     ap = argparse.ArgumentParser()
+    ap.add_argument("--b", type=int, default=1)
     ap.add_argument("--h", type=int, default=16)
     ap.add_argument("--kv", type=int, default=1)
     ap.add_argument("--s", type=int, default=4096)
     ap.add_argument("--d", type=int, default=256)
     ap.add_argument("--window", type=int, default=2048,
                     help="0 for no window")
+    ap.add_argument("--causal", type=int, choices=(0, 1), default=1)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
     ap.add_argument("--parent", help="another copy of flash_attention.cu")
@@ -66,14 +69,16 @@ def main() -> int:
 
     smi = fb.card()
     print(smi)
-    h, kv, s, d = args.h, args.kv, args.s, args.d
+    b, h, kv, s, d = args.b, args.h, args.kv, args.s, args.d
+    causal = bool(args.causal)
     win = args.window if args.window > 0 else None
     tdt = getattr(torch, args.dtype)
     el = torch.empty((), dtype=tdt).element_size()
     route = "3xtf32" if args.dtype == "float32" else "bf16"
-    q, k, v = fb.inputs(h, kv, s, d, tdt)
-    geo = FK.launch_geometry(1, h, kv, s, s, d, True, win, dtype=tdt)
-    print(f"shape (B,H,KV,S,D)={(1, h, kv, s, d)}, {args.dtype}, causal, "
+    q, k, v = fb.inputs(h, kv, s, d, tdt, b=b)
+    geo = FK.launch_geometry(b, h, kv, s, s, d, causal, win, dtype=tdt)
+    print(f"shape (B,H,KV,S,D)={(b, h, kv, s, d)}, {args.dtype}, "
+          f"{'causal' if causal else 'non-causal'}, "
           f"window {win}: {geo.rows} rows a CTA, {geo.ctas} CTAs x "
           f"{geo.threads} threads, {geo.ctas_per_sm} CTA(s) per SM on "
           f"{geo.n_sms} SMs, {geo.waves} wave(s) (this tree's build)")
@@ -87,8 +92,10 @@ def main() -> int:
                   + "".join(f"\n  {line}" for line in spills))
         per_sm = fb.max_active(plain_lib, d, el)
         want, got = torch.empty_like(q), torch.empty_like(q)
-        plain = fb.caller(plain_lib, q, k, v, want, window=win)
-        clocked = fb.caller(clocked_lib, q, k, v, got, window=win)
+        plain = fb.caller(plain_lib, q, k, v, want, causal=causal,
+                          window=win)
+        clocked = fb.caller(clocked_lib, q, k, v, got, causal=causal,
+                            window=win)
         clocked_lib.flash_attention_phase_cycles.argtypes = [ctypes.c_void_p]
         clocked_lib.flash_attention_phase_cycles.restype = ctypes.c_int
         sums = (ctypes.c_ulonglong * (len(PHASES) + 1))()
@@ -146,8 +153,9 @@ def main() -> int:
         print(f"parent against this tree: {int((diff > 0).sum())} of "
               f"{diff.numel()} elements differ, max abs diff "
               f"{diff.max().item():.3e}")
-    print(json.dumps({"shape": [1, h, kv, s, d], "dtype": args.dtype,
-                      "window": win, **results, "card": smi,
+    print(json.dumps({"shape": [b, h, kv, s, d], "dtype": args.dtype,
+                      "causal": causal, "window": win, **results,
+                      "card": smi,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

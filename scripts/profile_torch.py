@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch port's serving path on one GPU.
 
     python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b|yi-34b|
-                                             qwen2-moe-a2.7b|minicpm3-4b]
+                                             qwen2-moe-a2.7b|minicpm3-4b|
+                                             hubert-xlarge]
                                      [--dtype float32|bfloat16]
 
 Runs an arch at full width with random weights (seed 0) drawn in
@@ -12,7 +13,9 @@ fit the card only so) and, under ``torch.profiler``, one prefill step and
 RecurrentGemma-9B, Yi-9B, Yi-34B, Qwen1.5-MoE-A2.7B and MiniCPM3-4B
 prefill B=1, S=4096 and decode with every attention cache full
 (RecurrentGemma's ring buffers, the others' 4096-position global caches,
-MiniCPM3's 4096-position latent caches, of the parameters' type). For
+MiniCPM3's 4096-position latent caches, of the parameters' type);
+HuBERT-XLarge, an encoder with no decode step, runs its forward on B=8
+clips of S=1500 frames (30 s each at 20 ms a frame) and nothing else. For
 each it prints the wall time (host clock around work that ends in
 ``torch.cuda.synchronize()``), the device time summed over
 the kernels that ran, the device's idle share (1 - device / wall), and the
@@ -66,7 +69,8 @@ def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
 #: full-width prefill shape (batch, sequence) of each arch
 PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096),
            "yi-9b": (1, 4096), "yi-34b": (1, 4096),
-           "qwen2-moe-a2.7b": (1, 4096), "minicpm3-4b": (1, 4096)}
+           "qwen2-moe-a2.7b": (1, 4096), "minicpm3-4b": (1, 4096),
+           "hubert-xlarge": (8, 1500)}
 
 #: the parts of an MoE layer, by the functions of ``models/moe.py`` that
 #: ``moe_apply`` calls for each
@@ -155,8 +159,12 @@ def main() -> int:
     ranges = moe_ranges if cfg.moe is not None else contextlib.nullcontext
 
     prefill = make_prefill_step(model)
-    batch = {"tokens": torch.from_numpy(
-        rng.integers(0, cfg.vocab_size, size=(b, s))).to(dev)}
+    if cfg.frontend == "audio":
+        batch = {"frames": torch.from_numpy(rng.standard_normal(
+            (b, s, cfg.frontend_dim), dtype=np.float32)).to(dev, dt)}
+    else:
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, size=(b, s))).to(dev)}
     prefill(params, batch)
     torch.cuda.synchronize()
     with ranges(), profile(activities=acts) as prof:
@@ -169,6 +177,8 @@ def main() -> int:
         _report_moe(prof, 1)
     del prof
     torch.cuda.empty_cache()
+    if not cfg.decode_capable:
+        return 0
 
     step = make_serve_step(model)
     cache = model.init_cache(4, max_seq=s, device=dev, dtype=dt)

@@ -4,8 +4,8 @@ Every architecture file in this package registers exactly one full-size
 config (the published numbers) plus a ``smoke`` reduced config of the same
 family for CPU tests. The port registers xLSTM-125M, RecurrentGemma-9B,
 the GQA family (Yi-9B, Yi-34B, Nemotron-4-340B, Qwen2-VL-72B), the MoE
-family (Qwen1.5-MoE-A2.7B, DeepSeekMoE-16B) and MLA (MiniCPM3-4B); the
-audio config comes with its model in a later slice.
+family (Qwen1.5-MoE-A2.7B, DeepSeekMoE-16B), MLA (MiniCPM3-4B) and the
+audio encoder (HuBERT-XLarge).
 """
 
 from __future__ import annotations
@@ -169,7 +169,7 @@ def _ensure_loaded():
     global _loaded
     if _loaded:
         return
-    from . import (deepseek_moe_16b, minicpm3_4b,  # noqa: F401
-                   nemotron_4_340b, qwen2_moe_a2_7b, qwen2_vl_72b,
+    from . import (deepseek_moe_16b, hubert_xlarge,  # noqa: F401
+                   minicpm3_4b, nemotron_4_340b, qwen2_moe_a2_7b, qwen2_vl_72b,
                    recurrentgemma_9b, xlstm_125m, yi_9b, yi_34b)
     _loaded = True

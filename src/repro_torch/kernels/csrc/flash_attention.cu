@@ -32,9 +32,11 @@
 //    double-buffered over the two buffers: K_{j+1} is copied by cp.async
 //    while PV_j reads V_j, and V_{j+1} while QK^T_{j+1} and the softmax
 //    read K_{j+1}. Two buffers of each would need 267,264 B at D = 256
-//    against 232,448. Bytes: (160 (D + 16) + 32 (D + 4)) x 4: 207,360 at
-//    D = 256 (1 CTA/SM), 109,056 at 128 and 59,904 at 64 (2 CTAs/SM); in
-//    bf16 192 (D + 8) x 2: 101,376, 52,224 and 27,648.
+//    against 232,448. Bytes: (160 QP + 32 VP) x 4 with the fp32 row pitches
+//    QP = D + 16 and VP = D + 4 at D = 64, 128, 256 (QP = 80, VP = 100 at
+//    D = 80; see qk_pitch_f32): 207,360 at D = 256 (1 CTA/SM), 109,056 at
+//    128, 64,000 at 80 and 59,904 at 64; in bf16 192 (D + 8) x 2: 101,376,
+//    52,224, 33,792 and 27,648.
 //  - fp32 operands from shared memory, split on the fly: big rounded as
 //    cvt.rna.tf32.f32 rounds (in integer operations), small the same on
 //    x - big, on mma.sync.m16n8k8.tf32. The contraction index of each
@@ -43,10 +45,10 @@
 //      reads one float4 at d = 16c + 4t of Q row g, Q row g + 8 and K row g
 //      of each 8-key tile; its .x/.y are the fragment's k = t and t + 4 of
 //      the first k-step, .z/.w those of the second. Bank check, row pitch
-//      D + 16 (= 16 mod 32 words): a 16-byte load is served a quarter warp
-//      (lanes 4g'..4g'+7, g in {2i, 2i+1}, t = 0..3) at a time; its
-//      addresses start at words 16 (g mod 2) + 4t, 8 distinct 4-bank
-//      groups: no conflict.
+//      QP = 16 mod 32 words (D + 16 at D = 64, 128, 256; D itself at 80): a
+//      16-byte load is served a quarter warp (lanes 8i..8i+7, g in
+//      {2i, 2i+1}, t = 0..3) at a time; its addresses start at words
+//      16 (g mod 2) + 4t, 8 distinct 4-bank groups: no conflict.
 //    PV: the keys of k-step n are taken in the order 2t, 2t+1 for lane
 //      (g, t), so the S accumulator (c0, c1 at keys 2t, 2t+1 of row g; c2,
 //      c3 of row g + 8) already is the A fragment of P (a0 = c0, a1 = c2,
@@ -55,9 +57,17 @@
 //      n-tile j of group c is column 32c + 4g + j, so one float4 of V row
 //      2t (b0) and one of row 2t + 1 (b1) feed four n-tiles, and the lane's
 //      output row holds the 8 consecutive columns 32c + 8t .. 32c + 8t + 7.
-//      Bank check, row pitch D + 4 (= 4 mod 32): a quarter warp's loads
-//      start at words 8t + 4g + 4(row parity), g in {0, 1}: 8 distinct
-//      4-bank groups: no conflict.
+//      Bank check, row pitch VP = 4 mod 32 (D + 4 at D = 64, 128, 256;
+//      D + 20 at 80): a quarter warp's loads start at words 8t + 4g mod 32,
+//      g in {2i, 2i + 1}: 8 distinct 4-bank groups: no conflict.
+//      Where D = 16 mod 32 (D = 80) the last 16 columns are a tail of two
+//      n-tiles: column g of tail n-tile j is column 32 NC + 2g + j, so one
+//      float2 of V row 2t (b0) and one of row 2t + 1 (b1) feed both, and the
+//      lane's output row holds the 4 consecutive columns 32 NC + 4t ..
+//      32 NC + 4t + 3, stored as one float4. Its 8-byte loads are served a
+//      half warp at a time, at words 8t + 2g mod 32 for 4 values of g: 16
+//      distinct pairs of banks, no conflict. The tail costs no product on
+//      padding (zero columns carried up to 96 would cost 20% more PV MMAs).
 //    The two small products are issued before big.big.
 //  - Registers: the 16 x D output accumulator is D / 2 floats a thread
 //    (128 at D = 256), the S tile 16, the split fragments of one k-step 24;
@@ -91,9 +101,11 @@
 //    ({s[n][0..1], s[n][2..3], s[n+1][0..1], s[n+1][2..3]} as bf16x2): P
 //    never leaves the registers. V is read by ldmatrix.trans.
 //    So the route is 1 + 2 bf16 products: 1.5 x 240.6 GFLOP, 0.365 ms.
-//  - Q, K and V rows at pitch D + 8 bf16 (= 4 mod 32 words at D = 64, 128,
-//    256): the 8 rows of 16 bytes that ldmatrix reads at a time fall on 8
-//    distinct 4-bank groups, no conflict.
+//  - Q, K and V rows at pitch D + 8 bf16, D / 2 + 4 words: an odd multiple
+//    of 4 for every D = 0 mod 16 (4 mod 32 at D = 64, 128, 256; 12 at 80),
+//    so the 8 rows of 16 bytes that ldmatrix reads at a time fall on 8
+//    distinct 4-bank groups, no conflict. At D = 80 QK^T takes 5 k-steps
+//    (one ldmatrix.x4 each) and PV 10 n-tiles (in pairs by ldmatrix.x4.trans).
 //  - 2 CTAs a SM at D <= 128 (launch bounds of 128 registers a thread; see
 //    bf16_min_ctas), 1 at D = 256.
 //  - The rest is the fp32 instance's: the CTA and its launch order, the
@@ -119,8 +131,6 @@ constexpr int BQ = 128;    // query rows a CTA
 constexpr int BK = 32;     // keys a block
 constexpr int NW = 8;      // warps a CTA, 16 rows each
 constexpr int NT = 32 * NW;
-constexpr int QK_PAD = 16;  // fp32 Q and K row pitch D + 16 elements
-constexpr int V_PAD = 4;    // fp32 V row pitch D + 4
 constexpr int PAD16 = 8;    // bf16 Q, K and V row pitch D + 8
 constexpr int SMEM_LIMIT = 232448;
 // bf16 row strides lie below this, so that copy_rows16's 32-bit offsets
@@ -144,11 +154,23 @@ struct Strides {
   long long b, h, s;
 };
 
+// fp32 row pitches in elements (words): Q and K at 16 mod 32, V at 4 mod
+// 32, the least above D (D + 16 and D + 4 at D = 64, 128, 256; 80 and 100
+// at D = 80), for the bank checks of the notes at the top.
+__host__ __device__ constexpr int qk_pitch_f32(int d) {
+  return d + (48 - d % 32) % 32;
+}
+
+__host__ __device__ constexpr int v_pitch_f32(int d) {
+  return d + (36 - d % 32) % 32;
+}
+
 // Shared memory of a CTA. fp32: the Q tile and one K block at pitch
-// D + QK_PAD, one V block at D + V_PAD; bf16: the Q tile, one K and one V
-// block, all at D + PAD16.
+// qk_pitch_f32, one V block at v_pitch_f32; bf16: the Q tile, one K and one
+// V block, all at D + PAD16.
 __host__ __device__ constexpr size_t smem_bytes_f32(int d) {
-  return 4 * ((size_t)(BQ + BK) * (d + QK_PAD) + (size_t)BK * (d + V_PAD));
+  return 4 * ((size_t)(BQ + BK) * qk_pitch_f32(d) +
+              (size_t)BK * v_pitch_f32(d));
 }
 
 __host__ __device__ constexpr size_t smem_bytes_bf16(int d) {
@@ -214,6 +236,10 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
 // c += a b on bf16 tensor cores, fp32 accumulation
@@ -320,13 +346,15 @@ __device__ int tile_at_rank(int rank, int n_tiles, int Sq, int Skv,
 
 // Starts copying rows [r0, r0 + ROWS) of a (rows x D) tensor of T into
 // shared memory with row pitch P, zero-filling rows at or past `limit`.
+// Where ROWS x V pieces do not divide over NT threads (a K or V block at
+// D = 80: 640 pieces), the last pass is ragged.
 template <int D, int P, int ROWS, typename T>
 __device__ __forceinline__ void copy_rows(T* dst, const T* src,
                                           long long stride, int r0,
                                           int limit) {
   constexpr int E = 16 / sizeof(T);  // elements a 16-byte piece
   constexpr int V = D / E;           // pieces a row
-  static_assert(ROWS * V % NT == 0, "every thread copies as many pieces");
+  static_assert(D % E == 0, "rows of whole 16-byte pieces");
 #pragma unroll 4
   for (int idx = threadIdx.x; idx < ROWS * V; idx += NT) {
     const int r = idx / V, c = idx - r * V;
@@ -337,25 +365,32 @@ __device__ __forceinline__ void copy_rows(T* dst, const T* src,
 }
 
 // copy_rows for bf16 rows less than BF16_STRIDE_LIMIT elements apart into
-// shared memory at the 32-bit address dst: each thread's pieces lie NT / V
-// rows apart in one column, so only its first piece's offsets are computed,
-// and the others' row x stride (row < ROWS <= 128) in 32 bits: registers are
-// scarce at 2 CTAs a SM, and 64-bit offsets spill at D = 128.
+// shared memory at the 32-bit address dst: the first STEP x V threads each
+// copy one column of rows STEP apart (STEP = NT / V rows a pass), so only
+// its first piece's offsets are computed, and the others' row x stride
+// (row < ROWS <= 128) in 32 bits: registers are scarce at 2 CTAs a SM, and
+// 64-bit offsets spill at D = 128. Where V does not divide NT (V = 10 at
+// D = 80: 25 rows a pass, 6 threads idle) or STEP does not divide ROWS, the
+// last pass is ragged.
 template <int D, int P, int ROWS>
 __device__ __forceinline__ void copy_rows16(uint32_t dst,
                                             const __nv_bfloat16* src,
                                             int stride, int r0, int limit) {
-  constexpr int V = D / 8;  // 16-byte pieces a row
-  static_assert(NT % V == 0 && ROWS * V % NT == 0,
-                "every thread copies as many pieces, one column each");
+  constexpr int V = D / 8;        // 16-byte pieces a row
+  constexpr int STEP = NT / V;    // rows a pass
+  constexpr int PASSES = (ROWS + STEP - 1) / STEP;
+  constexpr bool EVEN = NT % V == 0 && ROWS % STEP == 0;
+  static_assert(D % 8 == 0 && STEP >= 1, "rows of whole 16-byte pieces");
   const int r = threadIdx.x / V, c = threadIdx.x % V;
   dst += 2 * (r * P + 8 * c);
   const __nv_bfloat16* first = src + (long long)(r0 + r) * stride + 8 * c;
 #pragma unroll
-  for (int i = 0; i < ROWS * V / NT; ++i) {
-    const int row = i * (NT / V);
-    const bool ok = r0 + r + row < limit;
-    cp_async16(dst + 2 * row * P, ok ? first + row * stride : src, ok);
+  for (int i = 0; i < PASSES; ++i) {
+    const int row = i * STEP;
+    if (EVEN || (r < STEP && r + row < ROWS)) {
+      const bool ok = r0 + r + row < limit;
+      cp_async16(dst + 2 * row * P, ok ? first + row * stride : src, ok);
+    }
   }
 }
 
@@ -375,8 +410,11 @@ __global__ void __launch_bounds__(NT, 1)
                            int H, int G, int B, int Sq, int Skv, int causal,
                            int window, float scale_log2) {
   using T = float;
-  constexpr int QP = D + QK_PAD, VP = D + V_PAD;
+  constexpr int QP = qk_pitch_f32(D), VP = v_pitch_f32(D);
   constexpr int NC = D / 32;  // groups of 4 output n-tiles
+  // D = 16 mod 32: a tail of 2 output n-tiles after the groups
+  constexpr bool TAIL = D % 32 == 16;
+  static_assert(D % 32 == 0 || TAIL, "D a multiple of 16");
   extern __shared__ float4 smem4[];
   T* q_s = reinterpret_cast<T*>(smem4);  // BQ x QP
   T* k_s = q_s + BQ * QP;                // BK x QP
@@ -421,12 +459,14 @@ __global__ void __launch_bounds__(NT, 1)
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[c][j][e] = 0.f;
+  float acc_t[TAIL ? 2 : 1][4] = {};  // [tail n-tile][c0..c3]
   // running max (base 2) and this lane's share of the sum, rows g and g+8
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   const T* q_row = q_s + (16 * warp + g) * QP + 4 * t;
   const T* k_row = k_s + g * QP + 4 * t;
   const T* v_row = v_s + 2 * t * VP + 4 * g;
+  const T* vt_row = v_s + 2 * t * VP + 32 * NC + 2 * g;  // the tail's
 
   for (int blk = kb_lo; blk < kb_hi; ++blk) {
     const int k0 = blk * BK;
@@ -524,6 +564,15 @@ __global__ void __launch_bounds__(NT, 1)
           acc[c][j][2] *= al1;
           acc[c][j][3] *= al1;
         }
+      if constexpr (TAIL) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          acc_t[j][0] *= al0;
+          acc_t[j][1] *= al0;
+          acc_t[j][2] *= al1;
+          acc_t[j][3] *= al1;
+        }
+      }
       PHASE_END(2)
     }
 
@@ -561,6 +610,17 @@ __global__ void __launch_bounds__(NT, 1)
           // keeps the compiler from hoisting the next groups' V loads,
           // whose registers would spill beside the 128 of the accumulator
           __syncwarp();
+        }
+        if constexpr (TAIL) {
+          const float2 v0 = ld2(vt_row + 8 * n * VP);
+          const float2 v1 = ld2(vt_row + (8 * n + 1) * VP);
+          uint32_t xb0, xs0, yb0, ys0, xb1, xs1, yb1, ys1;
+          split(v0.x, xb0, xs0);
+          split(v0.y, yb0, ys0);
+          split(v1.x, xb1, xs1);
+          split(v1.y, yb1, ys1);
+          mma3(acc_t[0], pb, ps, xb0, xb1, xs0, xs1);
+          mma3(acc_t[1], pb, ps, yb0, yb1, ys0, ys1);
         }
       }
       PHASE_END(3)
@@ -606,6 +666,17 @@ __global__ void __launch_bounds__(NT, 1)
                          acc[c][2][2] * inv1, acc[c][3][2] * inv1),
              make_float4(acc[c][0][3] * inv1, acc[c][1][3] * inv1,
                          acc[c][2][3] * inv1, acc[c][3][3] * inv1));
+  }
+  if constexpr (TAIL) {
+    const int col = 32 * NC + 4 * t;
+    if (row0 < Sq)
+      *reinterpret_cast<float4*>(ob + row0 * so.s + col) =
+          make_float4(acc_t[0][0] * inv0, acc_t[1][0] * inv0,
+                      acc_t[0][1] * inv0, acc_t[1][1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<float4*>(ob + row1 * so.s + col) =
+          make_float4(acc_t[0][2] * inv1, acc_t[1][2] * inv1,
+                      acc_t[0][3] * inv1, acc_t[1][3] * inv1);
   }
 }
 
@@ -917,6 +988,7 @@ template <typename F>
 int dispatch(int D, F&& f) {
   switch (D) {
     case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
     case 128: return f(std::integral_constant<int, 128>{});
     case 256: return f(std::integral_constant<int, 256>{});
     default: return -1;

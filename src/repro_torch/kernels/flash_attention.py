@@ -39,18 +39,18 @@ __all__ = ["flash_attention", "plain", "launches", "bind", "Geometry",
            "split_tf32", "split_bf16", "bf16_ulp", "bf16_limit", "DTYPES",
            "flash_attention_3xtf32", "flash_attention_bf16_2part",
            "HEAD_DIMS", "ROWS", "KEY_BLOCK", "THREADS", "SMEM_LIMIT",
+           "pitches",
            "BF16_TWO_CTAS_MAX_D", "BF16_STRIDE_LIMIT"]
 
 #: kernel launches made by :func:`flash_attention` in this process
 launches = 0
 
 #: head dims the kernel is built for
-HEAD_DIMS = (64, 128, 256)
-#: input types the kernel is built for, and by element bytes the pad
-#: (elements) after each shared Q and K row and each V row (bank spread)
+HEAD_DIMS = (64, 80, 128, 256)
+#: input types the kernel is built for
 DTYPES = (torch.float32, torch.bfloat16)
-QK_PAD = {4: 16, 2: 8}
-V_PAD = {4: 4, 2: 8}
+#: the bf16 instance's pad (elements) after each shared Q, K and V row
+BF16_PAD = 8
 #: query rows a CTA, as ``flash_attention_rows``
 ROWS = 128
 #: keys a block of the loop, as ``flash_attention_key_block`` (both types)
@@ -96,20 +96,33 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if ((lib.flash_attention_rows(), lib.flash_attention_key_block(),
          lib.flash_attention_threads()) != (ROWS, KEY_BLOCK, THREADS)
             or any(lib.flash_attention_smem_bytes(d, el) != smem_bytes(d, el)
-                   for d in HEAD_DIMS for el in V_PAD)):
+                   for d in HEAD_DIMS for el in (4, 2))):
         raise RuntimeError("flash_attention.cu and its wrapper disagree on "
                            "the rows, the key block, the threads or shared "
                            "memory")
     return lib
 
 
+def pitches(d: int, el: int = 4) -> tuple[int, int]:
+    """Row pitches in elements of the shared Q and K rows and of the V rows
+    for elements of ``el`` bytes, as the kernel lays them out. fp32: the
+    least pitches above d at 16 and at 4 words mod 32 (``qk_pitch_f32``,
+    ``v_pitch_f32``: d + 16 and d + 4 at d = 64, 128, 256; 80 and 100 at
+    d = 80), so that the quarter-warp float4 loads of QK^T and PV meet no
+    bank twice; bf16: d + 8 for all three (d / 2 + 4 words, an odd multiple
+    of 4, so ldmatrix's 8 rows of 16 bytes meet no bank twice)."""
+    if el == 2:
+        return d + BF16_PAD, d + BF16_PAD
+    return d + (16 - d) % 32, d + (4 - d) % 32
+
+
 def smem_bytes(d: int, el: int = 4) -> int:
     """Shared memory of one CTA for elements of ``el`` bytes (4: fp32, 2:
     bf16), as ``flash_attention_smem_bytes`` in the kernel: the Q tile and
-    one K block at row pitch d + 16, one V block at d + 4 (fp32); all three
-    at d + 8 (bf16)."""
-    return el * ((ROWS + KEY_BLOCK) * (d + QK_PAD[el])
-                 + KEY_BLOCK * (d + V_PAD[el]))
+    one K block at the Q and K pitch, one V block at the V pitch
+    (:func:`pitches`)."""
+    qk, vp = pitches(d, el)
+    return el * ((ROWS + KEY_BLOCK) * qk + KEY_BLOCK * vp)
 
 
 def _element_size(dtype) -> int:

@@ -6,9 +6,19 @@ that the kernel cannot take raises. ``kernel_impl="plain"`` runs the plain
 version on any device; it exists so that the same model can be held
 against its own kernel-free run on the card.
 
-The kernels take a narrower set of shapes than the TPU kernels (the CUDA
-``mlstm_scan``: D a multiple of 64 up to 512, S a multiple of 16). Each
-wrapper is differentiable: its forward is the kernel and its backward
+The kernels take a narrower set of shapes than the TPU kernels, which take
+any; on a CUDA tensor anything else raises:
+
+- ``mlstm_scan``: fp32; D a multiple of 64 up to 512, S a multiple of 16.
+- ``slstm_scan``: fp32; a head dim that is a multiple of 16 up to 256.
+- ``rglru_scan``: fp32; any S and W, B up to 65535.
+- ``flash_attention``: q, k and v all fp32 or all bf16; D in
+  ``HEAD_DIMS`` = (64, 80, 128, 256), 80 being HuBERT's 1280 / 16; causal
+  or not, any window, H a multiple of KV.
+- ``decode_attention``: q fp32 or bf16 and caches fp32 or bf16; D a
+  multiple of 4 up to 256, H / KV up to 16.
+
+Each wrapper is differentiable: its forward is the kernel and its backward
 recomputes the plain version from the saved inputs and differentiates that
 (``autograd.py``), so a gradient through a kernel is the plain path's.
 """

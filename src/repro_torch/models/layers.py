@@ -1,11 +1,11 @@
 """Core model layers in PyTorch: what the xLSTM, RecurrentGemma and GQA
 stacks use of ``repro/models/layers.py`` (norms, embedding, RoPE and
 Qwen2-VL's M-RoPE, GQA/MQA attention with qk-norm, a global cache or a
-local ring-buffer one, the SwiGLU and squared-ReLU MLPs).
+local ring-buffer one, the SwiGLU, squared-ReLU and GELU MLPs, and
+HuBERT's conv positional encoding).
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts, so a JAX pytree converts leaf by leaf (``repro_torch.convert``).
-The GELU MLP and the conv-position layer come with hubert.
 """
 
 from __future__ import annotations
@@ -269,15 +269,19 @@ def attention_cache_init(batch: int, max_seq: int, dims: AttnDims,
 # MLPs
 # --------------------------------------------------------------------------
 
-_MLP_KINDS = ("swiglu", "squared_relu")
+_MLP_KINDS = ("swiglu", "squared_relu", "gelu")
 
 
 def _mlp_kind(kind: str) -> None:
-    if kind == "gelu":
-        raise NotImplementedError("mlp_kind 'gelu' comes with the hubert "
-                                  "slice")
     if kind not in _MLP_KINDS:
         raise ValueError(f"unknown mlp kind {kind!r}")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` as the JAX package calls it: its default is the tanh
+    approximation, which differs from the exact (erf) GELU by up to ~5e-4
+    an element."""
+    return F.gelu(x, approximate="tanh")
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str,
@@ -294,13 +298,16 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, kind: str,
 
 
 def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """SwiGLU, or Nemotron-4's squared ReLU, relu(x w_up)^2 w_down, which
-    has no gate; the JAX package's ``gelu`` comes with hubert."""
+    """SwiGLU; Nemotron-4's squared ReLU, relu(x w_up)^2 w_down; or
+    HuBERT's gelu(x w_up) w_down (tanh GELU, :func:`gelu`). The last two
+    have no gate."""
     _mlp_kind(kind)
     if kind == "swiglu":
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    else:
+    elif kind == "squared_relu":
         h = torch.relu(x @ p["w_up"]) ** 2
+    else:
+        h = gelu(x @ p["w_up"])
     return h @ p["w_down"]
 
 
@@ -320,3 +327,36 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Logits against the embedding table, computed in fp32."""
     return x.float() @ p["table"].float().T
+
+
+# --------------------------------------------------------------------------
+# Conv positional encoding (HuBERT-style): a grouped conv over time
+# --------------------------------------------------------------------------
+
+def convpos_init(gen: torch.Generator, d: int, kernel: int = 128,
+                 groups: int = 16, dtype=torch.float32,
+                 device="cpu") -> Params:
+    """JAX's leaves: ``w`` (kernel, d / groups, d), the conv's WIO layout,
+    and ``b`` (d)."""
+    dev = torch.device(device)
+    per = d // groups
+    return {"w": _he(gen, (kernel, per, d), (kernel * per) ** -0.5, dtype,
+                     dev),
+            "b": torch.zeros(d, dtype=dtype, device=dev)}
+
+
+def convpos_apply(p: Params, x: torch.Tensor, groups: int = 16
+                  ) -> torch.Tensor:
+    """gelu(conv(x) + b) over time for x (B, S, d), S frames out. The
+    reference pads (kernel // 2, kernel // 2 - 1 + kernel % 2) frames,
+    (64, 63) at kernel 128: ``padding="same"`` would put the odd frame on
+    the other side and shift the output by one frame, so the pad is
+    explicit. The conv is a library call, as it is an XLA op in the
+    reference, summed in fp32 and rounded to x's type once, as XLA sums a
+    bf16 conv: PyTorch's CPU conv on bf16 tensors with a 128-tap kernel
+    and few channels a group returns sums off by more than their size."""
+    kernel = p["w"].shape[0]
+    left = kernel // 2
+    xt = F.pad(x.transpose(1, 2).float(), (left, left - 1 + kernel % 2))
+    y = F.conv1d(xt, p["w"].permute(2, 1, 0).float(), groups=groups)
+    return gelu(y.transpose(1, 2).to(x.dtype) + p["b"])

@@ -18,7 +18,10 @@ parameters (and its decode caches) stacked on a leading axis, exactly as
 the JAX package stacks them for ``lax.scan``; here a Python loop runs the
 repeats over views ``p[r]``. ``Model.loss`` is the training loss;
 ``remat`` checkpoints each unit of a stage's repeat as the JAX model's
-``_maybe_remat`` does (``none``, ``full``, ``dots``).
+``_maybe_remat`` does (``none``, ``full``, ``dots``). Under the audio
+frontend (HuBERT) the batch carries ``frames`` (B, S, frontend_dim) in
+place of tokens; such an encoder-only config (``decode_capable=False``)
+has no decode step.
 """
 
 from __future__ import annotations
@@ -51,6 +54,15 @@ _ATTN_KINDS = ("attn", "dense", "moe", "lattn")
 
 def _unsupported(kind: str) -> NotImplementedError:
     return NotImplementedError(f"unknown block kind {kind!r}")
+
+
+def check_decode_capable(cfg: ArchConfig) -> None:
+    """Raise for a config with no decode step (an encoder-only one), with
+    the reason the reference's ``ArchConfig.supports`` gives for a decode
+    shape and the ValueError its launcher raises on it."""
+    if not cfg.decode_capable:
+        raise ValueError(f"{cfg.name}: encoder-only architecture has no "
+                         f"decode step")
 
 
 def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
@@ -237,9 +249,6 @@ class Model:
             for kind in pattern:
                 if kind not in _KINDS:
                     raise _unsupported(kind)
-        if cfg.frontend == "audio":
-            raise NotImplementedError("the audio frontend comes with the "
-                                      "hubert slice")
         self.cfg = cfg
         self.kernel_impl = kernel_impl
         self.remat = remat
@@ -257,6 +266,13 @@ class Model:
                      else L.rmsnorm_init)
         p: Params = {"embed": L.embedding_init(generator, cfg.vocab_size,
                                                cfg.d_model, dtype, dev)}
+        if cfg.frontend == "audio":
+            # the embedding table above is unused here, as in the reference
+            p["frontend"] = {
+                "proj": L._he(generator, (cfg.frontend_dim, cfg.d_model),
+                              cfg.frontend_dim ** -0.5, dtype, dev),
+                "convpos": L.convpos_init(generator, cfg.d_model,
+                                          dtype=dtype, device=dev)}
         p["final_norm"] = norm_init(cfg.d_model, dtype, dev)
         if not cfg.tie_embeddings:
             p["unembed"] = L.embedding_init(generator, cfg.vocab_size,
@@ -285,7 +301,14 @@ class Model:
 
     def _frontend(self, params: Params, batch: dict) -> torch.Tensor:
         """Token embeddings; under the vision stub the batch's
-        ``vision_embeds`` (B, P, d) replace the first P of them."""
+        ``vision_embeds`` (B, P, d) replace the first P of them. Under the
+        audio stub the batch's ``frames`` (B, S, frontend_dim), taken in
+        the parameters' type, are projected to d and the conv positional
+        encoding is added."""
+        if self.cfg.frontend == "audio":
+            fp = params["frontend"]
+            x = batch["frames"].to(fp["proj"].dtype) @ fp["proj"]
+            return x + L.convpos_apply(fp["convpos"], x)
         x = L.embed(params["embed"], batch["tokens"])
         if self.cfg.frontend == "vision" and "vision_embeds" in batch:
             ve = batch["vision_embeds"].to(x.dtype)
@@ -339,7 +362,9 @@ class Model:
         ``max_seq`` positions (``min(max_seq, attn_window)`` for local
         attention), as in the JAX package; a global cache past ``max_seq``
         keeps its first ``max_seq`` positions. The xLSTM state does not
-        grow with ``max_seq``."""
+        grow with ``max_seq``. An encoder-only config has none: it
+        raises (:func:`check_decode_capable`)."""
+        check_decode_capable(self.cfg)
         dev = resolve_device(device)
         caches = []
         for pattern, repeat in self.cfg.stages:
@@ -357,8 +382,10 @@ class Model:
         """One token for every sequence. tokens: (B, 1) int. Attention
         caches are written in place; a stacked stage's cache is updated in
         place in its stacked tensors and returned as it is. The MoE
-        blocks' aux losses are dropped, as in the reference."""
+        blocks' aux losses are dropped, as in the reference. An
+        encoder-only config raises (:func:`check_decode_capable`)."""
         cfg = self.cfg
+        check_decode_capable(cfg)
         x = L.embed(params["embed"], tokens)
         new_caches = []
         for (pattern, repeat), sp, sc in zip(cfg.stages, params["stages"],

@@ -20,19 +20,22 @@ from . import core as rc
 from .configs import get_arch
 from .device import resolve_device
 from .models import Model
+from .models.model import check_decode_capable
 from .train import make_serve_step
 
 
 class Server:
     """Greedy decode server with slot-based batching for the config
     ``arch``. ``params`` defaults to random weights drawn from ``seed``;
-    ``smoke=False`` serves the full-width config."""
+    ``smoke=False`` serves the full-width config. An encoder-only config
+    (no decode step) is refused."""
 
     def __init__(self, arch: str = "xlstm-125m", *, smoke: bool = True,
                  slots: int = 4, max_new: int = 16, device=None,
                  params: "dict | None" = None, seed: int = 0):
         self.device = resolve_device(device)
         self.cfg = get_arch(arch, smoke=smoke)
+        check_decode_capable(self.cfg)
         self.model = Model(self.cfg)
         if params is None:
             params = self.model.init(torch.Generator().manual_seed(seed),

@@ -23,10 +23,12 @@ from .state import TrainState
 
 def value_and_grad(model: Model, params, batch: dict):
     """(loss, metrics), grads of ``model.loss`` at ``params``, leaving
-    ``params`` as they were."""
+    ``params`` as they were. A leaf the loss does not read (HuBERT's
+    embedding table) gets zeros, as ``jax.grad`` gives it."""
     leafs = tree_map(lambda p: p.detach().requires_grad_(True), params)
     loss, metrics = model.loss(leafs, batch)
-    grads = torch.autograd.grad(loss, list(leaves(leafs)))
+    grads = torch.autograd.grad(loss, list(leaves(leafs)), allow_unused=True,
+                                materialize_grads=True)
     it = iter(grads)
     grads = tree_map(lambda _: next(it), leafs)
     metrics = {k: v.detach() for k, v in metrics.items()}

@@ -300,14 +300,17 @@ def test_widened_flash_in_fp64_is_the_plain_path_summed_wider():
 @pytest.mark.parametrize("d", FK.HEAD_DIMS)
 def test_flash_bf16_tiles_fit_shared_memory(d):
     """bf16 tiles: the Q tile, one K and one V block, all at row pitch
-    d + 8 (4 words mod 32, so ldmatrix's 8 rows of 16 bytes meet no bank
-    twice), two bytes an element."""
+    d + 8 (d / 2 + 4 words, an odd multiple of 4: 4 mod 32 at d = 64, 128,
+    256, 12 at 80, so ldmatrix's 8 rows of 16 bytes fall on 8 distinct
+    4-bank groups and meet no bank twice), two bytes an element."""
     geo = FK.geometry(1, 56, 8, 4096, 4096, d, True, None,
                       dtype=torch.bfloat16)
     assert geo.el == 2
+    assert FK.pitches(d, 2) == (d + 8, d + 8)
     assert geo.smem_bytes == FK.smem_bytes(d, 2) == \
         2 * (160 * (d + 8) + 32 * (d + 8))
-    assert (d + 8) * 2 // 4 % 32 == 4
+    words = (d + 8) * 2 // 4
+    assert len({row * words % 32 // 4 for row in range(8)}) == 8
     assert geo.smem_bytes < FK.smem_bytes(d) <= FK.SMEM_LIMIT
 
 

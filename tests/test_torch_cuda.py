@@ -179,7 +179,9 @@ def test_rglru_launch_geometry_on_card(cuda_device, b, s, w, offset):
     (1, 4, 8, 1000, 128, True, None),    # yi-9b's grouping, no window
     (1, 8, 7, 300, 128, True, None),     # yi-34b's
     (1, 16, 1, 1000, 128, True, None),   # qwen2-moe's and deepseek-moe's
-    (2, 4, 8, 200, 64, False, None)])
+    (2, 4, 8, 200, 64, False, None),
+    (2, 16, 1, 300, 80, False, None),    # hubert-xlarge's, S ragged
+    (1, 2, 2, 130, 80, True, 48)])       # D=80 under a causal window
 def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
                                             causal, window):
     q, k, v = (t(a, cuda_device) for a in flash_inputs(3, b, kv, g, s, d))
@@ -194,7 +196,7 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, b, kv, g, s, d,
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_flash_launch_geometry_on_card(cuda_device, d):
     """The card's occupancy gives the CTAs per SM; at D=256 one CTA of 128
     rows fills an SM's shared memory."""
@@ -210,7 +212,7 @@ def test_flash_launch_geometry_on_card(cuda_device, d):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 def test_flash_bf16_launch_geometry_on_card(cuda_device, d):
     """The bf16 instance holds as many CTAs a SM as its launch bounds ask
     registers for (2 up to D=128, 1 at D=256), as the plain geometry
@@ -268,6 +270,7 @@ _BF16_CASES = {  # the flash cases: b, kv, g, s, d, causal, window
     "flash-yi-34b": (1, 8, 7, 1000, 128, True, None),   # G=7, D=128
     "flash-g1": (1, 16, 1, 300, 128, True, None),
     "flash-noncausal": (2, 2, 2, 130, 256, False, None),
+    "flash-hubert": (2, 16, 1, 300, 80, False, None),   # D=80, non-causal
 }
 # the decode cases: b, kv, g, s, d, lengths, the cache's type (q is bf16)
 _BF16_DECODE_CASES = {
@@ -576,6 +579,44 @@ def test_narrow_gqa_model_with_kernels_matches_plain_on_card(cuda_device):
     with torch.no_grad():
         short, _ = plain.apply(params, {"tokens": toks[:, :8]})
     assert (step_k[:, 0] - short[:, -1]).abs().max().item() <= 1e-3 * scale
+
+
+@pytest.mark.requires_cuda
+def test_narrow_hubert_model_with_kernels_matches_plain_on_card(cuda_device):
+    """A narrow HuBERT at its head shape (2 attn layers, 4 heads of 80,
+    non-causal, the audio frontend): the forward launches flash_attention
+    once a layer and its logits agree with the plain path's within 1e-4 of
+    the largest; the eval loss the same."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train import make_eval_step
+
+    cfg = dataclasses.replace(get_arch("hubert-xlarge"), n_layers=2,
+                              d_model=320, n_heads=4, n_kv_heads=4,
+                              head_dim=80, d_ff=640, vocab_size=64)
+    params = Model(cfg).init(
+        torch.Generator(device=cuda_device).manual_seed(0),
+        device=cuda_device)
+    rng = np.random.default_rng(0)
+    batch = {"frames": t(rng.standard_normal((2, 300, cfg.frontend_dim),
+                                             dtype=np.float32), cuda_device),
+             "labels": t(rng.integers(0, cfg.vocab_size, size=(2, 300)),
+                         cuda_device)}
+    kern, plain = Model(cfg), Model(cfg, kernel_impl="plain")
+    FK.launches = 0
+    with torch.no_grad():
+        got, _ = kern.apply(params, batch)
+        torch.cuda.synchronize()
+        assert FK.launches == 2
+        want, _ = plain.apply(params, batch)
+    assert FK.launches == 2
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-4 * scale
+    loss_k = make_eval_step(kern)(params, batch)["loss"].item()
+    loss_p = make_eval_step(plain)(params, batch)["loss"].item()
+    assert abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
 
 
 @pytest.mark.requires_cuda

@@ -57,7 +57,8 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.configs.qwen2_moe_a2_7b",
             "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.models.mla",
-            "repro_torch.configs.minicpm3_4b"} <= set(_port_modules())
+            "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.hubert_xlarge"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"

@@ -355,11 +355,28 @@ def test_flash_geometry_walks_heaviest_tiles_first(b, h, kv, sq, skv, d,
 
 @pytest.mark.parametrize("d", FK.HEAD_DIMS)
 def test_flash_tiles_fit_shared_memory(d):
-    """The Q tile and one K block at row pitch d + 16, one V block at
-    d + 4; two K and two V blocks would not fit at d = 256."""
+    """The Q tile and one K block at the Q and K row pitch, one V block at
+    the V pitch: each the least pitch above d (d + 16 and d + 4 where d is
+    a multiple of 32, 80 and 100 at d = 80) at which the kernel's float4
+    loads, served a quarter warp at a time, meet no bank twice (QK^T: lane
+    (g, t) at word g * pitch + 4t; PV: at 2t * pitch + 4g); at d = 80 the
+    PV tail's float2 loads, a half warp at a time, also meet none. Two K
+    and two V blocks would not fit at d = 256."""
+    qk, vp = FK.pitches(d)
+    assert d <= qk < d + 32 and d <= vp < d + 32
+    for i in range(4):                       # the quarter warps
+        lanes = [(g, tt) for g in (2 * i, 2 * i + 1) for tt in range(4)]
+        assert len({(g * qk + 4 * tt) // 4 % 8 for g, tt in lanes}) == 8
+        assert len({(2 * tt * vp + 4 * g) // 4 % 8 for g, tt in lanes}) == 8
+    if d % 32:                               # the half warps of the tail
+        for h in range(2):
+            words = {(2 * tt * vp + 32 * (d // 32) + 2 * g) % 32
+                     for g in range(4 * h, 4 * h + 4) for tt in range(4)}
+            assert len(words) == 16 and all(w % 2 == 0 for w in words)
+    if d % 32 == 0:                          # the pitches these dims had
+        assert (qk, vp) == (d + 16, d + 4)
     geo = FK.geometry(1, 16, 1, 4096, 4096, d, True, 2048)
-    assert geo.smem_bytes == FK.smem_bytes(d) == \
-        4 * (160 * (d + 16) + 32 * (d + 4))
+    assert geo.smem_bytes == FK.smem_bytes(d) == 4 * (160 * qk + 32 * vp)
     assert geo.smem_bytes <= FK.SMEM_LIMIT == 232448
     assert 4 * (128 * (256 + 16) + 64 * (256 + 16) + 64 * (256 + 4)) \
         > FK.SMEM_LIMIT
@@ -397,7 +414,7 @@ def test_flash_geometry_at_the_yi_9b_shape():
                        ctas_per_sm=2).waves == 4
 
 
-@pytest.mark.parametrize("d", [16, 80, 192, 512])
+@pytest.mark.parametrize("d", [16, 96, 192, 512])
 def test_flash_geometry_rejects_head_dims(d):
     with pytest.raises(ValueError, match="not one of"):
         FK.geometry(1, 1, 1, 64, 64, d)

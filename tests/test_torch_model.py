@@ -159,10 +159,10 @@ def test_init_is_seeded_and_placed():
 
 
 def test_other_block_kinds_name_their_slice():
-    """The audio frontend, still refused, names the slice that brings it;
-    an unknown kind is refused by name. ``attn`` and ``dense`` came with
-    the GQA slice, ``moe`` with the MoE slice, ``mla`` with the MLA slice:
-    each builds, and an ``mla`` block runs."""
+    """An unknown kind is refused by name. ``attn`` and ``dense`` came with
+    the GQA slice, ``moe`` with the MoE slice, ``mla`` with the MLA slice,
+    the audio frontend with HuBERT's: each builds, and an ``mla`` block and
+    an audio-fronted ``attn`` block run."""
     base = ArchConfig(name="tiny", family="dense", n_layers=1, d_model=8,
                       n_heads=2, n_kv_heads=2, d_ff=16, vocab_size=16,
                       scan_layers=False,
@@ -171,8 +171,14 @@ def test_other_block_kinds_name_their_slice():
                       mla=MLADims(d_model=8, n_heads=2, q_lora_rank=6,
                                   kv_lora_rank=4, qk_nope_dim=2,
                                   qk_rope_dim=2, v_head_dim=3))
-    with pytest.raises(NotImplementedError, match="hubert slice"):
-        Model(dataclasses.replace(base, frontend="audio"))
+    audio = Model(dataclasses.replace(base, frontend="audio",
+                                      frontend_dim=4, d_model=32,
+                                      n_heads=2, n_kv_heads=2,
+                                      pattern=("attn",)))
+    params = audio.init(torch.Generator().manual_seed(0), device="cpu")
+    assert params["frontend"]["convpos"]["w"].shape == (128, 2, 32)
+    logits, _ = audio.apply(params, {"frames": torch.ones(1, 5, 4)})
+    assert logits.shape == (1, 5, 16) and torch.isfinite(logits).all()
     with pytest.raises(NotImplementedError, match="'conv'"):
         Model(dataclasses.replace(base, pattern=("conv",)))
     for kind in ("attn", "dense", "moe", "mla"):

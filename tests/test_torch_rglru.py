@@ -98,13 +98,9 @@ def test_mlp_matches_reference():
 
 @pytest.mark.parametrize("kind", ["gelu", "squared_relu"])
 def test_other_mlp_kinds_name_their_family(kind):
-    """gelu is refused naming hubert, the family it comes with;
-    squared_relu came with Nemotron-4's (the GQA slice) and matches the
-    reference."""
-    if kind == "gelu":
-        with pytest.raises(NotImplementedError, match="hubert"):
-            TL.mlp_init(torch.Generator(), D_MODEL, 128, kind)
-        return
+    """The ungated kinds match the reference: gelu came with HuBERT's slice
+    (the tanh GELU, as ``jax.nn.gelu`` defaults to), squared_relu with
+    Nemotron-4's (the GQA slice)."""
     jp, tp = _params(lambda key: JL.mlp_init(key, D_MODEL, 128, kind), 2)
     assert sorted(tp) == ["w_down", "w_up"]
     x = randn(np.random.default_rng(2), B, 8, D_MODEL)
