@@ -42,7 +42,23 @@ Phases, each printing its own lines; any failure exits non-zero:
      mLSTM and 8 sLSTM launches and the sequential tokens bit for bit; a
      stream pipeline under cuda_async at max_in_flight=2 giving the same
      tokens; and the shared state: an exact state.add fold from 8 futures
-     on threads, and state.get returning the live params.
+     on threads, and state.get returning the live params;
+  6b. the same prefill in worker processes under plan("processes",
+     workers=2), the paper's multisession: three prefill futures, each
+     with the ms until future() returns, the ms until value() returns, the
+     direct call's ms and the bytes of ``put`` messages the worker was
+     sent (counted on the parent's ends of the pipes); each worker's pid
+     (not the parent's), launch counts (10 mLSTM, 2 sLSTM, read in the
+     worker) and card, and its tokens phase 3's bit for bit; a worker that
+     already holds the parameters is sent no ``put``; future_map over phase
+     6's 4 batches of B=2 on the two workers, twice (cold, then warm), with
+     the sequential map's tokens bit for bit and 40 mLSTM and 8 sLSTM
+     launches summed from the workers; a worker that dies (os._exit)
+     raising WorkerDiedError, and the healed worker's prefill (sent the
+     parameters again) giving phase 3's tokens; the shared state over the
+     pipe: an exact state.add fold from 8 futures, and the embedding table
+     (50304 x 768 fp32, 154.5 MB) put by the driver, doubled in a worker
+     and put back, bit for bit.
 Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
 4096, 10.4 B fp32 parameters, random from the seed) takes the card:
   2b. the RG-LRU scan, windowed flash attention and split-S decode
@@ -69,8 +85,9 @@ Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
       its attention summed in fp64 (``WidenedFlash(torch.float64)``);
   4b. the decode Server for this arch answering the same kind of traffic;
       one decode step at B=4 (26 rglru_scan and 12 decode_attention
-      launches) is timed, and the 512-token request's decode-path logits
-      are held against the prefill step.
+      launches) is timed, and the 256-token request's decode-path logits
+      are held against the prefill step (the long requests of 4b to 4g
+      cut from 512 tokens for time, ``LONG_REQUEST``).
 Then RecurrentGemma is freed and Yi-9B (48 attn layers, d_model 4096, 32
 heads over 4 KV heads of 128, d_ff 11008, vocab 64000; 8.83 B fp32
 parameters, random from the seed on the card) takes it:
@@ -85,9 +102,9 @@ parameters, random from the seed on the card) takes it:
       other kernel), held against the plain path within 1e-4 of the
       largest logit, beside the 1-ulp yardstick;
   4c. the decode Server for yi-9b answering 6 short requests and one
-      512-token request; one decode step at B=4 with every cache holding
+      256-token request; one decode step at B=4 with every cache holding
       4096 positions (48 decode_attention launches) with its device time,
-      wall time and idle share; the 512-token request's decode-path logits
+      wall time and idle share; the 256-token request's decode-path logits
       held against the prefill step.
 Then Yi-9B is freed and Qwen1.5-MoE-A2.7B (24 moe layers, d_model 2048,
 16 heads over 16 KV heads of 128, 60 routed experts padded to 64, top-4,
@@ -104,9 +121,9 @@ takes it:
       where a decision differs), beside the 1-ulp yardstick, with the
       share of assignments dropped by capacity;
   4d. the decode Server for qwen2-moe-a2.7b answering 6 short requests and
-      one 512-token request; one decode step at B=4 with every cache
+      one 256-token request; one decode step at B=4 with every cache
       holding 4096 positions (24 decode_attention launches) with its
-      device time, wall time and idle share; the 512-token request's
+      device time, wall time and idle share; the 256-token request's
       decode-path logits at every step held by the same rule against a
       prefill that cannot drop (capacity factor n_experts), beside the
       assignments the real prefill drops on that prompt.
@@ -136,10 +153,10 @@ drawn from the seed on the card in bf16, 68.78 GB; nothing cut) takes it:
       the plain path, each within the 1-ulp bf16 yardstick of the same
       run, and (c) timed, with tokens/s and peak memory;
   4f. the decode Server for yi-34b on the bf16 tree (fp32 caches, bf16 q)
-      answering 6 short requests and one 512-token request; one decode step
+      answering 6 short requests and one 256-token request; one decode step
       at B=4 with every bf16 cache holding 4096 positions (60
       decode_attention launches) with its device time, wall time and idle
-      share; the 512-token request's decode-path logits held against the
+      share; the 256-token request's decode-path logits held against the
       prefill step within TOL_DECODE_REL_BF16, beside the yardstick.
 Then Yi-34B is freed and MiniCPM3-4B (62 mla layers, d_model 2560, 40
 heads, latents r_q 768 and r_kv 256, q.k at 64 + 32 dims and v at 64, d_ff
@@ -151,7 +168,7 @@ runs no Pallas kernel there:
       (``mla_logits_fp64``) within 1e-4 of the largest logit, beside the
       1-ulp yardstick, and timed, with tokens/s and peak memory;
   4g. the decode Server for minicpm3-4b answering 6 short requests and one
-      of 256 tokens (cut from 512 for time) through the absorbed-latent
+      of 256 tokens through the absorbed-latent
       decode; one decode step at B=4 with every latent cache holding 4096
       positions (no launch) with its device time, wall time and idle
       share; the long request's decode-path logits held against the
@@ -245,12 +262,18 @@ TOL_DECODE_REL_BF16 = 0.1
 # long request; its path runs no kernel, so its fp32 prefill is held
 # against the same model summed in fp64 (``mla_logits_fp64``) within
 # TOL_PREFILL_REL, and its absorbed decode against the expanded prefill
-# within TOL_DECODE_REL. The long request is cut from 512 tokens to 256:
-# a decode step's wall is ~140-200 ms (host-bound, ~75 launches a layer
-# over 62 layers), and at 512 tokens phase 4g alone took 193 s
+# within TOL_DECODE_REL.
 MLA_S = 4096
 MLA_DEC_B = 4
-MLA_LONG = 256
+# The Servers of the large models (phases 4b to 4g) answer a long request
+# of LONG_REQUEST tokens, cut from 512 for time. Their decode steps are
+# host-bound at ~50-200 ms a step (~1,300 launches a step at Yi-34B, ~75
+# a layer over MiniCPM3's 62), and the long prompt is fed a token a step
+# twice, by the Server and by the decode-path check: at 512 tokens the
+# phases took 1075 s of the 1200 s a run is allowed on a slow host (4g
+# alone 193 s at 512 on another). xLSTM's Server (phase 4) keeps 512.
+# The cut requests still draw 512 tokens, so later phases see the same data.
+LONG_REQUEST = 256
 # HuBERT-XLarge (phases 2h, 3h): B clips of S frames, eight 30-second clips
 # at 20 ms a frame, the unit of offline transcription and labelling; 1500
 # = 11 x 128 + 92 = 46 x 32 + 28, so every launch has a ragged query tile
@@ -534,8 +557,12 @@ def main() -> int:
     # -- 6. the Future API on the card ---------------------------------------
     future_api_phase(dev, cfg, params, prefill, tokens, first, prefill_ms,
                      smi)
-    del first, tokens, prefill
     phase_done("6")
+
+    # -- 6b. the same prefill in worker processes -----------------------------
+    processes_phase(cfg, params, prefill, tokens, first, smi)
+    del first, tokens, prefill
+    phase_done("6b")
 
     # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
     del model, params
@@ -587,19 +614,21 @@ def main() -> int:
     return 0
 
 
-def serve_traffic(server, rng, vocab: int,
-                  long_len: int = 512) -> tuple[dict, list]:
+def serve_traffic(server, rng, vocab: int, long_len: int = 512,
+                  keep: "int | None" = None) -> tuple[dict, list]:
     """Six 4-token requests and one of ``long_len`` tokens (drawn from
-    ``rng``), submitted as futures under plan("threads") to ``server``'s
-    running loop, each printed as it resolves; checks that each gets 16
-    tokens.
+    ``rng``; only its first ``keep`` sent when given, so that ``rng``
+    moves on as before the long request was cut and the later phases draw
+    the same data), submitted as futures under plan("threads") to
+    ``server``'s running loop, each printed as it resolves; checks that
+    each gets 16 tokens.
     Returns the replies by request and the long prompt."""
     import repro_torch.core as rc
     rc.plan("threads", workers=4)
     loop = threading.Thread(target=server.serve_loop, daemon=True)
     loop.start()
     prompts = [rng.integers(0, vocab, size=4).tolist() for _ in range(6)]
-    prompts.append(rng.integers(0, vocab, size=long_len).tolist())
+    prompts.append(rng.integers(0, vocab, size=long_len).tolist()[:keep])
     t0 = time.perf_counter()
     pending = {i: (server.submit(p), time.perf_counter())
                for i, p in enumerate(prompts)}
@@ -1133,6 +1162,235 @@ def future_api_phase(dev, cfg, params, prefill, tokens, first,
     del maps, toks, batches, live
 
 
+class PutTally:
+    """The parent's end of one worker's pipe, counting the payload bytes
+    of the ``put`` messages sent through it."""
+
+    def __init__(self, conn):
+        self._conn = conn
+        self.put_bytes = 0
+
+    def send(self, msg):
+        if msg[0] == "put":
+            self.put_bytes += len(msg[2])
+        self._conn.send(msg)
+
+    def __getattr__(self, name):
+        return getattr(self._conn, name)
+
+
+#: seconds any one wait on a worker may take in phase 6b (a cold worker
+#: imports torch, starts CUDA and decodes the 0.62 GB of parameters)
+WORKER_WAIT = 300.0
+
+
+def bounded(fn, timeout: float):
+    """``fn()`` on a thread of its own, waited for at most ``timeout``
+    seconds: a call with no timeout of its own (``future_map``) that hangs
+    fails the phase instead of the run. Its error is raised here."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as exc:                 # noqa: BLE001
+            out["error"] = exc
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(timeout)
+    check(not th.is_alive(), f"the call finished within {timeout:.0f} s")
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def processes_phase(cfg, params, prefill, tokens, first, smi: str) -> None:
+    """Phase 6b: the xLSTM prefill in worker processes under
+    plan("processes"): prefill futures, future_map, a dying worker and the
+    healed pool, and the shared state over the pipe."""
+    import torch
+
+    import repro_torch.core as rc
+    from repro_torch.core import state
+    from repro_torch.core.backends import processes as P
+    from repro_torch.tree import leaves
+
+    n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
+    n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
+    want_launches = {"mlstm_scan": n_m, "slstm_scan": n_s}
+    card = torch.cuda.get_device_name(0)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves(params))
+
+    tallies = {}                     # worker id -> its PutTally
+    spawn = P.ProcessBackend._spawn
+
+    def counted_spawn(self, defer=False):
+        w = spawn(self, defer=defer)
+        w.parent_conn = tallies[w.wid] = PutTally(w.parent_conn)
+        return w
+
+    def sent() -> dict:
+        return {wid: t.put_bytes for wid, t in tallies.items()}
+
+    def body(b):
+        # runs in a worker: its own launch counters, its own CUDA context
+        import os
+
+        import torch
+        from repro_torch.kernels import mlstm_scan as MK
+        from repro_torch.kernels import slstm_scan as SK
+        MK.launches = SK.launches = 0
+        out = prefill(params, b)
+        torch.cuda.synchronize()
+        return (out, {"mlstm_scan": MK.launches, "slstm_scan": SK.launches},
+                os.getpid(), torch.cuda.get_device_name(0))
+
+    # the workers' payload caches sized to the model: at their 256 MiB
+    # default the parameters' 0.58 GB blob is evicted by the next put, and
+    # a worker would ask it back with a need (0.58 GB more) every future
+    store_bytes = 2 << 30
+    P.ProcessBackend._spawn = counted_spawn
+    try:
+        # (a) three prefill futures (B=8, S=2048) on two workers
+        batch = {"tokens": tokens}
+        rc.plan("processes", workers=2, blob_store_bytes=store_bytes)
+        t0 = time.perf_counter()
+        backend = rc.active_backend()
+        print(f"plan('processes', workers=2): 2 workers up in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        holders, pids = set(), set()
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            direct_ms = (time.perf_counter() - t0) * 1e3
+            before = sent()
+            t0 = time.perf_counter()
+            f = rc.future(body, batch)
+            submit_ms = (time.perf_counter() - t0) * 1e3
+            got, counts, pid, name = rc.value(f, timeout=WORKER_WAIT)
+            value_ms = (time.perf_counter() - t0) * 1e3
+            wid = f._handle.worker.wid
+            put = sent()[wid] - before.get(wid, 0)
+            print(f"processes prefill future {i} (B,S)={(B, S)} on worker "
+                  f"{wid} (pid {pid}, {name}): future() returned in "
+                  f"{submit_ms:.1f} ms, value() at {value_ms:.1f} ms, "
+                  f"direct call {direct_ms:.1f} ms; put bytes sent "
+                  f"{put}; launches {counts} ({smi})")
+            check(pid != os.getpid(), "the prefill runs in another process")
+            check(name == card, "the worker computes on the card")
+            check(counts == want_launches,
+                  f"a prefill future in a worker launches mlstm_scan {n_m}x "
+                  f"and slstm_scan {n_s}x")
+            check(torch.equal(got, first),
+                  "the worker's prefill tokens are phase 3's bit for bit")
+            if wid in holders:
+                check(put == 0, "a worker that holds the parameters is "
+                      "sent no put")
+            else:
+                check(put > nbytes // 2, "a cold worker is sent the "
+                      "parameters")
+                holders.add(wid)
+            pids.add(pid)
+        del got
+
+        # (b) future_map over phase 6's four batches of B=2, cold then warm
+        rng6 = np.random.default_rng(SEED)
+        batches = [{"tokens": torch.from_numpy(rng6.integers(
+            0, cfg.vocab_size, size=(2, S))).to(tokens.device)}
+            for _ in range(4)]
+        rc.plan("sequential")
+        seq = bounded(lambda: rc.future_map(lambda b: prefill(params, b),
+                                            batches), WORKER_WAIT)
+        torch.cuda.synchronize()
+        rc.plan("processes", workers=2, blob_store_bytes=store_bytes)
+        for run in ("cold", "warm"):
+            before = sent()
+            t0 = time.perf_counter()
+            outs = bounded(lambda: rc.future_map(body, batches),
+                           WORKER_WAIT)
+            wall = (time.perf_counter() - t0) * 1e3
+            total = {k: sum(o[1][k] for o in outs) for k in want_launches}
+            same = all(torch.equal(o[0], t) for o, t in zip(outs, seq))
+            workers = sorted({o[2] for o in outs})
+            put = {w: sent()[w] - before.get(w, 0) for w in sent()}
+            print(f"  future_map of the prefill over 4 batches (B,S)="
+                  f"{(2, S)} on processes ({run}): {wall:.1f} ms, worker "
+                  f"pids {workers}, launches {total}, put bytes {put}, "
+                  f"tokens bit for bit the sequential ones: {same}")
+            check(same and len(outs) == 4,
+                  "future_map on processes gives the sequential tokens")
+            check(total == {k: 4 * n for k, n in want_launches.items()},
+                  "future_map on processes launches each kernel once a "
+                  "block a batch")
+        del outs, seq, batches
+
+        # (c) a dying worker, and the healed pool
+        died = None
+        f = rc.future(lambda: os._exit(7))
+        try:
+            rc.value(f, timeout=WORKER_WAIT)
+        except rc.WorkerDiedError as exc:
+            died = exc
+        print(f"  a worker calling os._exit: {type(died).__name__}: {died}")
+        check(died is not None, "a dying worker raises WorkerDiedError")
+        before = sent()
+        t0 = time.perf_counter()
+        f = rc.future(body, batch)
+        got, counts, pid, _ = rc.value(f, timeout=WORKER_WAIT)
+        value_ms = (time.perf_counter() - t0) * 1e3
+        wid = f._handle.worker.wid
+        put = sent()[wid] - before.get(wid, 0)
+        print(f"  the healed worker {wid} (pid {pid}, new: "
+              f"{pid not in pids}): prefill value() at {value_ms:.1f} ms, "
+              f"put bytes {put}, launches {counts}")
+        check(pid not in pids and pid != os.getpid(),
+              "the next prefill runs on the healed worker")
+        check(torch.equal(got, first) and counts == want_launches,
+              "the healed worker's prefill is phase 3's bit for bit")
+        check(put > nbytes // 2, "the healed worker's cold cache is sent "
+              "the parameters again")
+        del got
+
+        # (d) shared state over the pipe
+        state.reset()
+        fs = [rc.future(lambda: state.add("tokens", 2 * S))
+              for _ in range(8)]
+        rc.value(fs, timeout=WORKER_WAIT)
+        folded = state.read("tokens")
+        print(f"  state.add from 8 futures on processes: {folded} "
+              f"(value, version); want ({8 * 2 * S}, 8)")
+        check(folded == (8 * 2 * S, 8), "the state fold over the pipe is "
+              "exact")
+        table = params["embed"]["table"]
+        state.put("embed", table)
+
+        def doubler():
+            from repro_torch.core import state
+            t = state.get("embed")
+            state.put("embed2", t * 2)
+            return t.device.type, tuple(t.shape), t.dtype
+
+        t0 = time.perf_counter()
+        where = rc.value(rc.future(doubler), timeout=WORKER_WAIT)
+        rt_ms = (time.perf_counter() - t0) * 1e3
+        back = state.get("embed2")
+        same = back.is_cuda and torch.equal(back, table * 2)
+        print(f"  the embedding table ({table.numel() * 4 / 1e6:.1f} MB) "
+              f"through state: in the worker {where}, doubled and put back "
+              f"in {rt_ms:.1f} ms, bit for bit on the card: {same}")
+        check(where[0] == "cuda" and same,
+              "the table round-trips the blob path bit for bit")
+        del back, table
+        state.reset()
+    finally:
+        P.ProcessBackend._spawn = spawn
+        rc.shutdown()
+    torch.cuda.synchronize()
+
+
 def kernel_modules() -> dict:
     """Each kernel's wrapper module, whose ``launches`` counts its kernel's
     launches, by kernel name."""
@@ -1456,7 +1714,8 @@ def recurrentgemma_phases(dev, rng, kernels: dict) -> None:
     # -- 4b. the Server at full width ----------------------------------------
     server = Server("recurrentgemma-9b", smoke=False, slots=4, max_new=16,
                     device=dev, params=params)
-    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size,
+                                         keep=LONG_REQUEST)
 
     # one decode step at B=4 with every local-attention ring buffer full
     step = server.step
@@ -1877,7 +2136,8 @@ def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
     # -- 4c. the Server for yi-9b at full width ------------------------------
     server = Server("yi-9b", smoke=False, slots=4, max_new=16, device=dev,
                     params=params)
-    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size,
+                                         keep=LONG_REQUEST)
 
     # one decode step at B=4 with every cache holding YI_S positions
     step = server.step
@@ -2231,7 +2491,8 @@ def moe_phases(dev, rng, kernels: dict, smi: str) -> None:
     # -- 4d. the Server for qwen2-moe-a2.7b at full width --------------------
     server = Server("qwen2-moe-a2.7b", smoke=False, slots=4, max_new=16,
                     device=dev, params=params)
-    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size,
+                                         keep=LONG_REQUEST)
     del server
     kernels["decode_attention@qwen2-moe-a2.7b"]["launches"] = \
         moe_decode_step(cfg, model, params, smi)
@@ -2385,7 +2646,8 @@ def yi34_phases(dev, rng, kernels: dict, smi: str) -> None:
     # -- 4f. the Server for yi-34b from the bf16 tree ------------------------
     server = Server("yi-34b", smoke=False, slots=4, max_new=16, device=dev,
                     params=params)
-    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size)
+    replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size,
+                                         keep=LONG_REQUEST)
     del server
 
     # one decode step at B=4 with every bf16 cache holding YI_S positions
@@ -2585,7 +2847,7 @@ def minicpm3_phases(dev, rng, smi: str) -> None:
                     device=dev, params=params)
     zero_counts()
     replies, long_prompt = serve_traffic(server, rng, cfg.vocab_size,
-                                         long_len=MLA_LONG)
+                                         long_len=LONG_REQUEST)
     check(read_counts() == dict.fromkeys(counters, 0),
           "the MLA Server launches no kernel")
     del server

@@ -3,11 +3,9 @@ frontend built on it (the twin of ``examples/quickstart.py``).
 
 The three constructs, plan(), relaying, parallel RNG, EITHER, retries,
 stream() pipelines with bounded in-flight backpressure, the cooperative
-asyncio lane, and the port's own backend, ``cuda_async``: futures resolved
-by CUDA events on the card's stream. The original's worker-process section
-(``plan("processes")`` and a dying worker) waits for the port's
-out-of-process backends; this twin shows the same retry contract on
-``plan("threads")``.
+asyncio lane, worker processes (``plan("processes")``: a dying worker and
+the healed pool), and the port's own backend, ``cuda_async``: futures
+resolved by CUDA events on the card's stream.
 
 Run on the GPU:  PYTHONPATH=src python examples/quickstart_torch.py
 On the CPU:      PYTHONPATH=src python examples/quickstart_torch.py --device cpu
@@ -16,6 +14,7 @@ On the CPU:      PYTHONPATH=src python examples/quickstart_torch.py --device cpu
 import argparse
 import asyncio
 import itertools
+import os
 import time
 import warnings
 
@@ -143,6 +142,20 @@ def main():
     print("await f:  ", one)
     print("async for:", done, "(completion order)")
     print("stream.collect_async:", squares)
+
+    # -- worker processes + fault tolerance (the paper's multisession) -----
+    plan("processes", workers=2)
+    print("worker pid:", value(future(lambda: os.getpid()), timeout=120),
+          "(parent:", str(os.getpid()) + ")")
+
+    def die():
+        os._exit(9)
+
+    try:
+        value(future(die), timeout=120)
+    except rc.WorkerDiedError as e:
+        print("node failure detected:", e)
+    print("pool self-healed:", value(future(lambda: "alive"), timeout=120))
 
     # -- futures over the card's stream: plan("cuda_async") ----------------
     #

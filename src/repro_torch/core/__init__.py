@@ -7,9 +7,11 @@
     ...
     v = value(f)
 
-Backends: "sequential" (default), "threads", "asyncio" and "cuda_async"
-(futures resolved by CUDA events on the card's stream; ``device="cpu"``
-makes it synchronous, for tests). The copy of ``repro.core`` keeps its
+Backends: "sequential" (default), "threads", "processes" (the paper's
+multisession: spawned worker processes, globals shipped content-addressed,
+a dying worker raising ``WorkerDiedError`` while the pool heals), "asyncio"
+and "cuda_async" (futures resolved by CUDA events on the card's stream;
+``device="cpu"`` makes it synchronous, for tests). The copy of ``repro.core`` keeps its
 semantics (snapshot at creation, relaying, lazy futures, continuation
 combinators); only the RNG keys change, to counter-based ``SeedSequence``
 keys that seed a ``torch.Generator`` (see ``rng.py``).
@@ -30,13 +32,15 @@ from . import state                                          # noqa: F401
 from .backends import base as _base                          # noqa: F401
 from .backends import sequential as _sequential              # noqa: F401
 from .backends import threads as _threads                    # noqa: F401
+from .backends import processes as _processes                # noqa: F401
 from .backends import cuda_async as _cuda_async              # noqa: F401
 from .backends import asyncio_loop as _asyncio_loop          # noqa: F401
 from .conditions import (CapturedRun, ImmediateCondition, message,  # noqa: F401
                          signal_progress)
 from .containers import ListEnv                              # noqa: F401
-from .errors import (FutureCancelledError, FutureError,  # noqa: F401
-                     GlobalsError, RNGMisuseWarning)
+from .errors import (ChannelError, FutureCancelledError,  # noqa: F401
+                     FutureError, GlobalsError, NonExportableObjectError,
+                     RNGMisuseWarning, WorkerDiedError)
 from .future import (AsyncWaiter, Future, Waiter, as_completed,  # noqa: F401
                      as_completed_async, first, first_successful, future,
                      gather, merge, resolve, resolved, value, wait_any)
@@ -55,8 +59,8 @@ __all__ = [
     "plan", "spec", "tweak", "shutdown", "available_cores", "active_backend",
     "future_map", "future_lapply", "future_either", "retry", "retry_future",
     "future_map_chunked_lazy", "stream", "Stream", "state",
-    "FutureError", "FutureCancelledError",
-    "GlobalsError", "RNGMisuseWarning",
+    "FutureError", "WorkerDiedError", "ChannelError", "FutureCancelledError",
+    "GlobalsError", "NonExportableObjectError", "RNGMisuseWarning",
     "signal_progress", "message", "ListEnv", "set_session_seed",
     "CapturedRun", "ImmediateCondition",
 ]

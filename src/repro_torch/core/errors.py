@@ -28,6 +28,16 @@ class FutureError(RuntimeError):
         self.worker = worker
 
 
+class WorkerDiedError(FutureError):
+    """The worker resolving the future terminated unexpectedly (the paper's
+    'terminated R workers' case; our simulated node failure)."""
+
+
+class ChannelError(FutureError):
+    """Communication with the worker failed (broken pipe / truncated frame,
+    or a payload the driver could not serve)."""
+
+
 class FutureCancelledError(FutureError):
     """The future was cancelled before it resolved (e.g. the losing branches
     of ``future_either`` or an elastic down-scale)."""
@@ -36,6 +46,12 @@ class FutureCancelledError(FutureError):
 class GlobalsError(ValueError):
     """A global required by the future expression could not be identified or
     snapshotted (paper §Globals and packages)."""
+
+
+class NonExportableObjectError(GlobalsError):
+    """A captured global cannot be shipped to an external worker — the
+    analogue of the paper's 'non-exportable objects' (R connections, external
+    pointers). In Python: unpicklable objects for the processes backend."""
 
 
 class RNGMisuseWarning(UserWarning):

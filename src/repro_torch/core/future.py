@@ -381,11 +381,31 @@ class Future:
     # -- dispatch -------------------------------------------------------------
 
     def _task(self, backend: Backend) -> TaskSpec:
+        shipped = None
+        sources: dict = {}
+        if backend.name == "processes":
+            # Content-addressed shipping: large globals leave the task blob
+            # as PayloadRef digests (shipped at most once per worker); the
+            # extraction doubles as the exportability scan, raising
+            # NonExportableObjectError at creation.
+            from .globals_capture import (dumps_robust, extract_payload_refs,
+                                          ship_function)
+            refd, sources = extract_payload_refs(
+                self._snapshot, backend=backend.name)
+            shipped = dumps_robust({
+                "fn": ship_function(self._fn, refd, self._packages,
+                                    ref_sink=sources),
+                "args": self._args, "kwargs": self._kwargs,
+                "capture_stdout": self._stdout,
+                "capture_conditions": self._conditions,
+                "seed_declared": self.seed_declared,
+            }, ref_sink=sources)
         return TaskSpec(
             task_id=self.id, fn=self._fn, args=self._args,
             kwargs=self._kwargs, label=self.label,
             capture_stdout=self._stdout, capture_conditions=self._conditions,
-            seed_declared=self.seed_declared)
+            seed_declared=self.seed_declared, shipped=shipped,
+            payload_sources=sources)
 
     def _submit(self) -> None:
         with self._lock:

@@ -13,6 +13,8 @@ nesting defaulting to ``sequential`` — the paper's built-in protection
 against N² oversubscription.
 
 Backend kwargs are passed through ``spec()`` to the backend constructor.
+For ``processes``: ``workers=N`` and ``blob_store_bytes=`` (each worker's
+payload cache bound; see ``backends/processes.py``).
 """
 
 from __future__ import annotations
@@ -147,15 +149,85 @@ _TLS = _PlanState()
 _global_stack: tuple[BackendSpec, ...] = (_SEQUENTIAL,)
 _active_backend: Backend | None = None
 _active_spec: BackendSpec | None = None
+_active_key: "tuple | None" = None
 _lock = threading.RLock()
 
 
-def _drop_active_locked() -> list:
-    """Detach the active backend (callers hold _lock) and return it for the
-    caller to shut down after releasing the lock."""
-    global _active_backend, _active_spec
-    doomed = [] if _active_backend is None else [_active_backend]
-    _active_backend = _active_spec = None
+# --------------------------------------------------------------------------
+# Warm backend pool: re-plan()ing to a previously used BackendSpec
+# re-attaches to its live workers (blob caches intact, no torch re-import,
+# no CUDA re-init) instead of cold-starting a new pool. Only worker-owning
+# backends are parked; explicit shutdown() still tears everything down.
+# --------------------------------------------------------------------------
+
+#: parked backends, key -> Backend (insertion-ordered for LRU eviction)
+_WARM_POOL: "dict[tuple, Backend]" = {}
+_WARM_POOL_MAX = 3
+#: backends worth keeping warm (expensive worker startup). Deliberately
+#: excludes the in-process backends — threads are cheap to respawn, and the
+#: asyncio and cuda_async backends' whole cost is one thread: parking them
+#: buys nothing over a cold start, so plan() swaps shut them down instead.
+_POOLABLE = ("processes",)
+
+
+def _freeze(obj) -> "Any":
+    """Recursively hashable view of a spec kwarg value: a dict-valued
+    kwarg must be poolable even though dicts aren't hashable. Dicts become
+    tagged sorted item-tuples (the tag keeps ``{"a": 1}`` distinct from
+    ``(("a", 1),)``)."""
+    if isinstance(obj, dict):
+        return ("{}", tuple(sorted((k, _freeze(v)) for k, v in obj.items())))
+    if isinstance(obj, (list, tuple)):
+        return tuple(_freeze(v) for v in obj)
+    if isinstance(obj, (set, frozenset)):
+        return ("set", tuple(sorted(map(repr, obj))))
+    try:
+        hash(obj)
+    except TypeError:
+        return ("repr", repr(obj))
+    return obj
+
+
+def _backend_key(head: BackendSpec, stack: "tuple[BackendSpec, ...]"
+                 ) -> tuple:
+    """Identity under which a live backend may be reused: same head spec
+    (kwargs deep-frozen), same nested stack (workers captured it at init),
+    same session seed (worker RNG streams derive from it)."""
+    from . import rng as rng_mod
+    nested = stack[1:] if len(stack) > 1 else (_SEQUENTIAL,)
+
+    def _kw(s: BackendSpec):
+        return _freeze(dict(s.kwargs))
+
+    return (head.name, _kw(head),
+            tuple((s.name, _kw(s)) for s in nested),
+            rng_mod._session_seed)
+
+
+def _park_active_locked() -> list:
+    """Move the active backend into the warm pool (callers hold _lock).
+
+    Returns the backends displaced in the process — non-poolable actives,
+    stale pool entries, LRU evictions — for the *caller* to shut down
+    after releasing the lock (a pool's shutdown reaps processes for
+    seconds; holding the planning lock through that would stall every
+    concurrent plan()/active_backend())."""
+    global _active_backend, _active_spec, _active_key
+    doomed: list = []
+    backend, key = _active_backend, _active_key
+    _active_backend = _active_spec = _active_key = None
+    if backend is None:
+        return doomed
+    if key is None or key[0] not in _POOLABLE:
+        doomed.append(backend)
+        return doomed
+    stale = _WARM_POOL.pop(key, None)
+    if stale is not None:
+        doomed.append(stale)
+    _WARM_POOL[key] = backend
+    while len(_WARM_POOL) > _WARM_POOL_MAX:
+        oldest = next(iter(_WARM_POOL))
+        doomed.append(_WARM_POOL.pop(oldest))
     return doomed
 
 
@@ -174,9 +246,13 @@ def plan(levels: "str | BackendSpec | Sequence[BackendSpec | str]" = "sequential
 
     ``plan("threads", workers=4)`` is sugar for ``plan(spec("threads",
     workers=4))``. Changing the plan shuts the previously active backend
-    down once its running futures finish. A level that cannot run on this
-    host (``cuda_async`` without a card) raises here, not at the first
-    future.
+    down once its running futures finish — except a worker-owning one
+    (``processes``), which is *parked* in a small warm pool: re-planning
+    back to the same spec (same nested stack and session seed) re-attaches
+    to the live workers, their imports, CUDA contexts and payload caches
+    intact. Call :func:`shutdown` to really release every worker. A level
+    that cannot run on this host (``cuda_async`` without a card) raises
+    here, not at the first future.
     """
     global _global_stack
     if kwargs:
@@ -191,7 +267,7 @@ def plan(levels: "str | BackendSpec | Sequence[BackendSpec | str]" = "sequential
     with _lock:
         prev = _global_stack
         if new != prev:
-            doomed = _drop_active_locked()
+            doomed = _park_active_locked()
             _global_stack = new
     for b in doomed:
         b.shutdown()
@@ -278,7 +354,7 @@ class use_global_stack:
 
 def active_backend() -> Backend:
     """Instantiate (lazily) the backend for the current stack head."""
-    global _active_backend, _active_spec
+    global _active_backend, _active_spec, _active_key
     head = current_stack()[0]
     if _TLS.stack is not None:
         # Nested context: a private backend, cached on the TLS stack entry
@@ -294,9 +370,12 @@ def active_backend() -> Backend:
     try:
         with _lock:
             if _active_spec != head or _active_backend is None:
-                doomed = _drop_active_locked()
-                _active_backend = head.instantiate()
-                _active_spec = head
+                doomed = _park_active_locked()
+                key = _backend_key(head, _global_stack)
+                warm = _WARM_POOL.pop(key, None)
+                _active_backend = warm if warm is not None \
+                    else head.instantiate()
+                _active_spec, _active_key = head, key
             return _active_backend
     finally:
         for b in doomed:
@@ -304,8 +383,13 @@ def active_backend() -> Backend:
 
 
 def shutdown() -> None:
-    """Release the active backend's workers."""
+    """Release every worker: the active backend *and* the warm pool."""
+    global _active_backend, _active_spec, _active_key
     with _lock:
-        doomed = _drop_active_locked()
+        doomed = list(_WARM_POOL.values())
+        _WARM_POOL.clear()
+        if _active_backend is not None:
+            doomed.append(_active_backend)
+            _active_backend = _active_spec = _active_key = None
     for b in doomed:
         b.shutdown()

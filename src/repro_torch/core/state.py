@@ -24,10 +24,12 @@ each ``key -> (value, version)``. Versions are per-key integers starting at
 counter survives ``delete`` (a later re-``put`` continues the sequence), so
 version numbers are *monotone for the lifetime of the session* and a reader
 can never confuse a re-created entry with a stale one. Values are treated
-as immutable by contract: every backend of the port runs its task bodies in
-this process, so a reader gets the live object — ``state.get`` of a dict of
-CUDA tensors copies nothing, on the host or on the card. Mutate-in-place is
-outside the contract; rebind through ``put``/``update`` instead.
+as immutable by contract: the in-process backends hand back the live
+object — ``state.get`` of a dict of CUDA tensors copies nothing, on the
+host or on the card — and the processes backend a decoded copy (a tensor
+is rebuilt on its device type, see ``backends/blobstore.py``).
+Mutate-in-place is outside the contract; rebind through ``put``/``update``
+instead.
 
 Primitives:
 
@@ -38,28 +40,48 @@ Primitives:
   (``0`` = create); on failure returns the current version + value so a
   retry loop needs no extra round trip
 * ``update(key, fn, default=None) -> (value, version)`` — atomic
-  read-modify-write, folded under the service lock: the committed history
-  is the exact sequential fold (no lost updates, no torn versions). ``fn``
-  must be fast and pure.
+  read-modify-write. In process it folds under the service lock; over the
+  pipe it is a client-side CAS retry loop, so ``fn`` may run more than
+  once under contention and must be pure. Either way the committed history
+  is the exact sequential fold: no lost updates, no torn versions.
 * ``add`` / ``extend`` — the two hot folds (counters and logs);
 * ``delete(key) -> bool``; ``wait(key, min_version=1, timeout=None)`` —
   block until the entry reaches ``min_version`` (:class:`StateTimeout`
   on expiry); ``wait_async`` for coroutines; ``keys(prefix="")``;
   ``version(key)``.
 
-Task bodies reach the service through the ambient client: none is
-installed by the port's backends (all run in process), so module calls
-fall through to the in-process singleton. :class:`state_context` and
-:func:`set_default_client` are the hooks an out-of-process backend installs
-its client through.
+Ambient per-task context
+------------------------
+
+Task bodies address the *driver's* service through a thread-local client
+installed around task execution, mirroring how ``payload_resolver``
+injects content-addressed globals:
+
+* sequential / threads / asyncio / cuda_async (and driver code itself): no
+  client is installed — module calls fall through to the in-process
+  singleton.
+* processes: ``worker_main`` wraps execution in a :class:`PipeStateClient`
+  speaking ``("state", rid, op, args)`` / ``("state_rep", rid, status,
+  payload)`` messages over the existing task pipe; the parent's ``_drive``
+  thread services them against the shared singleton.
+
+Wire value encoding reuses the content-addressed blob machinery: a value
+whose lossless ``transport.encode_payload`` form is smaller than
+``PAYLOAD_REF_THRESHOLD`` travels inline as ``("b", blob)``; larger values
+travel as ``("r", digest, blob|None, nbytes)`` with the bytes parked in
+``DRIVER_STORE`` / the worker's :class:`BlobStore` — a repeated ``get`` of
+a large tensor costs a ~100 B message plus a decoded-object cache hit,
+never a re-encode. A receiver that evicted the digest asks it back with
+the ``blob`` op.
 """
 
 from __future__ import annotations
 
+import itertools
 import pickle
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable
 
 _MISSING = object()
 
@@ -119,13 +141,63 @@ class _Watch:
 
 
 # --------------------------------------------------------------------------
+# Wire value encoding (shared by the RPC client and the driver)
+# --------------------------------------------------------------------------
+
+def _wire_encode(value: Any):
+    """Encode a value for a state message. Returns ``("b", blob)`` below the
+    content-addressing threshold, else ``("r", digest, blob, nbytes)``.
+    Uploads always carry their bytes (values change per commit); download
+    dedup happens driver-side against the per-worker ``known`` set."""
+    from .backends import transport
+    from .backends.blobstore import PAYLOAD_REF_THRESHOLD, blob_digest
+    blob = transport.encode_payload(value, int8=False)
+    if len(blob) < PAYLOAD_REF_THRESHOLD:
+        return ("b", blob)
+    return ("r", blob_digest(blob), blob, len(blob))
+
+
+def _wire_decode(payload, store=None, fetch_blob: "Callable | None" = None):
+    """Decode a state value payload. ``store`` (worker side) lands ref
+    blobs in the local :class:`BlobStore` so repeated large gets hit the
+    decoded-object cache; ``fetch_blob(digest)`` recovers a ref whose
+    bytes were omitted (sender believed we hold them) but evicted."""
+    from .backends import transport
+    if payload[0] == "b":
+        value, _ = transport.decode_payload(payload[1])
+        return value
+    _, digest, blob, _nbytes = payload
+    if store is not None:
+        if blob is not None:
+            store.put(digest, blob)
+        elif digest not in store:
+            if fetch_blob is None:
+                raise StateError(
+                    f"state blob {digest.hex()[:12]} was omitted but is "
+                    f"not held locally")
+            store.put(digest, fetch_blob(digest))
+        return store.resolve(digest)
+    if blob is None:
+        from .backends.blobstore import DRIVER_STORE
+        blob = DRIVER_STORE.get(digest)
+        if blob is None:
+            if fetch_blob is None:
+                raise StateError(
+                    f"state blob {digest.hex()[:12]} was omitted but is "
+                    f"not in the driver store")
+            blob = fetch_blob(digest)
+    value, _ = transport.decode_payload(blob)
+    return value
+
+
+# --------------------------------------------------------------------------
 # The service
 # --------------------------------------------------------------------------
 
 class StateService:
     """Thread-safe versioned KV store + watch registry. Hosted in the
-    driver process; every backend of the port calls it directly (an
-    out-of-process backend would reach it through an RPC client)."""
+    driver process; the processes backend reaches it through
+    :class:`PipeStateClient`, in-process backends call it directly."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -137,16 +209,28 @@ class StateService:
         self._watches: "list[_Watch]" = []
         self.counters = {"puts": 0, "gets": 0, "cas_ok": 0, "cas_fail": 0,
                          "deletes": 0, "waits": 0, "updates": 0, "folds": 0}
+        #: key -> (version, digest, nbytes): lazily cached encoding of the
+        #: current value, so serving the same large value to N workers
+        #: costs one encode, not N
+        self._enc: dict = {}
+        self._digest_key: dict = {}
 
     # -- core ops (in-process surface) --------------------------------------
 
-    def _commit_locked(self, key, value):
+    def _commit_locked(self, key, value, enc=None):
         """Install ``value`` as the next version of ``key``; returns
         ``(version, satisfied_watches)``. Caller holds ``_lock`` and MUST
         fire the watches after releasing it."""
         version = self._versions.get(key, 0) + 1
         self._versions[key] = version
         self._values[key] = value
+        old = self._enc.pop(key, None)
+        if old is not None:
+            self._digest_key.pop(old[1], None)
+        if enc is not None:
+            digest, nbytes = enc
+            self._enc[key] = (version, digest, nbytes)
+            self._digest_key[digest] = key
         fired, rest = [], []
         for wch in self._watches:
             if wch.key == key and version >= wch.min_version:
@@ -260,6 +344,9 @@ class StateService:
         with self._lock:
             self.counters["deletes"] += 1
             present = self._values.pop(key, _MISSING) is not _MISSING
+            enc = self._enc.pop(key, None)
+            if enc is not None:
+                self._digest_key.pop(enc[1], None)
         return present
 
     def wait(self, key, min_version: int = 1, timeout: "float | None" = None):
@@ -294,6 +381,167 @@ class StateService:
         with self._lock:
             return {"entries": len(self._values),
                     "watches": len(self._watches), **self.counters}
+
+    # -- wire surface (the processes driver) ---------------------------------
+
+    def estimated_nbytes(self, key) -> int:
+        """Cheap size estimate for the *current* value of ``key`` (a CUDA
+        tensor is not copied to find it). 0 means "assume small"."""
+        from .backends.blobstore import array_nbytes
+        with self._lock:
+            enc = self._enc.get(key)
+            if enc is not None and enc[0] == self._versions.get(key, 0):
+                return enc[2]
+            value = self._values.get(key)
+        return array_nbytes(value) or 0
+
+    def reply_payload(self, key, value, version: int, known: "set | None"):
+        """Build the wire payload for serving ``(key, value, version)`` to
+        a peer whose held-digest set is ``known``. Returns ``(payload,
+        digest)`` — the caller adds ``digest`` to ``known`` after a
+        successful send. Encodes at most once per version per key (the
+        encoding is cached; bytes live in ``DRIVER_STORE``)."""
+        from .backends import transport
+        from .backends.blobstore import (DRIVER_STORE, PAYLOAD_REF_THRESHOLD,
+                                         blob_digest)
+        digest = nbytes = blob = None
+        with self._lock:
+            enc = self._enc.get(key)
+            if enc is not None and enc[0] == version:
+                _v, digest, nbytes = enc
+        if digest is None:
+            blob = transport.encode_payload(value, int8=False)
+            if len(blob) < PAYLOAD_REF_THRESHOLD:
+                return ("b", blob), None
+            digest, nbytes = blob_digest(blob), len(blob)
+            DRIVER_STORE.put(digest, blob)
+            with self._lock:
+                if self._versions.get(key, 0) == version \
+                        and key in self._values:
+                    old = self._enc.pop(key, None)
+                    if old is not None:
+                        self._digest_key.pop(old[1], None)
+                    self._enc[key] = (version, digest, nbytes)
+                    self._digest_key[digest] = key
+        if known is not None and digest in known:
+            return ("r", digest, None, nbytes), digest
+        if blob is None:
+            blob = DRIVER_STORE.get(digest)
+            if blob is None:
+                blob = transport.encode_payload(value, int8=False)
+                DRIVER_STORE.put(digest, blob)
+        return ("r", digest, blob, nbytes), digest
+
+    def blob_for(self, digest: bytes) -> bytes:
+        """Serve the raw bytes behind a previously advertised state digest
+        (the ``blob`` op: a receiver evicted them). Driver store first,
+        else re-encode the live entry that digest names."""
+        from .backends import transport
+        from .backends.blobstore import DRIVER_STORE
+        blob = DRIVER_STORE.get(digest)
+        if blob is not None:
+            return blob
+        with self._lock:
+            key = self._digest_key.get(digest)
+            current = (key is not None and key in self._values
+                       and self._enc.get(key, (None, None))[1] == digest)
+            value = self._values.get(key) if current else None
+        if not current:
+            raise StateError(
+                f"state blob {digest.hex()[:12]} is no longer current "
+                f"(entry rewritten or deleted)")
+        blob = transport.encode_payload(value, int8=False)
+        DRIVER_STORE.put(digest, blob)
+        return blob
+
+    def handle(self, op: str, args: tuple, known: "set | None" = None):
+        """Execute one non-blocking wire op. Returns ``(status, payload,
+        sent_digest)`` with status ``"ok"`` or ``"err"`` — never raises
+        (malformed ops are the *request's* failure, not the driver's).
+        ``wait`` is not handled here: it blocks, so the driver routes it
+        through a side thread."""
+        try:
+            if op == "get":
+                key, min_version = args
+                with self._lock:
+                    self.counters["gets"] += 1
+                    version = self._versions.get(key, 0)
+                    present = key in self._values \
+                        and version >= int(min_version)
+                    value = self._values.get(key) if present else None
+                if not present:
+                    return "ok", (False, version, None), None
+                payload, digest = self.reply_payload(key, value, version,
+                                                     known)
+                return "ok", (True, version, payload), digest
+            if op == "put":
+                key, vp = args
+                value = _wire_decode(vp)
+                enc = (bytes(vp[1]), vp[3]) if vp[0] == "r" else None
+                if enc is not None:
+                    from .backends.blobstore import DRIVER_STORE
+                    if vp[2] is not None:
+                        DRIVER_STORE.put(enc[0], vp[2])
+                with self._lock:
+                    self.counters["puts"] += 1
+                    version, fired = self._commit_locked(key, value, enc)
+                self._fire(fired, value, version)
+                return "ok", version, None
+            if op == "cas":
+                key, expected, vp = args
+                value = _wire_decode(vp)
+                enc = (bytes(vp[1]), vp[3]) if vp[0] == "r" else None
+                if enc is not None and vp[2] is not None:
+                    from .backends.blobstore import DRIVER_STORE
+                    DRIVER_STORE.put(enc[0], vp[2])
+                with self._lock:
+                    current_version = self._versions.get(key, 0)
+                    if current_version == int(expected):
+                        self.counters["cas_ok"] += 1
+                        version, fired = self._commit_locked(key, value, enc)
+                        committed = True
+                    else:
+                        self.counters["cas_fail"] += 1
+                        committed = False
+                        present = key in self._values
+                        current = self._values.get(key)
+                if committed:
+                    self._fire(fired, value, version)
+                    return "ok", (True, version, False, None), None
+                if not present:
+                    return "ok", (False, current_version, False, None), None
+                payload, digest = self.reply_payload(
+                    key, current, current_version, known)
+                return "ok", (False, current_version, True, payload), digest
+            if op == "add":
+                key, vp = args
+                delta, default = _wire_decode(vp)
+                with self._lock:
+                    self.counters["folds"] += 1
+                    current = self._values.get(key, _MISSING)
+                    value = (default if current is _MISSING
+                             else current) + delta
+                    version, fired = self._commit_locked(key, value)
+                self._fire(fired, value, version)
+                payload, digest = self.reply_payload(key, value, version,
+                                                     known)
+                return "ok", (version, payload), digest
+            if op == "extend":
+                key, vp = args
+                length, version = self.extend(key, _wire_decode(vp))
+                return "ok", (version, length), None
+            if op == "delete":
+                return "ok", self.delete(args[0]), None
+            if op == "keys":
+                return "ok", self.keys(args[0]), None
+            if op == "version":
+                return "ok", self.version(args[0]), None
+            if op == "blob":
+                return "ok", self.blob_for(args[0]), None
+            return "err", _safe_exc(StateError(f"unknown state op {op!r}")), \
+                None
+        except Exception as exc:                          # noqa: BLE001
+            return "err", _safe_exc(exc), None
 
     # -- watch registry (cluster driver's async wait) ------------------------
 
@@ -421,6 +669,150 @@ class _InProcClient:
 
     def stats(self):
         return {**self._svc.stats(), "cas_retries": self.cas_retries}
+
+
+class _RPCClient:
+    """Request/decode logic of a client that reaches the driver's service
+    over a channel. The transport subclass supplies ``_call(op, args,
+    wait_timeout=None)`` returning the reply payload (raising on
+    ``err``/``timeout``)."""
+
+    def __init__(self, store=None):
+        self._store = store
+        self._rid = itertools.count(1)
+        self.cas_retries = 0
+        self._ops = 0
+
+    # transport hook ---------------------------------------------------------
+    def _call(self, op, args, wait_timeout=None):
+        raise NotImplementedError
+
+    def _fetch_blob(self, digest):
+        blob = self._call("blob", (digest,))
+        return bytes(blob) if not isinstance(blob, bytes) else blob
+
+    def _decode(self, payload):
+        return _wire_decode(payload, store=self._store,
+                            fetch_blob=self._fetch_blob)
+
+    # API --------------------------------------------------------------------
+    def put(self, key, value) -> int:
+        return self._call("put", (key, _wire_encode(value)))
+
+    def read(self, key, default=_MISSING, min_version=0):
+        found, version, payload = self._call("get", (key, int(min_version)))
+        if not found:
+            if default is _MISSING:
+                raise KeyError(key)
+            return default, version
+        return self._decode(payload), version
+
+    def get(self, key, default=_MISSING, min_version=0):
+        return self.read(key, default, min_version)[0]
+
+    def cas(self, key, expected_version, value):
+        ok, version, present, cur = self._call(
+            "cas", (key, int(expected_version), _wire_encode(value)))
+        if ok:
+            return True, version, None
+        return False, version, (self._decode(cur) if present else None)
+
+    def update(self, key, fn, default=None):
+        """Client-side CAS retry loop — the linearizable read-modify-write.
+        ``fn`` may run several times under contention; the commit history
+        is still the exact sequential fold."""
+        value, version = self.read(key, default=default)
+        while True:
+            new = fn(value)
+            ok, version2, cur = self.cas(key, version, new)
+            if ok:
+                return new, version2
+            self.cas_retries += 1
+            if cur is not None:
+                value, version = cur, version2
+            elif version2 == 0:
+                # concurrently deleted: fold restarts from the default
+                value, version = default, version2
+            else:
+                # version moved but no value came back: read() settles it
+                value, version = self.read(key, default=default)
+
+    def add(self, key, delta, default=0):
+        """Server-side atomic ``(current or default) + delta`` — one RPC,
+        exact under any contention (no CAS retry loop)."""
+        version, payload = self._call(
+            "add", (key, _wire_encode((delta, default))))
+        return self._decode(payload), version
+
+    def extend(self, key, items):
+        """Server-side atomic list append; ``(new_length, version)``."""
+        version, length = self._call(
+            "extend", (key, _wire_encode(list(items))))
+        return length, version
+
+    def delete(self, key) -> bool:
+        return self._call("delete", (key,))
+
+    def wait(self, key, min_version=1, timeout=None):
+        version, payload = self._call(
+            "wait", (key, int(min_version), timeout), wait_timeout=timeout)
+        return self._decode(payload), version
+
+    async def wait_async(self, key, min_version=1, timeout=None):
+        """Awaitable wait over the wire: the blocking RPC is parked on a
+        worker thread so the caller's event loop stays live."""
+        import asyncio
+        return await asyncio.to_thread(self.wait, key, min_version, timeout)
+
+    def keys(self, prefix=""):
+        return self._call("keys", (prefix,))
+
+    def version(self, key) -> int:
+        return self._call("version", (key,))
+
+    def stats(self) -> dict:
+        return {"cas_retries": self.cas_retries, "ops": self._ops}
+
+
+class PipeStateClient(_RPCClient):
+    """Processes-worker client: state ops ride the task pipe. The worker's
+    main thread both sends the request and pumps the pipe for the reply —
+    it is the only reader, and it is only ever here while inside user
+    code, so nothing else is draining the pipe concurrently. Non-reply
+    messages encountered mid-wait (a racing ``stop``) abort the call."""
+
+    def __init__(self, conn, store=None):
+        super().__init__(store=store)
+        self._conn = conn
+
+    def _call(self, op, args, wait_timeout=None):
+        rid = next(self._rid)
+        self._ops += 1
+        try:
+            self._conn.send(("state", rid, op, args))
+        except (OSError, ValueError) as exc:
+            raise StateError(f"state send failed: {exc!r}") from exc
+        while True:
+            try:
+                msg = self._conn.recv()
+            except (EOFError, OSError) as exc:
+                raise StateError(
+                    f"state service unreachable: {exc!r}") from exc
+            if msg[0] == "state_rep" and msg[1] == rid:
+                status, payload = msg[2], msg[3]
+                if status == "timeout":
+                    raise StateTimeout(
+                        f"state.wait({args[0]!r}) timed out after "
+                        f"{args[2]}s")
+                if status == "err":
+                    raise payload if isinstance(payload, Exception) \
+                        else StateError(repr(payload))
+                return payload
+            if msg[0] == "stop":
+                raise StateError("backend stopped mid state op")
+            # anything else (a stray late message) is dropped: the parent
+            # serializes per-worker traffic, so task messages cannot arrive
+            # while this worker is still executing the current task
 
 
 # --------------------------------------------------------------------------
@@ -571,7 +963,7 @@ def stats() -> dict:
 
 __all__ = [
     "StateService", "StateError", "StateTimeout", "state_context",
-    "service", "reset", "set_default_client",
+    "PipeStateClient", "service", "reset", "set_default_client",
     "put", "get", "read", "cas", "update", "add", "extend", "delete",
     "wait", "wait_async", "keys", "version", "stats",
     "scoped_key", "scope_args",

@@ -6,8 +6,10 @@ output and conditions, the same exceptions and the same RNG streams. Also
 the rows of tests/test_continuations.py that tests/test_torch_core.py does
 not mirror, with the in-process backends in place of the cluster.
 
-Left for the port's out-of-process backends: the blob path of large state
-values and the worker-isolation and worker-death rows.
+The ``processes`` rows, with the blob path of large state values and the
+worker-isolation and worker-death rows, are in tests/test_torch_processes.py
+(``BACKENDS`` stays in process, so that worker startup is not paid in every
+mirror).
 """
 
 import asyncio

@@ -171,19 +171,20 @@ def test_cancel_unlaunched():
 
 
 def test_only_in_process_backends_are_registered():
+    """The in-process backends and ``processes``; the TCP cluster is a
+    later slice of the port."""
     assert sorted(BACKEND_REGISTRY) == ["asyncio", "cuda_async",
-                                        "sequential", "threads"]
+                                        "processes", "sequential", "threads"]
     with pytest.raises(ValueError, match="unknown backend"):
         rc.plan("cluster")
 
 
 def test_public_names_are_the_references_but_the_out_of_process_ones():
-    """``__all__`` is the JAX package's, less the launchers and the errors
-    of the out-of-process backends (a later slice of the port)."""
+    """``__all__`` is the JAX package's, less the cluster's launchers and
+    its lineage error (a later slice of the port)."""
     import repro.core as ref_core
     later = {"Launcher", "LocalLauncher", "SSHLauncher", "CommandLauncher",
-             "WorkerProc", "WorkerDiedError", "ChannelError",
-             "LineageExhaustedError", "NonExportableObjectError"}
+             "WorkerProc", "LineageExhaustedError"}
     assert sorted(rc.__all__) == sorted(set(ref_core.__all__) - later)
     assert all(hasattr(rc, name) for name in rc.__all__)
 

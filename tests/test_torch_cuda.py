@@ -913,6 +913,76 @@ def test_future_map_prefill_cuda_async_equals_sequential_on_card(
 
 
 # --------------------------------------------------------------------------
+# plan("processes") on the card: CUDA tensors cross the pipe as bytes
+# --------------------------------------------------------------------------
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_processes_ship_cuda_tensors_bit_for_bit_on_card(cuda_device, dtype):
+    """A CUDA tensor global (one content-addressed, one inline) reaches a
+    worker on its card and comes back on the card, bit for bit."""
+    import repro_torch.core as rc
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    big = torch.randn(256, 384, generator=gen, device=cuda_device) \
+        .to(dtype)
+    small = torch.randn(8, generator=gen, device=cuda_device).to(dtype)
+    rc.plan("processes", workers=1)
+    try:
+        got_big, got_small, where = rc.value(rc.future(
+            lambda: (big, small, (big.device.type, small.device.type,
+                                  str(big.dtype)))), timeout=300)
+    finally:
+        rc.shutdown()
+    assert where == ("cuda", "cuda", str(dtype))
+    for got, want in ((got_big, big), (got_small, small)):
+        assert got.is_cuda and got.dtype == dtype
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16
+                                     else torch.int32))
+
+
+@pytest.mark.requires_cuda
+def test_processes_see_an_in_place_write_to_a_cuda_global_on_card(
+        cuda_device):
+    """A CUDA global written in place between two futures reaches the
+    worker with its new bytes (the digest memo follows the version)."""
+    import repro_torch.core as rc
+    w = torch.zeros(10_000, device=cuda_device)
+    rc.plan("processes", workers=1)
+    try:
+        assert rc.value(rc.future(lambda: float(w.sum())), timeout=300) \
+            == 0.0
+        w.add_(1.0)
+        assert rc.value(rc.future(lambda: float(w.sum())), timeout=300) \
+            == 10_000.0
+    finally:
+        rc.shutdown()
+
+
+@pytest.mark.requires_cuda
+def test_processes_worker_without_cuda_refuses_a_cuda_payload_on_card(
+        cuda_device, monkeypatch):
+    """No fallback: a worker started with ``CUDA_VISIBLE_DEVICES=""`` is
+    sent a CUDA tensor and raises; it does not rebuild it on the CPU."""
+    import repro_torch.core as rc
+    g = torch.arange(10_000, dtype=torch.float32, device=cuda_device)
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    rc.plan("processes", workers=1)
+    try:
+        rc.active_backend()                  # the worker starts without one
+        monkeypatch.undo()
+        assert rc.value(rc.future(lambda: torch.cuda.is_available()),
+                        timeout=300) is False
+        with pytest.raises(rc.ChannelError, match="no CUDA device"):
+            rc.value(rc.future(lambda: float(g.sum())), timeout=300)
+        with pytest.raises(rc.ChannelError, match="no CUDA device"):
+            rc.value(rc.future(lambda: float(g[:4].sum())), timeout=300)
+    finally:
+        rc.shutdown()
+
+
+# --------------------------------------------------------------------------
 # the build, on any host
 # --------------------------------------------------------------------------
 

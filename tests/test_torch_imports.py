@@ -58,7 +58,12 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.configs.deepseek_moe_16b",
             "repro_torch.models.mla",
             "repro_torch.configs.minicpm3_4b",
-            "repro_torch.configs.hubert_xlarge"} <= set(_port_modules())
+            "repro_torch.configs.hubert_xlarge",
+            "repro_torch.core.backends.processes",
+            "repro_torch.core.backends.worker",
+            "repro_torch.core.backends.blobstore",
+            "repro_torch.core.backends.transport",
+            "repro_torch.optim.compression"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
@@ -77,7 +82,9 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
        ROOT / "scripts" / "profile_torch.py",
        ROOT / "scripts" / "flash_builds.py",
        ROOT / "scripts" / "flash_phases.py",
-       ROOT / "scripts" / "flash_knobs.py"]),
+       ROOT / "scripts" / "flash_knobs.py",
+       ROOT / "scripts" / "pipe_bench.py",
+       ROOT / "scripts" / "ship_costs.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_repro_or_jax(path):
     assert not _IMPORT_REPRO.findall(path.read_text())

@@ -4,8 +4,8 @@ cluster — exact folds under contention, CAS races, watch fan-out — an op
 script held against the JAX package's ``StateService``, and the in-process
 contract that a reader gets the live object.
 
-The reference's SIGKILL-mid-update row needs worker processes and waits
-for the port's out-of-process backends. In process, ``wait`` parks on the
+The reference's SIGKILL-mid-update row needs worker processes: it runs on
+``processes`` in tests/test_torch_processes.py. In process, ``wait`` parks on the
 service's condition variable (the watch list serves ``wait_async``), so
 the tests synchronise on the service's ``waits`` counter.
 """

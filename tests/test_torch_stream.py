@@ -4,10 +4,11 @@ admission-controlled dispatch, unbounded sources, RNG invariance across
 ``max_in_flight``, ``retries=`` — and a pipeline held against the JAX
 package's on the same generator (values and stats).
 
-The rows of the reference on worker processes or the cluster (dead-worker
-retries, the cluster's idle set) wait for the port's out-of-process
-backends; the retry contract is held here on threads with a body that
-raises ``FutureError`` on its first try.
+The rows of the reference on worker processes (dead-worker retries,
+backpressure across workers) are in tests/test_torch_processes.py; the
+cluster's idle-set row waits for the port's cluster. The retry contract is
+also held here on threads with a body that raises ``FutureError`` on its
+first try.
 """
 
 import itertools
