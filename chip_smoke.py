@@ -58,7 +58,24 @@ Phases, each printing its own lines; any failure exits non-zero:
      parameters again) giving phase 3's tokens; the shared state over the
      pipe: an exact state.add fold from 8 futures, and the embedding table
      (50304 x 768 fp32, 154.5 MB) put by the driver, doubled in a worker
-     and put back, bit for bit.
+     and put back, bit for bit;
+  6c. the same prefill on socket-connected workers under plan("cluster",
+     workers=2), the paper's PSOCK cluster (local launcher over 127.0.0.1,
+     a random token, no TLS: the card's host may lack openssl): three
+     prefill futures, each with the ms until future() returns, until
+     value() returns, the direct call's ms, the ``put`` bytes its worker
+     was sent (counted at the driver's sockets) and the cold put's GB/s,
+     its pid, card, launch counts read in the worker (10 mLSTM, 2 sLSTM)
+     and phase 3's tokens bit for bit; a worker SIGKILLed mid-prefill
+     raising WorkerDiedError and its relaunched successor giving phase 3's
+     tokens; the last-position logits kept on their worker (a RemoteValue,
+     one holder), a continuation run on the holder with under 1 MB
+     received at the driver, a future on the other worker taking the
+     RemoteValue by peer fetch, and value() pulling the in-process call's
+     bytes bit for bit; a held result whose only holder is SIGKILLed
+     raising LineageExhaustedError; an exact state.add fold from 8 futures
+     over the socket; the longest gap between two heartbeats of any
+     worker.
 Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
 4096, 10.4 B fp32 parameters, random from the seed) takes the card:
   2b. the RG-LRU scan, windowed flash attention and split-S decode
@@ -561,8 +578,12 @@ def main() -> int:
 
     # -- 6b. the same prefill in worker processes -----------------------------
     processes_phase(cfg, params, prefill, tokens, first, smi)
-    del first, tokens, prefill
     phase_done("6b")
+
+    # -- 6c. the same prefill on socket-connected cluster workers ------------
+    cluster_phase(cfg, model, params, prefill, tokens, first, smi)
+    del first, tokens, prefill
+    phase_done("6c")
 
     # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
     del model, params
@@ -1387,6 +1408,295 @@ def processes_phase(cfg, params, prefill, tokens, first, smi: str) -> None:
         state.reset()
     finally:
         P.ProcessBackend._spawn = spawn
+        rc.shutdown()
+    torch.cuda.synchronize()
+
+
+def cluster_phase(cfg, model, params, prefill, tokens, first,
+                  smi: str) -> None:
+    """Phase 6c: the xLSTM prefill on socket-connected workers under
+    plan("cluster"), the paper's PSOCK cluster: prefill futures, a held
+    result chained on its holder and peer-fetched by the other worker, a
+    killed worker and its relaunch, a lost sole holder, and the shared
+    state over the socket."""
+    import signal
+    import tempfile
+
+    import torch
+
+    import repro_torch.core as rc
+    from repro_torch.core import state
+    from repro_torch.core.backends import transport
+    from repro_torch.core.backends.blobstore import RemoteValue
+    from repro_torch.tree import leaves
+
+    n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
+    n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
+    want_launches = {"mlstm_scan": n_m, "slstm_scan": n_s}
+    card = torch.cuda.get_device_name(0)
+    nbytes = sum(p.numel() * p.element_size() for p in leaves(params))
+    batch = {"tokens": tokens}
+    marks = tempfile.mkdtemp(prefix="chip-smoke-6c-")
+    gaps = {}                        # pid -> longest heartbeat gap, s
+
+    def body(b):
+        # runs in a worker: its own launch counters, its own CUDA context
+        import os
+
+        import torch
+        from repro_torch.kernels import mlstm_scan as MK
+        from repro_torch.kernels import slstm_scan as SK
+        MK.launches = SK.launches = 0
+        out = prefill(params, b)
+        torch.cuda.synchronize()
+        return (out, {"mlstm_scan": MK.launches, "slstm_scan": SK.launches},
+                os.getpid(), torch.cuda.get_device_name(0))
+
+    def note_gaps(backend):
+        for pid, gap in backend.heartbeat_gaps().items():
+            gaps[pid] = max(gaps.get(pid, 0.0), gap)
+
+    def wait_for(pred, what: str) -> None:
+        deadline = time.monotonic() + WORKER_WAIT
+        while not pred():
+            check(time.monotonic() < deadline, f"{what} within "
+                  f"{WORKER_WAIT:.0f} s")
+            time.sleep(0.01)
+
+    def holder_pid(backend, digest) -> int:
+        wids = backend.locations(digest)
+        with backend._pool_cv:
+            return next(w.meta["pid"] for w in backend._all
+                        if w.wid in wids)
+
+    # the workers' blob stores sized to the model, as in phase 6b; no TLS:
+    # the card's host may lack the openssl binary (the CPU tests hold TLS)
+    token = os.urandom(16).hex()
+    print("plan('cluster', workers=2): local launcher over 127.0.0.1, a "
+          "random token, no TLS (held by the CPU tests)")
+    try:
+        t0 = time.perf_counter()
+        rc.plan("cluster", workers=2, blob_store_bytes=2 << 30, token=token,
+                connect_timeout=WORKER_WAIT)
+        backend = bounded(rc.active_backend, WORKER_WAIT)
+        print(f"  2 workers dialed back in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms, pids "
+              f"{backend.worker_pids()}")
+
+        # (a) three prefill futures (B=8, S=2048)
+        holders, pids = set(), set()
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill(params, batch)
+            torch.cuda.synchronize()
+            direct_ms = (time.perf_counter() - t0) * 1e3
+            before = backend.put_bytes()
+            before_s = backend.put_seconds()
+            t0 = time.perf_counter()
+            f = bounded(lambda: rc.future(body, batch), WORKER_WAIT)
+            submit_ms = (time.perf_counter() - t0) * 1e3
+            got, counts, pid, name = rc.value(f, timeout=WORKER_WAIT)
+            value_ms = (time.perf_counter() - t0) * 1e3
+            put = backend.put_bytes()[pid] - before.get(pid, 0)
+            put_s = backend.put_seconds()[pid] - before_s.get(pid, 0.0)
+            rate = f", the put at {put / put_s / 1e9:.3f} GB/s over " \
+                f"loopback ({put_s * 1e3:.1f} ms)" if put else ""
+            print(f"cluster prefill future {i} (B,S)={(B, S)} on pid {pid} "
+                  f"({name}): future() returned in {submit_ms:.1f} ms, "
+                  f"value() at {value_ms:.1f} ms, direct call "
+                  f"{direct_ms:.1f} ms; put bytes sent {put}{rate}; "
+                  f"launches {counts} ({smi})")
+            check(pid != os.getpid(), "the prefill runs on a cluster worker")
+            check(name == card, "the worker computes on the card")
+            check(counts == want_launches,
+                  f"a prefill future on a cluster worker launches "
+                  f"mlstm_scan {n_m}x and slstm_scan {n_s}x")
+            check(torch.equal(got, first),
+                  "the worker's prefill tokens are phase 3's bit for bit")
+            if pid in holders:
+                check(put == 0, "a worker that holds the parameters is "
+                      "sent 0 put bytes")
+            else:
+                check(put > nbytes // 2, "a cold worker is sent the "
+                      "parameters")
+                holders.add(pid)
+            pids.add(pid)
+        note_gaps(backend)
+        del got
+
+        # (c) a worker SIGKILLed mid-prefill, and its relaunch
+        pidfile = os.path.join(marks, "victim")
+
+        def victim(b, _p=pidfile):
+            import os as _os
+
+            import torch
+            with open(_p + ".tmp", "w") as fh:
+                fh.write(str(_os.getpid()))
+            _os.replace(_p + ".tmp", _p)
+            while True:                      # prefills until the kill lands
+                prefill(params, b)
+                torch.cuda.synchronize()
+
+        before_pids = set(backend.worker_pids())
+        f = rc.future(victim, batch)
+        wait_for(lambda: os.path.exists(pidfile), "the victim started")
+        with open(pidfile) as fh:
+            victim_pid = int(fh.read())
+        time.sleep(0.5)                      # inside its prefill loop
+        os.kill(victim_pid, signal.SIGKILL)
+        died = None
+        try:
+            rc.value(f, timeout=WORKER_WAIT)
+        except rc.WorkerDiedError as exc:
+            died = exc
+        print(f"  worker {victim_pid} SIGKILLed mid-prefill: "
+              f"{type(died).__name__}: {str(died)[:160]}")
+        check(died is not None, "a worker killed mid-prefill raises "
+              "WorkerDiedError")
+        t0 = time.perf_counter()
+        wait_for(lambda: len(set(backend.worker_pids()) - before_pids) == 1
+                 and len(backend.worker_pids()) == 2,
+                 "the killed worker was relaunched")
+        new_pid = (set(backend.worker_pids()) - before_pids).pop()
+        relaunch_ms = (time.perf_counter() - t0) * 1e3
+        before = backend.put_bytes()
+        t0 = time.perf_counter()
+        f = rc.future(body, batch)
+        got, counts, pid, _ = rc.value(f, timeout=WORKER_WAIT)
+        value_ms = (time.perf_counter() - t0) * 1e3
+        put = backend.put_bytes()[pid] - before.get(pid, 0)
+        print(f"  relaunched worker pid {new_pid} up {relaunch_ms:.1f} ms "
+              f"after the death was seen; its prefill (pid {pid}) value() "
+              f"at {value_ms:.1f} ms, put bytes {put}, launches {counts}")
+        check(pid == new_pid, "the next prefill runs on the relaunched "
+              "worker")
+        check(torch.equal(got, first) and counts == want_launches,
+              "the relaunched worker's prefill is phase 3's bit for bit")
+        note_gaps(backend)
+        del got
+
+        # (b) dataflow: a held result, chained on its holder, peer-fetched
+        def last_logits(b):
+            import torch
+            with torch.no_grad():
+                return model.apply(params, b)[0][:, -1]
+
+        with torch.no_grad():
+            want = model.apply(params, batch)[0][:, -1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = rc.future(last_logits, batch)
+        run = backend.collect(f._handle)
+        held_ms = (time.perf_counter() - t0) * 1e3
+        rv = run.value
+        check(isinstance(rv, RemoteValue), "the last-position logits stay "
+              "on their worker (a RemoteValue at the driver)")
+        holder = holder_pid(backend, rv.digest)
+        check(len(backend.locations(rv.digest)) == 1,
+              "locations() names one holder")
+        transport.reset_wire_stats()
+        t0 = time.perf_counter()
+        pid, toks = f.then(lambda lg: (
+            os.getpid(), lg.argmax(-1, keepdim=True).to(torch.int32))) \
+            .value(timeout=WORKER_WAIT)
+        chain_ms = (time.perf_counter() - t0) * 1e3
+        wire = transport.wire_stats()
+        print(f"  held logits {tuple(want.shape)} ({rv.nbytes} B) on pid "
+              f"{holder} after {held_ms:.1f} ms; .then(argmax) ran on pid "
+              f"{pid} in {chain_ms:.1f} ms, the driver received "
+              f"{wire['bytes_recv']} B and sent {wire['bytes_sent']} B")
+        check(pid == holder, "the continuation runs on the holder")
+        check(wire["bytes_recv"] < 1_000_000, "under 1 MB crosses to the "
+              "driver for the chain")
+        check(torch.equal(toks, first), "the chain's argmax is phase 3's "
+              "tokens")
+        release = os.path.join(marks, "release")
+        parked = os.path.join(marks, "parked")
+
+        def park(lg, _p=parked, _r=release):
+            import os as _os
+            import time as _time
+            open(_p, "w").close()
+            while not _os.path.exists(_r):
+                _time.sleep(0.005)
+            return 0
+
+        blocker = f.then(park)               # the holder is busy now
+        wait_for(lambda: os.path.exists(parked), "the holder is parked")
+        transport.reset_wire_stats()
+        t0 = time.perf_counter()
+        g = rc.future(lambda lg: (os.getpid(), lg.double().sum().item()),
+                      rv)
+        pid, total = rc.value(g, timeout=WORKER_WAIT)
+        fetch_ms = (time.perf_counter() - t0) * 1e3
+        wire = transport.wire_stats()
+        open(release, "w").close()
+        rc.value(blocker, timeout=WORKER_WAIT)
+        print(f"  a future taking the RemoteValue ran on pid {pid} (the "
+              f"holder {holder} busy) in {fetch_ms:.1f} ms by peer fetch; "
+              f"the driver sent {wire['bytes_sent']} B, received "
+              f"{wire['bytes_recv']} B")
+        check(pid != holder and pid != os.getpid(),
+              "the other worker takes the RemoteValue")
+        check(wire["bytes_sent"] < rv.nbytes // 10,
+              "its bytes went worker to worker, not through the driver")
+        check(total == want.double().sum().item(),
+              "the peer-fetched logits sum as the in-process call's")
+        t0 = time.perf_counter()
+        pulled = f.value(timeout=WORKER_WAIT)
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        same = pulled.is_cuda and torch.equal(
+            pulled.view(torch.int32), want.view(torch.int32))
+        print(f"  value() pulled the logits onto the driver's card in "
+              f"{pull_ms:.1f} ms, bit for bit the in-process call's: {same}")
+        check(same, "value() pulls the in-process call's bytes bit for bit")
+        note_gaps(backend)
+        del pulled, want, toks, f, g, rv, run, blocker
+
+        # (c') a result whose only holder is killed
+        h = rc.future(lambda: torch.randn(
+            1 << 20, generator=torch.Generator(device="cuda").manual_seed(9),
+            device="cuda"))
+        lost = backend.collect(h._handle).value
+        check(isinstance(lost, RemoteValue), "a 4 MiB result is held")
+        holder = holder_pid(backend, lost.digest)
+        os.kill(holder, signal.SIGKILL)
+        wait_for(lambda: not backend.locations(lost.digest),
+                 "the holder's death was seen")
+        err = None
+        try:
+            h.value(timeout=WORKER_WAIT)
+        except rc.LineageExhaustedError as exc:
+            err = exc
+        print(f"  its only holder {holder} SIGKILLed: value() raises "
+              f"{type(err).__name__}: {str(err)[:160]}")
+        check(err is not None, "a lost sole holder raises "
+              "LineageExhaustedError")
+        del lost, h
+        wait_for(lambda: len(backend.worker_pids()) == 2,
+                 "the pool is whole again")
+
+        # (d) shared state over the socket
+        state.reset()
+        fs = [rc.future(lambda: state.add("tokens", 2 * S))
+              for _ in range(8)]
+        rc.value(fs, timeout=WORKER_WAIT)
+        folded = state.read("tokens")
+        print(f"  state.add from 8 futures on cluster: {folded} "
+              f"(value, version); want ({8 * 2 * S}, 8)")
+        check(folded == (8 * 2 * S, 8), "the state fold over the socket is "
+              "exact")
+        state.reset()
+        note_gaps(backend)
+        worst = max(gaps.values()) if gaps else 0.0
+        print(f"  longest gap between two heartbeats of any worker: "
+              f"{worst:.3f} s (heartbeat_timeout {backend._hb_timeout} s; "
+              f"by pid {({p: round(g, 3) for p, g in gaps.items()})})")
+        check(worst < backend._hb_timeout, "no worker went silent past "
+              "the heartbeat timeout")
+    finally:
         rc.shutdown()
     torch.cuda.synchronize()
 

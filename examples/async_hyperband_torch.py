@@ -7,9 +7,9 @@ they finish each rung** and the driver prunes losers **mid-flight** —
 nobody waits for a generation barrier. The shared-state service
 (``repro_torch.core.state``) is the missing channel:
 
-* each trial is one ordinary ``future()`` — on ``plan("threads")`` here:
-  the original plans a launched cluster (``spec("cluster", hosts=2)``),
-  which waits for the port's out-of-process backends;
+* each trial is one ordinary ``future()`` on a *launched* cluster
+  (``spec("cluster", hosts=2)`` — the launcher subsystem bootstraps the
+  two workers, which dial back over TCP);
 * the trial body publishes its loss at rung ``r`` with
   ``state.put(f"rung/{r}/{cid}", loss)`` and polls its own kill switch
   ``state.get(f"stop/{cid}")`` at every rung boundary;
@@ -43,7 +43,7 @@ import time
 import torch
 
 import repro_torch.core as rc
-from repro_torch.core import future, gather, plan, state, value
+from repro_torch.core import future, gather, plan, spec, state, value
 from repro_torch.device import resolve_device
 
 ETA = 2          # keep the top 1/ETA at every rung
@@ -103,7 +103,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     device = resolve_device(ap.parse_args().device)
-    plan("threads", workers=N_TRIALS)             # one worker a trial
+    plan(spec("cluster", hosts=2))               # launcher boots the fleet
     lrs = [0.1 * (1.6 ** (i - 3)) for i in range(N_TRIALS)]
     body = make_trial_body(RUNGS, device)
     trials = [future(lambda c=i, lr=lr, b=body: b(c, lr))

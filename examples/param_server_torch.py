@@ -17,15 +17,17 @@ committing concurrently never lose a step.
 The entry's version number *is* the global step counter: after W workers
 each commit S updates, ``state.version("ps") == 1 + W * S`` exactly.
 
-The original plans ``"cluster"``; this twin plans ``"threads"`` until the
-port has its out-of-process backends. In process, ``state.get`` hands
-every worker the live tensors (nothing is copied, on the card either).
+Like the original, it plans ``"cluster"``: each worker is a process of its
+own that dials the driver over TCP (with a random token), and every
+``state.get``/``state.update`` rides the worker's control socket — the
+parameters cross as their bytes and land on the worker's card.
 
 Run on the GPU:  PYTHONPATH=src python examples/param_server_torch.py
 On the CPU:      PYTHONPATH=src python examples/param_server_torch.py --device cpu
 """
 
 import argparse
+import os
 
 import numpy as np
 import torch
@@ -87,7 +89,7 @@ def main():
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args()
     device = resolve_device(args.device)
-    plan("threads", workers=WORKERS)
+    plan("cluster", workers=WORKERS, token=os.urandom(8).hex())
     w_star, xs, ys = make_problem(device)
 
     # the driver seeds the model entry: params + optimizer state together,

@@ -4,8 +4,9 @@ frontend built on it (the twin of ``examples/quickstart.py``).
 The three constructs, plan(), relaying, parallel RNG, EITHER, retries,
 stream() pipelines with bounded in-flight backpressure, the cooperative
 asyncio lane, worker processes (``plan("processes")``: a dying worker and
-the healed pool), and the port's own backend, ``cuda_async``: futures
-resolved by CUDA events on the card's stream.
+the healed pool), a TCP cluster (``plan("cluster")``: a large result kept
+on its worker and a continuation run there), and the port's own backend,
+``cuda_async``: futures resolved by CUDA events on the card's stream.
 
 Run on the GPU:  PYTHONPATH=src python examples/quickstart_torch.py
 On the CPU:      PYTHONPATH=src python examples/quickstart_torch.py --device cpu
@@ -156,6 +157,20 @@ def main():
     except rc.WorkerDiedError as e:
         print("node failure detected:", e)
     print("pool self-healed:", value(future(lambda: "alive"), timeout=120))
+
+    # -- a TCP cluster (the paper's PSOCK cluster) -------------------------
+    #
+    # The driver launches two workers that dial back over loopback with a
+    # token. A large result stays on the worker that made it; a chained
+    # continuation runs there, and value() pulls the bytes.
+    plan("cluster", workers=2, token=os.urandom(8).hex())
+    big = future(lambda: torch.arange(1 << 16, dtype=torch.float32,
+                                      device=device))
+    where = big.then(lambda t: (os.getpid(), float(t.sum())))
+    pid, total = value(where, timeout=120)
+    print(f"cluster: the chain ran on worker {pid}, sum {total:.0f}; "
+          f"value() pulled {tuple(value(big, timeout=120).shape)} "
+          f"onto {device}")
 
     # -- futures over the card's stream: plan("cuda_async") ----------------
     #

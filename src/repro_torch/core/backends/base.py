@@ -29,13 +29,17 @@ class TaskSpec:
     capture_stdout: bool = True
     capture_conditions: bool = True
     seed_declared: bool = False
-    # For the processes backend only: the pre-shipped function blob.
+    # For the out-of-process backends only: the pre-shipped function blob.
     shipped: bytes | None = None
     # Content-addressed payloads referenced by the shipped blob:
     # digest -> PayloadSource (pinned for the task's lifetime so ``need``
     # backfills can always be served). ``refs`` is the digest tuple the
     # worker must hold before evaluating.
     payload_sources: dict = dataclasses.field(default_factory=dict)
+    # Digests whose current holders make *better homes* for this task: the
+    # cluster backend prefers an idle worker already holding them (locality
+    # scheduling for continuation chains); other backends ignore it.
+    affinity: tuple = ()
 
     @property
     def refs(self) -> tuple:

@@ -50,12 +50,31 @@ a CUDA device by the worker — or refused, with an error, when the worker
 has none (it is never rebuilt on the CPU). bf16 (which numpy lacks) rides
 as its 2-byte words and is rebuilt as a ``torch.bfloat16`` view.
 
-Wire protocol built on these (see ``worker.py``): a task message carries
-the digests it references; the driver prepends ``("put", digest, blob)``
-messages for any digest the worker is not known to hold; a worker that is
-missing a digest anyway (eviction, self-healed replacement with a cold
-cache) asks with ``("need", digest)`` and the driver re-serves it from the
-in-flight task's pinned sources.
+Wire protocol built on these (see ``worker.py``, ``transport.py`` and
+``cluster.py``): a task message carries the digests it references; the
+driver prepends ``("put", digest, blob)`` messages for any digest the worker
+is not known to hold; a worker that is missing a digest anyway (eviction,
+self-healed replacement with a cold cache) asks with ``("need", digest)``
+and the driver re-serves it from the in-flight task's pinned sources.
+
+The cluster's stores also hold *results*: a cluster task whose result
+encodes to ``RESULT_REF_THRESHOLD`` bytes or more stays worker-resident —
+the worker puts the encoded blob in its own store and sends back
+``run.value = PayloadRef(digest)`` plus a ``held`` manifest. A held tensor
+on the card is encoded through a host copy and decoded back onto the card
+of whichever process needs it: nothing assumes the holder and the driver
+share a device or a CUDA context. Driver-side those refs surface as:
+
+* :class:`RemoteValue` — the lazy driver-side face of a worker-resident
+  result. ``Future.value()`` calls :meth:`RemoteValue.fetch` to pull the
+  blob on demand; continuation chains never do — they ship the ref back
+  out (see ``future._remote_chain``) so the bytes stay on the workers. A
+  fetch that finds no live copy (its holder died, evicted everywhere)
+  raises :class:`~..errors.LineageExhaustedError`: the port keeps no
+  lineage to rebuild it from yet.
+* :class:`RemoteSource` — a :class:`PayloadSource` stand-in whose
+  ``encode()`` *pulls* the blob from a live holder instead of re-encoding a
+  local value, so the put/need/nak machinery serves remote args unchanged.
 """
 
 from __future__ import annotations
@@ -77,6 +96,11 @@ PAYLOAD_REF_THRESHOLD = 16 * 1024
 #: the processes backend pins an in-flight task's sources in it, so a
 #: payload larger than the bound is still encoded once a task.
 DEFAULT_STORE_BYTES = 256 * 1024 * 1024
+
+#: cluster task results whose lossless encoding reaches this size stay
+#: worker-resident as a PayloadRef/RemoteValue instead of riding the result
+#: frame; small results travel inline
+RESULT_REF_THRESHOLD = 64 * 1024
 
 
 def _torch_tensor(value: Any) -> bool:
@@ -352,6 +376,106 @@ def encode_backfill(src: "PayloadSource | None") -> "bytes | None":
 
 
 # --------------------------------------------------------------------------
+# Worker-resident results (remote values)
+# --------------------------------------------------------------------------
+
+class RemoteValue:
+    """Driver-side face of a result blob that stayed on its producing
+    worker. ``Future.value()`` pulls it on demand via :meth:`fetch`; a
+    continuation chained onto the future never pulls — the digest ships
+    back out as a ~500 B control frame and the holder (or a peer, via the
+    fetch/offer protocol) supplies the bytes worker-side.
+
+    Holds only a *weak* reference to the owning backend: a remote value
+    must not keep a shut-down cluster pool alive, and a dead referent turns
+    into a clean :class:`~..errors.ChannelError` at fetch time.
+    """
+
+    is_remote_value = True
+
+    __slots__ = ("digest", "nbytes", "label", "_backend", "__weakref__")
+
+    def __init__(self, digest: bytes, nbytes: int, backend, label: str = ""):
+        self.digest = digest
+        self.nbytes = int(nbytes)
+        self.label = label
+        self._backend = weakref.ref(backend)
+
+    def backend(self):
+        return self._backend()
+
+    def fetch(self, writable: bool = True):
+        """Pull and decode the blob from whoever holds it (driver store,
+        holder). A tensor is decoded by the payload codec on this process's
+        device of its type, into memory of its own (writable); ``writable``
+        copies a read-only numpy array, matching what an inline result
+        frame would have delivered."""
+        backend = self._backend()
+        if backend is None:
+            from ..errors import ChannelError
+            raise ChannelError(
+                f"remote result {self!r} outlived its cluster backend; "
+                f"fetch the value (Future.value()) before shutdown()")
+        value = backend.pull_value(self.digest, label=self.label)
+        if writable:
+            import numpy as np
+            if isinstance(value, np.ndarray) and not value.flags.writeable:
+                value = value.copy()
+        return value
+
+    def source(self) -> "RemoteSource":
+        return RemoteSource(self.digest, self.nbytes, self._backend,
+                            label=self.label, anchor=self)
+
+    def __reduce__(self):
+        raise TypeError(
+            f"{self!r} is a worker-resident result and cannot be pickled "
+            f"directly; pass it to a future (it ships as a content-"
+            f"addressed ref) or materialize it with Future.value()")
+
+    def __repr__(self):
+        tag = f" {self.label!r}" if self.label else ""
+        return (f"RemoteValue({self.digest.hex()[:12]}, "
+                f"{self.nbytes}B{tag})")
+
+
+class RemoteSource:
+    """A :class:`PayloadSource` stand-in for a digest whose bytes live on a
+    worker, not the driver. ``encode()`` *pulls* the blob from a live
+    holder (landing it in ``DRIVER_STORE`` for replay), so the put / need /
+    nak machinery serves remote args without knowing they are remote.
+    Dispatch paths that *can* avoid the pull check :attr:`remote` and send
+    peer-fetch hints instead."""
+
+    remote = True
+
+    __slots__ = ("name", "digest", "nbytes", "_backend", "_anchor")
+
+    def __init__(self, digest: bytes, nbytes: int, backend_ref,
+                 label: str = "", anchor=None):
+        self.name = label or f"<remote:{digest.hex()[:12]}>"
+        self.digest = digest
+        self.nbytes = int(nbytes)
+        self._backend = backend_ref
+        # strong ref to the originating RemoteValue: while a chained task
+        # holds this source (pinned on its in-flight handle), the handle's
+        # GC-driven release must not evict the blob out from under it
+        self._anchor = anchor
+
+    def holder_backend(self):
+        return self._backend()
+
+    def encode(self) -> bytes:
+        backend = self._backend()
+        if backend is None:
+            from ..errors import ChannelError
+            raise ChannelError(
+                f"remote payload {self.digest.hex()[:12]} outlived the "
+                f"cluster backend that held it")
+        return backend.pull_blob(self.digest, label=self.name)
+
+
+# --------------------------------------------------------------------------
 # The bounded LRU blob store
 # --------------------------------------------------------------------------
 
@@ -422,6 +546,22 @@ class BlobStore:
             self._blobs.move_to_end(digest)
             self.hits += 1
             return blob
+
+    def drop(self, digest: bytes) -> bool:
+        """Explicitly evict one blob (driver-side GC release: the digest's
+        last ``RemoteValue`` handle died). Pinned digests — referenced by a
+        task currently executing here — are left alone. True iff the blob
+        was removed."""
+        with self._lock:
+            if digest in self._pins:
+                return False
+            blob = self._blobs.pop(digest, None)
+            if blob is None:
+                return False
+            self._bytes -= len(blob)
+            self._objects.pop(digest, None)
+            self.evictions += 1
+            return True
 
     def resolve(self, digest: bytes) -> Any:
         """Decoded value for ``digest`` (decoded-object cache first).

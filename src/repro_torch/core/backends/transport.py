@@ -32,14 +32,74 @@ so it is strictly opt-in: float arrays ship losslessly via codec 2 by
 default. Call :func:`set_array_codec` ``("int8")`` to enable it for
 workloads that tolerate quantization (gradient/parameter shipping).
 
-The socket frames of the reference (length-prefixed, out-of-band buffers),
-its TLS and its token preamble belong to the TCP cluster backend, which the
-port does not have yet; the processes backend's messages ride a pipe (see
-``worker.py``).
+The processes backend's messages ride a pipe (see ``worker.py``); the
+cluster's ride sockets as the frames below.
+
+Frame layout: 8-byte big-endian unsigned length, then a 1-byte frame codec,
+then the payload. Frame codecs:
+
+  ``0`` raw pickle          — the whole payload is one pickle
+  ``1`` zlib pickle         — same, zlib-compressed (level 1) when ≥64 KiB
+                              and compression actually shrinks it
+  ``2`` out-of-band pickle  — protocol-5 scatter frame::
+
+          u32 nbufs | u64 pickle_len | u64 buf_len[0..nbufs) |
+          pickle | buf[0] | buf[1] | ...
+
+        Large buffers (numpy arrays and tensors in result frames,
+        ``PickleBuffer``-wrapped payload blobs in ``put`` frames) travel as
+        their own iovecs: the sender hands them to ``sendmsg`` untouched (no
+        concatenation copy, and never through zlib) and the receiver reads
+        the whole frame into one preallocated buffer with ``recv_into`` and
+        unpickles against zero-copy memoryview slices of it.
+
+A frame is pickled by the shipping pickler (``globals_capture``): a tensor
+becomes its bytes, dtype, shape and device type — a CUDA tensor through a
+host copy — and never a CUDA IPC handle; a frame of plain objects and numpy
+arrays is byte-identical to the reference package's. The cluster's tags are
+listed in ``cluster.py``.
+
+Two read paths, both quadratic-copy-free:
+
+* :func:`recv_frame` — blocking; frames ≥4 KiB are read straight into one
+  preallocated buffer via ``recv_into``.
+* :class:`FrameReader` — incremental; used by the driver's select loop. One
+  ``recv()``/``recv_into`` per readiness event. Once a large frame's header
+  is parsed the reader switches to bulk mode and receives the body directly
+  into its final buffer.
+
+Connection loss maps to ``EOFError`` (clean close between frames) or
+:class:`ChannelError` (close mid-frame); the driver translates either into
+``WorkerDiedError`` for the future that was resolving there.
+
+Security preamble (opt-in, **before any frame is decoded**): when a
+listener is configured with TLS and/or a shared token, every byte above
+rides inside the negotiated channel and the very first exchange is a raw
+fixed-width handshake — not a pickle frame, so an unauthenticated peer
+never reaches ``pickle.loads``:
+
+  listener -> dialer : magic ``b"RFUT"`` | version u8 | nonce (16 B)
+  dialer -> listener : magic ``b"RFUT"`` | HMAC-SHA256(token, nonce) (32 B)
+  listener -> dialer : verdict u8 — ``0x01`` accepted, ``0x00`` denied
+                       (the listener closes after a deny)
+
+The listener matches the MAC against every configured ``{principal:
+token}`` pair (constant-time compare), so the same preamble authenticates
+cluster workers (single ``cluster`` token) and peer blob fetches (a
+per-backend random ``peer`` secret shipped to workers in ``init`` extras).
+Both sides run under a deadline: a plaintext dial into a TLS listener, a
+TLS dial into a plaintext listener, or a silent peer all surface as
+:class:`ChannelError` within the timeout, never a hang. The preamble's
+bytes are the reference package's, so either package's dialer passes the
+other's listener.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hmac
+import io
+import os
 import pickle
 import struct
 import threading
@@ -56,6 +116,19 @@ COMPRESS_THRESHOLD = 64 * 1024
 #: zlib level — 1 keeps the driver loop cheap; float-array pickles gain
 #: little from higher levels at several times the CPU cost
 COMPRESS_LEVEL = 1
+
+_LEN = struct.Struct("!Q")
+_OOB_HDR = struct.Struct("!IQ")          # nbufs, pickle_len
+_U64 = struct.Struct("!Q")
+_CHUNK = 1 << 20
+#: sanity bound against a corrupted length prefix (1 TiB)
+MAX_FRAME = 1 << 40
+
+#: frames below this size keep the simple buffered read path; larger ones
+#: are received into preallocated buffers (no bytearray += accumulation)
+BULK_THRESHOLD = 4 * 1024
+
+_RAW, _ZLIB, _OOB = 0, 1, 2
 
 # payload-blob codecs (first byte of a ``put`` body)
 P_PICKLE, P_INT8, P_RAWARR, P_ZPICKLE = 0, 1, 2, 3
@@ -93,6 +166,18 @@ _WIRE = {"bytes_sent": 0, "frames_sent": 0, "bytes_recv": 0,
          "frames_recv": 0}
 
 
+def _count_sent(nbytes: int) -> None:
+    with _WIRE_LOCK:
+        _WIRE["bytes_sent"] += nbytes
+        _WIRE["frames_sent"] += 1
+
+
+def _count_recv(nbytes: int) -> None:
+    with _WIRE_LOCK:
+        _WIRE["bytes_recv"] += nbytes
+        _WIRE["frames_recv"] += 1
+
+
 def wire_stats() -> dict:
     """Snapshot of this process's frame traffic (bytes include prefixes)."""
     with _WIRE_LOCK:
@@ -103,6 +188,465 @@ def reset_wire_stats() -> None:
     with _WIRE_LOCK:
         for k in _WIRE:
             _WIRE[k] = 0
+
+
+# --------------------------------------------------------------------------
+# Transport security: TLS contexts + the raw auth preamble
+# --------------------------------------------------------------------------
+
+#: first bytes on an authenticated connection, both directions — a fixed
+#: magic so a mis-dialed client (wrong port, plaintext into TLS) fails the
+#: preamble instead of being interpreted as a frame length
+AUTH_MAGIC = b"RFUT"
+AUTH_VERSION = 1
+_NONCE_LEN = 16
+_MAC_LEN = 32                                # HMAC-SHA256
+#: wall-clock budget for the whole preamble (either side); expiry maps to
+#: ChannelError so a protocol mismatch can never hang a dial or the
+#: listener's handshake thread
+AUTH_TIMEOUT_S = 10.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TLSConfig:
+    """TLS material for cluster sockets. ``certfile``/``keyfile`` arm the
+    listener side; ``cafile`` (usually the same self-signed cert) lets
+    dialers verify the listener. An empty ``cafile`` still encrypts — the
+    token preamble provides authentication — but skips certificate
+    verification. Frozen + hashable so it can ride in ``BackendSpec``
+    kwargs and the warm-pool key."""
+
+    certfile: str = ""
+    keyfile: str = ""
+    cafile: str = ""
+
+    def fingerprint(self) -> str:
+        """Digest of the *material* (file contents, not paths) — two
+        configs pointing at different certs never collide in the warm-pool
+        key even if the paths match."""
+        import hashlib
+        h = hashlib.blake2b(digest_size=8)
+        for path in (self.certfile, self.keyfile, self.cafile):
+            try:
+                with open(path, "rb") as f:
+                    h.update(f.read())
+            except OSError:
+                h.update(path.encode())
+        return h.hexdigest()
+
+
+def generate_self_signed_cert(directory: str,
+                              common_name: str = "repro-cluster") -> TLSConfig:
+    """Write a fresh self-signed cert/key pair under ``directory`` using the
+    system ``openssl`` binary (no third-party packages) and return a
+    :class:`TLSConfig` whose ``cafile`` is the cert itself."""
+    import subprocess
+    certfile = os.path.join(directory, "repro-tls-cert.pem")
+    keyfile = os.path.join(directory, "repro-tls-key.pem")
+    try:
+        proc = subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-keyout", keyfile, "-out", certfile, "-days", "7",
+             "-subj", f"/CN={common_name}",
+             "-addext", "subjectAltName=DNS:localhost,IP:127.0.0.1"],
+            capture_output=True, text=True)
+    except OSError as exc:
+        raise ChannelError(
+            f"self-signed cert generation failed (is openssl installed?): "
+            f"{exc}") from exc
+    if proc.returncode != 0:
+        raise ChannelError(
+            f"self-signed cert generation failed (is openssl installed?): "
+            f"{proc.stderr.strip()[:500]}")
+    os.chmod(keyfile, 0o600)
+    return TLSConfig(certfile=certfile, keyfile=keyfile, cafile=certfile)
+
+
+def server_tls_context(tls: TLSConfig):
+    """SSLContext for the listener side (driver, peer server)."""
+    import ssl
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+    try:
+        ctx.load_cert_chain(tls.certfile, tls.keyfile or None)
+    except (OSError, ssl.SSLError) as exc:
+        raise ChannelError(f"cannot load TLS cert chain "
+                           f"({tls.certfile!r}): {exc}") from exc
+    return ctx
+
+
+def client_tls_context(tls: "TLSConfig | None"):
+    """SSLContext for the dialing side (worker, peer fetch). With a
+    ``cafile`` the listener's certificate is verified against it; without
+    one the channel is encrypted but unverified (the token preamble still
+    authenticates both parties to each other)."""
+    import ssl
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+    ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+    cafile = tls.cafile if tls is not None else ""
+    if cafile:
+        ctx.check_hostname = False           # self-signed lab certs; the
+        ctx.verify_mode = ssl.CERT_REQUIRED  # CA pin is the trust anchor
+        try:
+            ctx.load_verify_locations(cafile)
+        except (OSError, ssl.SSLError) as exc:
+            raise ChannelError(f"cannot load TLS CA file "
+                               f"({cafile!r}): {exc}") from exc
+    else:
+        ctx.check_hostname = False
+        ctx.verify_mode = ssl.CERT_NONE
+    return ctx
+
+
+def _is_tls(sock) -> bool:
+    return type(sock).__module__ == "ssl"
+
+
+def _auth_recv(sock, n: int, role: str) -> bytes:
+    try:
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            if not chunk:
+                raise ChannelError(
+                    f"auth handshake: peer closed during {role} "
+                    f"(denied, or not an authenticated endpoint)")
+            buf += chunk
+        return buf
+    except (TimeoutError, OSError) as exc:
+        if isinstance(exc, ChannelError):
+            raise
+        raise ChannelError(
+            f"auth handshake {role} failed: {exc!r} — wrong endpoint, "
+            f"a plaintext dial into a TLS listener, or vice versa") from exc
+
+
+def _mac(token: str, nonce: bytes) -> bytes:
+    return hmac.new(token.encode(), nonce, "sha256").digest()
+
+
+def serve_auth(sock, tokens: "dict[str, str]", *,
+               timeout: float = AUTH_TIMEOUT_S) -> str:
+    """Listener side of the token preamble. Challenges the dialer with a
+    random nonce, matches the returned MAC against every ``{principal:
+    token}`` pair (constant-time), answers with a verdict byte, and returns
+    the matched principal name. Raises :class:`ChannelError` (after sending
+    the deny verdict when possible) on mismatch, garbage, or timeout —
+    **before any frame is decoded**. The caller owns closing the socket on
+    failure."""
+    prev = sock.gettimeout()
+    sock.settimeout(timeout)
+    try:
+        nonce = os.urandom(_NONCE_LEN)
+        try:
+            sock.sendall(AUTH_MAGIC + bytes((AUTH_VERSION,)) + nonce)
+        except OSError as exc:
+            raise ChannelError(f"auth challenge send failed: {exc!r}") \
+                from exc
+        reply = _auth_recv(sock, len(AUTH_MAGIC) + _MAC_LEN, "response")
+        who = None
+        if reply[:len(AUTH_MAGIC)] == AUTH_MAGIC:
+            mac = reply[len(AUTH_MAGIC):]
+            for principal, token in tokens.items():
+                if hmac.compare_digest(mac, _mac(token, nonce)):
+                    who = principal
+                    break
+        if who is None:
+            try:
+                sock.sendall(b"\x00")
+            except OSError:
+                pass
+            raise ChannelError("auth rejected: bad token")
+        sock.sendall(b"\x01")
+        return who
+    finally:
+        try:
+            sock.settimeout(prev)
+        except OSError:
+            pass
+
+
+def dial_auth(sock, token: str, *, timeout: float = AUTH_TIMEOUT_S) -> None:
+    """Dialer side of the token preamble: read the challenge, answer with
+    the token's MAC, require the accept verdict. Raises
+    :class:`ChannelError` on denial, protocol garbage, or timeout."""
+    prev = sock.gettimeout()
+    sock.settimeout(timeout)
+    try:
+        hdr = _auth_recv(sock, len(AUTH_MAGIC) + 1 + _NONCE_LEN, "challenge")
+        if hdr[:len(AUTH_MAGIC)] != AUTH_MAGIC:
+            raise ChannelError(
+                "auth handshake: endpoint did not send the expected "
+                "challenge (is it an authenticated repro listener?)")
+        nonce = hdr[len(AUTH_MAGIC) + 1:]
+        try:
+            sock.sendall(AUTH_MAGIC + _mac(token, nonce))
+        except OSError as exc:
+            raise ChannelError(f"auth response send failed: {exc!r}") \
+                from exc
+        verdict = _auth_recv(sock, 1, "verdict")
+        if verdict != b"\x01":
+            raise ChannelError("auth rejected by listener: bad token")
+    finally:
+        try:
+            sock.settimeout(prev)
+        except OSError:
+            pass
+
+
+# --------------------------------------------------------------------------
+# Frame encoding
+# --------------------------------------------------------------------------
+
+def _dumps_frame(obj: Any, buffer_callback) -> bytes:
+    """The frame's pickle, by the shipping pickler: tensors as their bytes
+    (out-of-band), never as CUDA IPC handles."""
+    from ..globals_capture import _ShippingPickler
+    buf = io.BytesIO()
+    _ShippingPickler(buf, protocol=pickle.HIGHEST_PROTOCOL,
+                     buffer_callback=buffer_callback).dump(obj)
+    return buf.getvalue()
+
+
+def encode_frame_parts(obj: Any) -> list:
+    """Encode ``obj`` as a list of buffers (first one owns the length
+    prefix). Large ``PickleBuffer``/ndarray/tensor payloads stay
+    out-of-band: they are returned as memoryviews of the caller's memory (a
+    CUDA tensor's: of its host copy), never copied into a contiguous frame
+    and never compressed."""
+    pbufs: list = []
+    blob = _dumps_frame(obj, pbufs.append)
+    if not pbufs:
+        flag = _RAW
+        if len(blob) >= COMPRESS_THRESHOLD:
+            packed = zlib.compress(blob, COMPRESS_LEVEL)
+            if len(packed) < len(blob):      # only when it actually shrinks
+                blob, flag = packed, _ZLIB
+        return [_LEN.pack(len(blob) + 1) + bytes((flag,)) + blob]
+
+    views = []
+    for pb in pbufs:
+        try:
+            views.append(pb.raw())
+        except (BufferError, AttributeError):
+            views.append(memoryview(bytes(pb)))
+    lens = [len(v) for v in views]
+    header = (bytes((_OOB,)) + _OOB_HDR.pack(len(views), len(blob))
+              + b"".join(_U64.pack(n) for n in lens))
+    total = len(header) + len(blob) + sum(lens)
+    return [_LEN.pack(total) + header, blob, *views]
+
+
+def encode_frame(obj: Any) -> bytes:
+    """Contiguous encoding (tests / non-socket callers); same wire bytes
+    as the scatter path."""
+    return b"".join(encode_frame_parts(obj))
+
+
+def _decode_payload(payload) -> Any:
+    """Decode one frame body (everything after the length prefix), given as
+    any bytes-like. OOB sub-buffers are zero-copy views into ``payload``."""
+    if not len(payload):
+        raise ChannelError("empty frame payload")
+    view = memoryview(payload)
+    flag = view[0]
+    if flag == _RAW:
+        return pickle.loads(view[1:])
+    if flag == _ZLIB:
+        return pickle.loads(zlib.decompress(view[1:]))
+    if flag == _OOB:
+        nbufs, pickle_len = _OOB_HDR.unpack_from(payload, 1)
+        off = 1 + _OOB_HDR.size
+        lens = [_U64.unpack_from(payload, off + 8 * i)[0]
+                for i in range(nbufs)]
+        off += 8 * nbufs
+        pick = view[off:off + pickle_len]
+        off += pickle_len
+        bufs = []
+        for n in lens:
+            bufs.append(view[off:off + n])
+            off += n
+        if off != len(view):
+            raise ChannelError("OOB frame length mismatch")
+        return pickle.loads(pick, buffers=bufs)
+    raise ChannelError(f"unknown frame codec {flag}")
+
+
+def _sendmsg_all(sock, parts: list) -> int:
+    """Scatter-send every buffer in ``parts`` without concatenating them;
+    returns the total bytes sent."""
+    views = [v if isinstance(v, memoryview) else memoryview(v)
+             for v in parts]
+    views = [v.cast("B") if v.format != "B" or v.ndim != 1 else v
+             for v in views]
+    total = sum(len(v) for v in views)
+    _count_sent(total)
+    # Zero-length views (an empty array pickles to a 0-byte PickleBuffer)
+    # must be dropped up front: once one reaches the head of the list,
+    # sendmsg returns 0 and the pop loop below — which only consumes views
+    # while `sent` is positive — would spin forever holding send_lock.
+    views = [v for v in views if len(v)]
+    # SSLSocket inherits a sendmsg attribute but it raises
+    # NotImplementedError (TLS records cannot scatter-gather) — fall back
+    # to sendall over the encrypted channel.
+    if not hasattr(sock, "sendmsg") or _is_tls(sock):
+        for v in views:
+            sock.sendall(v)
+        return total
+    while views:
+        sent = sock.sendmsg(views[:64])      # stay well under IOV_MAX
+        while sent:
+            if sent >= len(views[0]):
+                sent -= len(views[0])
+                views.pop(0)
+            else:
+                views[0] = views[0][sent:]
+                sent = 0
+    return total
+
+
+def send_frame(sock, obj: Any,
+               lock: "threading.Lock | None" = None) -> int:
+    """Serialize and send one frame; ``lock`` serializes concurrent senders
+    (e.g. a worker's heartbeat thread vs its result path). Returns the
+    frame's on-wire byte count."""
+    parts = encode_frame_parts(obj)
+    if lock is None:
+        return _sendmsg_all(sock, parts)
+    with lock:
+        return _sendmsg_all(sock, parts)
+
+
+# --------------------------------------------------------------------------
+# Frame decoding — blocking path
+# --------------------------------------------------------------------------
+
+def _recv_exact(sock, n: int):
+    """Read exactly ``n`` bytes. Small reads keep the simple recv loop;
+    ``n`` ≥ :data:`BULK_THRESHOLD` goes straight into one preallocated
+    buffer of its length via ``recv_into`` (no bytearray += reallocation,
+    no final copy)."""
+    if n < BULK_THRESHOLD:
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            if not chunk:
+                if buf:
+                    raise ChannelError(
+                        f"connection closed mid-frame ({len(buf)}/{n} bytes)")
+                raise EOFError("connection closed")
+            buf += chunk
+        return buf
+    out = bytearray(n)
+    view = memoryview(out)
+    got = 0
+    while got < n:
+        r = sock.recv_into(view[got:], min(n - got, _CHUNK))
+        if not r:
+            raise ChannelError(
+                f"connection closed mid-frame ({got}/{n} bytes)")
+        got += r
+    return out
+
+
+def recv_frame(sock) -> Any:
+    """Blocking read of exactly one frame."""
+    (n,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
+    if n > MAX_FRAME:
+        raise ChannelError(f"oversized frame: {n} bytes")
+    payload = _recv_exact(sock, n)
+    _count_recv(_LEN.size + n)
+    return _decode_payload(payload)
+
+
+# --------------------------------------------------------------------------
+# Frame decoding — select-driven incremental path
+# --------------------------------------------------------------------------
+
+class FrameReader:
+    """Select-driven incremental frame parser for one socket.
+
+    Small frames accumulate in a spill buffer; once a frame's header
+    announces ≥ :data:`BULK_THRESHOLD` bytes, the reader allocates the
+    frame's final buffer up front and every subsequent readiness event does
+    one ``recv_into`` directly at the fill offset — large result/put frames
+    are assembled with zero intermediate copies.
+    """
+
+    def __init__(self, sock):
+        self._sock = sock
+        self._buf = bytearray()
+        self._bulk: "bytearray | None" = None    # preallocated frame body
+        self._bulk_fill = 0
+        #: on-wire sizes of the frames returned by the last :meth:`feed`,
+        #: index-aligned with its return value
+        self.last_sizes: list = []
+
+    def feed(self) -> list:
+        """Do one ``recv()``/``recv_into`` pass and return every complete
+        frame now buffered. On a TLS socket one raw readiness event can
+        decrypt more application bytes than a single ``recv`` returns —
+        select never fires for bytes already sitting decrypted in the SSL
+        layer — so the pass repeats while ``sock.pending()`` reports
+        buffered plaintext.
+
+        Raises ``EOFError`` on clean close, :class:`ChannelError` if the peer
+        closed with a partial frame buffered (truncated frame).
+        """
+        frames: list = []
+        self.last_sizes = []
+        while True:
+            self._feed_once(frames)
+            pending = getattr(self._sock, "pending", None)
+            if pending is None or not pending():
+                return frames
+
+    def _feed_once(self, frames: list) -> None:
+        if self._bulk is not None:
+            r = self._sock.recv_into(
+                memoryview(self._bulk)[self._bulk_fill:],
+                min(len(self._bulk) - self._bulk_fill, _CHUNK))
+            if not r:
+                raise ChannelError(
+                    f"connection closed mid-frame "
+                    f"({self._bulk_fill}/{len(self._bulk)} buffered bytes)")
+            self._bulk_fill += r
+            if self._bulk_fill < len(self._bulk):
+                return
+            body, self._bulk = self._bulk, None
+            _count_recv(_LEN.size + len(body))
+            frames.append(_decode_payload(body))
+            self.last_sizes.append(_LEN.size + len(body))
+        else:
+            chunk = self._sock.recv(_CHUNK)
+            if not chunk:
+                if self._buf:
+                    raise ChannelError(
+                        f"connection closed mid-frame "
+                        f"({len(self._buf)} buffered bytes)")
+                raise EOFError("connection closed")
+            self._buf += chunk
+
+        while len(self._buf) >= _LEN.size:
+            (n,) = _LEN.unpack(self._buf[:_LEN.size])
+            if n > MAX_FRAME:
+                raise ChannelError(f"oversized frame: {n} bytes")
+            end = _LEN.size + n
+            if len(self._buf) < end:
+                if n >= BULK_THRESHOLD:
+                    # switch to bulk mode: move the partial body into its
+                    # final buffer; subsequent feeds recv_into it directly
+                    body = bytearray(n)
+                    have = len(self._buf) - _LEN.size
+                    body[:have] = self._buf[_LEN.size:]
+                    self._bulk, self._bulk_fill = body, have
+                    self._buf = bytearray()
+                break
+            _count_recv(end)
+            frames.append(_decode_payload(
+                bytes(memoryview(self._buf)[_LEN.size:end])))
+            self.last_sizes.append(end)
+            del self._buf[:end]
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Worker-process main loop for the processes backend.
+"""Worker-process main loop for the processes backend, and the task
+execution both the pipe and the socket (``cluster_worker``) workers share.
 
 Protocol (one pickle per message over a multiprocessing Pipe, see
 :class:`Channel`):
@@ -99,6 +100,11 @@ def _sanitize_run(run) -> Any:
             run = dataclasses.replace(
                 run, error=RuntimeError(
                     f"{type(run.error).__name__}: {run.error}"))
+    from .blobstore import array_nbytes
+    if array_nbytes(run.value) is not None:
+        # an array or tensor always ships (as its bytes): no trial pickle,
+        # and no second host copy of a result on the card
+        return run
     try:
         dumps_robust(run.value)
     except Exception as exc:                                # noqa: BLE001
@@ -145,16 +151,72 @@ def error_run(exc: Exception) -> Any:
     return _sanitize_run(CapturedRun(error=exc))
 
 
-def ensure_refs(store: BlobStore, refs, send_need, recv_msg) -> "str | None":
+def hold_result(store: BlobStore, run, threshold: "int | None" = None):
+    """Worker-resident results (the cluster's dataflow): when ``run.value``
+    encodes (losslessly — never through the opt-in int8 codec) to
+    ``threshold`` bytes or more, park the blob in this worker's own store
+    under its content digest and replace the value with a
+    :class:`~.blobstore.PayloadRef`. Returns ``(run, held)`` where ``held``
+    is the ``((digest, nbytes),)`` manifest for the result frame — empty
+    when the value travels inline.
+
+    A tensor on the card is encoded through a host copy; whoever decodes
+    the blob (a chained task on this worker, a peer, the driver) rebuilds
+    it on its own card. The digest is computed over the *encoded blob*, so
+    it names exactly the bytes a fetch/offer exchange will move."""
+    from . import transport
+    from .blobstore import (PayloadRef, RESULT_REF_THRESHOLD, array_nbytes,
+                            blob_digest)
+    if threshold is None:
+        threshold = RESULT_REF_THRESHOLD
+    if run.error is not None:
+        return run, ()
+    value = run.value
+    if value is None or isinstance(value, (bool, int, float)):
+        return run, ()
+    nbytes = array_nbytes(value)
+    if nbytes is not None and nbytes < threshold:
+        return run, ()
+    try:
+        blob = transport.encode_payload(value, int8=False)
+    except Exception:                                       # noqa: BLE001
+        return run, ()                 # unencodable: ship inline
+    if len(blob) < threshold:
+        return run, ()
+    digest = blob_digest(blob)
+    store.put(digest, blob)
+    run = dataclasses.replace(run, value=PayloadRef(digest))
+    return run, ((digest, len(blob)),)
+
+
+def ensure_refs(store: BlobStore, refs, send_need, recv_msg,
+                peer_fetch=None) -> "str | None":
     """Make sure every digest in ``refs`` is present in ``store``, asking
     the driver with ``send_need(digest)`` and pumping ``recv_msg()`` for the
     ``put`` answers. Returns ``"stop"`` if a stop message arrived
     mid-backfill (propagated to the main loop), raises ChannelError if the
-    driver naks."""
+    driver naks.
+
+    ``peer_fetch(digest) -> blob | None`` is tried first for each missing
+    digest (the cluster worker's worker-to-worker fetch along the driver's
+    location hints); digests a peer cannot serve fall through to the
+    ``need`` driver-fallback path, so a partitioned or evicted peer costs
+    one failed fetch, never a stuck task."""
     from ..errors import ChannelError
     missing = [d for d in refs if d not in store]
     if not missing:
         return None
+    if peer_fetch is not None:
+        still = []
+        for d in missing:
+            blob = peer_fetch(d)
+            if blob is not None:
+                store.put(d, blob)
+            else:
+                still.append(d)
+        missing = still
+        if not missing:
+            return None
     for d in missing:
         send_need(d)
     waiting = set(missing)

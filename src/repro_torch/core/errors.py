@@ -38,6 +38,18 @@ class ChannelError(FutureError):
     or a payload the driver could not serve)."""
 
 
+class LineageExhaustedError(FutureError):
+    """A worker-resident result was lost (its holder died, or it was
+    evicted everywhere) and could **not** be rebuilt: the port records no
+    lineage yet, so a digest with no live copy ends here. Carries the
+    digest."""
+
+    def __init__(self, message: str, *, digest: "bytes | None" = None,
+                 future_label: str | None = None, worker: object | None = None):
+        super().__init__(message, future_label=future_label, worker=worker)
+        self.digest = digest
+
+
 class FutureCancelledError(FutureError):
     """The future was cancelled before it resolved (e.g. the losing branches
     of ``future_either`` or an elastic down-scale)."""
@@ -51,7 +63,8 @@ class GlobalsError(ValueError):
 class NonExportableObjectError(GlobalsError):
     """A captured global cannot be shipped to an external worker — the
     analogue of the paper's 'non-exportable objects' (R connections, external
-    pointers). In Python: unpicklable objects for the processes backend."""
+    pointers). In Python: unpicklable objects for the processes and cluster
+    backends."""
 
 
 class RNGMisuseWarning(UserWarning):

@@ -60,7 +60,8 @@ from . import planning as plan_mod
 from .backends.base import (Backend, CompletionHandle, EventWaitMixin,
                             TaskSpec)
 from .conditions import CapturedRun, capture_run, relay
-from .errors import FutureCancelledError, FutureError, GlobalsError
+from .errors import (FutureCancelledError, FutureError, GlobalsError,
+                     WorkerDiedError)
 from .globals_capture import identify_globals
 from . import rng as rng_mod
 
@@ -383,29 +384,40 @@ class Future:
     def _task(self, backend: Backend) -> TaskSpec:
         shipped = None
         sources: dict = {}
-        if backend.name == "processes":
+        args, kwargs = self._args, self._kwargs
+        if backend.name in ("processes", "cluster"):
             # Content-addressed shipping: large globals leave the task blob
             # as PayloadRef digests (shipped at most once per worker); the
             # extraction doubles as the exportability scan, raising
             # NonExportableObjectError at creation.
-            from .globals_capture import (dumps_robust, extract_payload_refs,
+            from .globals_capture import (dumps_robust, extract_call_refs,
+                                          extract_payload_refs,
                                           ship_function)
             refd, sources = extract_payload_refs(
                 self._snapshot, backend=backend.name)
+            if backend.name == "cluster":
+                # large call args ride the same content-addressed channel
+                # as globals; RemoteValue args stay worker-resident digests
+                # (the dataflow path — cluster-only, as in the reference)
+                args, kwargs, asrc = extract_call_refs(
+                    args, kwargs, backend=backend.name)
+                sources.update(asrc)
             shipped = dumps_robust({
                 "fn": ship_function(self._fn, refd, self._packages,
                                     ref_sink=sources),
-                "args": self._args, "kwargs": self._kwargs,
+                "args": args, "kwargs": kwargs,
                 "capture_stdout": self._stdout,
                 "capture_conditions": self._conditions,
                 "seed_declared": self.seed_declared,
             }, ref_sink=sources)
         return TaskSpec(
-            task_id=self.id, fn=self._fn, args=self._args,
-            kwargs=self._kwargs, label=self.label,
+            task_id=self.id, fn=self._fn, args=args,
+            kwargs=kwargs, label=self.label,
             capture_stdout=self._stdout, capture_conditions=self._conditions,
             seed_declared=self.seed_declared, shipped=shipped,
-            payload_sources=sources)
+            payload_sources=sources,
+            affinity=tuple(d for d, s in sources.items()
+                           if getattr(s, "remote", False)))
 
     def _submit(self) -> None:
         with self._lock:
@@ -472,6 +484,11 @@ class Future:
                 raise TimeoutError(
                     f"future {self.label!r} unresolved after {timeout}s")
             run = self._backend.collect(self._handle)   # may raise FutureError
+            # worker-resident result: value() is the explicit pull — fetch
+            # the blob from its holder and hand back a writable copy (may
+            # raise LineageExhaustedError/ChannelError like any infra
+            # failure)
+            run = _materialize_run(run)
             with self._lock:
                 self._run, self._state = run, _COLLECTED
         assert self._run is not None
@@ -580,6 +597,83 @@ class Future:
 # Continuation steps (run on continuation threads, never in backend loops)
 # --------------------------------------------------------------------------
 
+def _materialize_run(run: CapturedRun) -> CapturedRun:
+    """Pull a worker-resident result down to the driver: a RemoteValue
+    value is fetched (writable copy) in place. Raises what the fetch
+    raises (LineageExhaustedError when the bytes died with their holder)."""
+    if getattr(run.value, "is_remote_value", False):
+        run = dataclasses.replace(run, value=run.value.fetch())
+    return run
+
+
+def _chain_apply(v, _fn=None, _flatten=False):
+    """Worker-side body of a locality-routed continuation hop: run the
+    user's fn against the (peer-resolved) parent value; flatten a returned
+    Future by resolving it in place (nested futures on a worker run on the
+    worker's popped plan)."""
+    r = _fn(v)
+    if _flatten and isinstance(r, Future):
+        r = r.value()
+    return r
+
+
+def _remote_chain(prun: CapturedRun, fn: Callable, out: Future, *,
+                  flatten: bool, _attempts: int = 2) -> bool:
+    """Try to route a continuation on a worker-resident parent value back
+    through the holding cluster: the hop ships ~500 B of control frame (fn
+    + the parent digest) and ``TaskSpec.affinity`` steers it to a worker
+    already holding the bytes. Returns False when routing is impossible
+    (backend gone / shut down) — the caller falls back to pulling the
+    value and running the continuation driver-side. A hop that dies with
+    its worker is retried up to ``_attempts`` times (``_step_hop``)."""
+    rv = prun.value
+    backend = rv.backend()
+    if backend is None or not getattr(backend, "remote_chains", False):
+        return False
+    try:
+        g = Future(_chain_apply, (rv,), {"_fn": fn, "_flatten": flatten},
+                   backend=backend, seed=False, lazy=True,
+                   label=f"{out.label}@worker")
+        # continuation convention (see _spawn_continuation): the hop must
+        # not trip RNG-misuse detection on the user's behalf
+        g.seed_declared = True
+        g._register(lambda _h: _spawn_continuation(
+            out, lambda: _step_hop(g, prun, fn, out, flatten=flatten,
+                                   attempts_left=_attempts)))
+    except Exception:                                # noqa: BLE001
+        return False                   # shut-down race etc.: pull instead
+    return True
+
+
+def _step_hop(g: Future, prun: CapturedRun, fn: Callable, out: Future, *,
+              flatten: bool, attempts_left: int) -> None:
+    """Adopt the outcome of one locality-routed hop, with recovery. A hop
+    killed with its worker is re-routed; any other — or exhausted —
+    infrastructure failure falls back to pulling the parent value and
+    running the continuation driver-side (a parent whose every copy is
+    gone fails there with LineageExhaustedError)."""
+    run, infra = _outcome(g)
+    if infra is None:
+        prefix = dataclasses.replace(prun, value=None)
+        _CHAIN.complete(out._handle,
+                        run=_merge_runs(prefix, dataclasses.replace(run)))
+        return
+    if not isinstance(infra, FutureError) \
+            or isinstance(infra, FutureCancelledError):
+        _CHAIN.complete(out._handle, error=infra)
+        return
+    if isinstance(infra, WorkerDiedError) and attempts_left > 0 \
+            and _remote_chain(prun, fn, out, flatten=flatten,
+                              _attempts=attempts_left - 1):
+        return
+    try:
+        mrun = _materialize_run(prun)
+    except Exception as exc:                         # noqa: BLE001
+        _CHAIN.complete(out._handle, error=exc)
+        return
+    _finish_local_step(mrun, fn, out, flatten=flatten)
+
+
 def _step_then(parent: Future, fn: Callable, out: Future, *,
                flatten: bool) -> None:
     prun, infra = _outcome(parent)
@@ -591,13 +685,24 @@ def _step_then(parent: Future, fn: Callable, out: Future, *,
         # behaviour matches value(parent)
         _CHAIN.complete(out._handle, run=dataclasses.replace(prun))
         return
+    if getattr(prun.value, "is_remote_value", False):
+        # locality-scheduled continuation: dispatch fn to the worker that
+        # already holds the parent's result instead of pulling it here
+        if _remote_chain(prun, fn, out, flatten=flatten):
+            return
+        try:
+            prun = _materialize_run(prun)
+        except Exception as exc:                     # noqa: BLE001
+            _CHAIN.complete(out._handle, error=exc)
+            return
     _finish_local_step(prun, fn, out, flatten=flatten)
 
 
 def _finish_local_step(prun: CapturedRun, fn: Callable, out: Future, *,
                        flatten: bool) -> None:
-    """Run ``fn`` against the parent value on this thread and complete
-    ``out``."""
+    """Run ``fn`` against the (materialized) parent value on this thread
+    and complete ``out`` — the driver-side tail shared by ``_step_then``
+    and ``_step_hop``'s fallback path."""
     crun = capture_run(lambda: fn(prun.value))
     if flatten and crun.error is None and isinstance(crun.value, Future):
         inner = crun.value
@@ -1049,6 +1154,13 @@ def _step_gather(fs: list[Future], out: Future) -> None:
         run, infra = _outcome(f)
         if infra is not None:
             _CHAIN.complete(out._handle, error=infra)
+            return
+        try:
+            # gather crosses workers by construction: pull each worker-
+            # resident input down (driver fallback of the dataflow path)
+            run = _materialize_run(run)
+        except Exception as exc:                     # noqa: BLE001
+            _CHAIN.complete(out._handle, error=exc)
             return
         runs.append(run)
     merged = CapturedRun(value=[r.value for r in runs])

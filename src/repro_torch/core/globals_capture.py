@@ -33,7 +33,7 @@ mutation does not leak into the future, mirroring R's copy-on-assign.
 On the in-process backends nothing is shipped: the snapshot is bound into
 the rebuilt function by ``future.py``.
 
-Shipping (the processes backend) is **content-addressed**: any snapshot
+Shipping (the processes and cluster backends) is **content-addressed**: any snapshot
 value whose payload reaches ``blobstore.PAYLOAD_REF_THRESHOLD`` (~16 KiB)
 is split out of the task blob by :func:`extract_payload_refs` and replaced
 with a :class:`~.backends.blobstore.PayloadRef` digest. The bytes travel in
@@ -206,6 +206,12 @@ def extract_payload_refs(snapshot: dict[str, Any], *, backend: str,
         if isinstance(val, types.ModuleType):
             out[name] = val
             continue
+        if getattr(val, "is_remote_value", False):
+            # a worker-resident result captured as a global: ship the ref,
+            # let the holder (or a peer / the driver fallback) move the bytes
+            sources[val.digest] = val.source()
+            out[name] = blobstore.PayloadRef(val.digest)
+            continue
         nbytes = blobstore.array_nbytes(val)
         if nbytes is not None:
             if nbytes >= threshold:
@@ -240,9 +246,13 @@ def extract_call_refs(args: tuple, kwargs: dict, *, backend: str,
     side through the ambient payload resolver at task decode).
 
     Covered: arrays and tensors (``content_digest`` over raw bytes,
-    memoized) and ``bytes``/``str`` at or over ``threshold`` (cheap ``len``
-    probe). Other values travel inline (no speculative pickling on the
-    small-arg fast path).
+    memoized), ``bytes``/``str`` at or over ``threshold`` (cheap ``len``
+    probe), and worker-resident :class:`~.backends.blobstore.RemoteValue`
+    results — the fuel of continuation chains, which ship as a ~500 B ref
+    plus peer-fetch hints instead of the multi-MB value. Other values travel
+    inline (no speculative pickling on the small-arg fast path); a
+    ``RemoteValue`` *nested* inside a container is converted during the
+    shipping pickle by ``_ShippingPickler.reducer_override``.
     """
     from .backends import blobstore
     if threshold is None:
@@ -250,6 +260,9 @@ def extract_call_refs(args: tuple, kwargs: dict, *, backend: str,
     sources: dict[bytes, Any] = {}
 
     def convert(val, name):
+        if getattr(val, "is_remote_value", False):
+            sources[val.digest] = val.source()
+            return blobstore.PayloadRef(val.digest)
         nbytes = blobstore.array_nbytes(val)
         if nbytes is not None and nbytes >= threshold:
             digest = blobstore.content_digest(val)
@@ -370,6 +383,15 @@ class _ShippingPickler(pickle.Pickler):
         if isinstance(obj, types.ModuleType):
             import importlib
             return (importlib.import_module, (obj.__name__,))
+        if getattr(obj, "is_remote_value", False) \
+                and self._ref_sink is not None:
+            # a worker-resident result nested anywhere in the shipped
+            # structure: pickle the digest marker (resolved worker-side by
+            # the ambient resolver) and sink a RemoteSource so the dispatch
+            # layer can move (or hint at) the bytes
+            from .backends.blobstore import _resolve_or_ref
+            self._ref_sink[obj.digest] = obj.source()
+            return (_resolve_or_ref, (obj.digest,))
         return NotImplemented
 
 

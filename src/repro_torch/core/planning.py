@@ -14,7 +14,18 @@ against N² oversubscription.
 
 Backend kwargs are passed through ``spec()`` to the backend constructor.
 For ``processes``: ``workers=N`` and ``blob_store_bytes=`` (each worker's
-payload cache bound; see ``backends/processes.py``).
+payload cache bound; see ``backends/processes.py``). For the TCP
+``cluster``: ``workers=N`` / ``hosts=N`` (launch N local connect-back
+workers), ``hosts=("a", "b")`` (one worker per named host — ssh by
+default), ``launcher=`` (a ``launchers.Launcher`` instance,
+``"local"``/``"ssh"``, a scheduler command template containing
+``{driver}``, or ``"external"``), ``bind=``/``port=``/``advertise=``,
+``connect_timeout=``, ``heartbeat_interval=``/``heartbeat_timeout=``,
+``relaunch_backoff=``/``relaunch_backoff_cap=``, ``token=``, ``tls=`` and
+``blob_store_bytes=`` — see ``backends/cluster.py`` and
+``backends/launchers.py``. Launchers are hashable frozen dataclasses, so
+they ride inside the spec — and the warm-pool key below hashes the whole
+spec: re-planning to the same spec re-attaches to the live workers.
 """
 
 from __future__ import annotations
@@ -158,6 +169,12 @@ _lock = threading.RLock()
 # re-attaches to its live workers (blob caches intact, no torch re-import,
 # no CUDA re-init) instead of cold-starting a new pool. Only worker-owning
 # backends are parked; explicit shutdown() still tears everything down.
+#
+# The cluster backend's dataflow state — the digest->holder location map
+# behind locality-scheduled continuations and peer fetch — lives on the
+# backend *object*, so parking/re-attaching preserves it structurally: a
+# RemoteValue produced before a plan() swap still knows where its bytes
+# live after planning back, and chains on it keep their locality.
 # --------------------------------------------------------------------------
 
 #: parked backends, key -> Backend (insertion-ordered for LRU eviction)
@@ -167,7 +184,7 @@ _WARM_POOL_MAX = 3
 #: excludes the in-process backends — threads are cheap to respawn, and the
 #: asyncio and cuda_async backends' whole cost is one thread: parking them
 #: buys nothing over a cold start, so plan() swaps shut them down instead.
-_POOLABLE = ("processes",)
+_POOLABLE = ("processes", "cluster")
 
 
 def _freeze(obj) -> "Any":
@@ -188,20 +205,53 @@ def _freeze(obj) -> "Any":
     return obj
 
 
+def _security_fingerprint(head: BackendSpec) -> tuple:
+    """Credential identity of a cluster spec. Two plans can be
+    kwarg-identical yet security-distinct — the cluster token defaults to
+    ``$REPRO_CLUSTER_TOKEN`` (mutable between plans) and ``tls=True``
+    generates a fresh cert per instantiation — and reattaching a warm pool
+    across a credential change would serve the new plan with the old
+    secrets. Tokens enter the key hashed, never raw."""
+    if head.name != "cluster":
+        return ()
+    import hashlib
+    kwargs = dict(head.kwargs)
+    token = kwargs.get("token")
+    if token is None:
+        token = os.environ.get("REPRO_CLUSTER_TOKEN", "")
+    token_fp = hashlib.blake2b(str(token).encode(),
+                               digest_size=8).hexdigest() if token else ""
+    tls = kwargs.get("tls")
+    if tls is True:
+        # a fresh self-signed cert per instantiation: make the fingerprint
+        # spec-stable ("auto") — the *same spec* re-planned still
+        # reattaches, and the parked backend carries its cert with it
+        tls_fp = "auto"
+    elif hasattr(tls, "fingerprint"):
+        tls_fp = tls.fingerprint()
+    else:
+        tls_fp = _freeze(tls) if tls else ""
+    return (token_fp, tls_fp)
+
+
 def _backend_key(head: BackendSpec, stack: "tuple[BackendSpec, ...]"
                  ) -> tuple:
     """Identity under which a live backend may be reused: same head spec
     (kwargs deep-frozen), same nested stack (workers captured it at init),
-    same session seed (worker RNG streams derive from it)."""
+    same session seed (worker RNG streams derive from it), same security
+    credentials (:func:`_security_fingerprint`)."""
     from . import rng as rng_mod
     nested = stack[1:] if len(stack) > 1 else (_SEQUENTIAL,)
 
     def _kw(s: BackendSpec):
-        return _freeze(dict(s.kwargs))
+        # the raw token must never sit in a long-lived pool key; the
+        # security fingerprint covers it (hashed)
+        return _freeze({k: v for k, v in s.kwargs if k != "token"})
 
     return (head.name, _kw(head),
             tuple((s.name, _kw(s)) for s in nested),
-            rng_mod._session_seed)
+            rng_mod._session_seed,
+            _security_fingerprint(head))
 
 
 def _park_active_locked() -> list:
@@ -373,8 +423,23 @@ def active_backend() -> Backend:
                 doomed = _park_active_locked()
                 key = _backend_key(head, _global_stack)
                 warm = _WARM_POOL.pop(key, None)
-                _active_backend = warm if warm is not None \
-                    else head.instantiate()
+                if warm is not None:
+                    _active_backend = warm
+                else:
+                    try:
+                        _active_backend = head.instantiate()
+                    except Exception:
+                        # a parked backend may still pin a resource the new
+                        # spec needs (e.g. a cluster listener on an explicit
+                        # port): flush the pool and retry once
+                        stale = doomed + list(_WARM_POOL.values())
+                        doomed = []
+                        _WARM_POOL.clear()
+                        if not stale:
+                            raise
+                        for b in stale:
+                            b.shutdown()
+                        _active_backend = head.instantiate()
                 _active_spec, _active_key = head, key
             return _active_backend
     finally:

@@ -64,6 +64,13 @@ injects content-addressed globals:
   speaking ``("state", rid, op, args)`` / ``("state_rep", rid, status,
   payload)`` messages over the existing task pipe; the parent's ``_drive``
   thread services them against the shared singleton.
+* cluster: ``cluster_worker._serve`` installs a :class:`SockStateClient`.
+  Requests ride the control socket as ``state`` frames; the driver's
+  select loop executes small ops inline and bounces large-value serves and
+  ``wait`` notifications to side threads (exactly like ``need``
+  backfills). Replies are routed by the worker's *reader thread* straight
+  into per-request wait slots — the main thread is blocked inside user
+  code at that moment.
 
 Wire value encoding reuses the content-addressed blob machinery: a value
 whose lossless ``transport.encode_payload`` form is smaller than
@@ -84,6 +91,10 @@ import time
 from typing import Any, Callable
 
 _MISSING = object()
+
+#: replies/serves at or above this many bytes are bounced off the cluster
+#: select loop onto a side thread (mirrors the ``need`` backfill rule)
+STATE_INLINE_MAX = 256 * 1024
 
 
 class StateError(RuntimeError):
@@ -188,6 +199,17 @@ def _wire_decode(payload, store=None, fetch_blob: "Callable | None" = None):
             blob = fetch_blob(digest)
     value, _ = transport.decode_payload(blob)
     return value
+
+
+def oob(payload):
+    """Socket-transport variant of a value payload: the blob travels as a
+    protocol-5 out-of-band buffer (no concatenation copy; see frame codec
+    2 in ``transport.py``). Pipe transports skip this."""
+    if payload is not None and payload[0] == "r" and payload[2] is not None:
+        blob = payload[2]
+        if not isinstance(blob, pickle.PickleBuffer):
+            return ("r", payload[1], pickle.PickleBuffer(blob), payload[3])
+    return payload
 
 
 # --------------------------------------------------------------------------
@@ -774,6 +796,79 @@ class _RPCClient:
         return {"cas_retries": self.cas_retries, "ops": self._ops}
 
 
+class SockStateClient(_RPCClient):
+    """Cluster-worker client: sends ``("state", rid, op, args)`` frames on
+    the control socket; the worker's dedicated *reader thread* routes the
+    matching ``("state_rep", rid, status, payload)`` into a per-request
+    wait slot (the main thread is inside user code, blocked right here).
+    Connection loss fails every outstanding call with the reader's
+    exception."""
+
+    def __init__(self, sock, send_lock, store):
+        super().__init__(store=store)
+        self._sock = sock
+        self._send_lock = send_lock
+        self._lock = threading.Lock()
+        self._waits: dict = {}                  # rid -> [Event, reply|None]
+        self._down: "BaseException | None" = None
+
+    def deliver(self, msg) -> None:
+        """Reader-thread entry: hand one state_rep to its waiter."""
+        with self._lock:
+            entry = self._waits.pop(msg[1], None)
+        if entry is not None:
+            entry[1] = (msg[2], msg[3])
+            entry[0].set()
+
+    def fail_all(self, exc: BaseException) -> None:
+        """Reader-thread entry on connection loss: every blocked state
+        call raises (the task fails cleanly via its error run)."""
+        with self._lock:
+            self._down = exc
+            entries, self._waits = list(self._waits.values()), {}
+        for entry in entries:
+            entry[0].set()
+
+    def _call(self, op, args, wait_timeout=None):
+        from .backends.transport import send_frame
+        if self._down is not None:
+            raise StateError(f"state service unreachable: {self._down!r}")
+        rid = next(self._rid)
+        self._ops += 1
+        entry = [threading.Event(), None]
+        with self._lock:
+            self._waits[rid] = entry
+        if op in ("put", "cas", "add", "extend"):
+            args = args[:-1] + (oob(args[-1]),)
+        try:
+            send_frame(self._sock, ("state", rid, op, args), self._send_lock)
+        except OSError as exc:
+            with self._lock:
+                self._waits.pop(rid, None)
+            raise StateError(f"state send failed: {exc!r}") from exc
+        # no local deadline beyond the op's own: driver death reaches us
+        # through the reader's EOF -> fail_all; a wait op gets its
+        # server-side timeout plus generous slack for the reply to travel
+        budget = None if wait_timeout is None else wait_timeout + 60.0
+        if not entry[0].wait(budget):
+            with self._lock:
+                self._waits.pop(rid, None)
+            raise StateTimeout(f"state {op} reply never arrived "
+                               f"(waited {budget}s)")
+        if entry[1] is None:
+            raise StateError(
+                f"state service unreachable: {self._down!r}")
+        status, payload = entry[1]
+        if status == "timeout":
+            raise StateTimeout(
+                f"state.wait({args[0]!r}, min_version={args[1]}) timed out "
+                f"after {args[2]}s")
+        if status == "err":
+            raise payload if isinstance(payload, Exception) \
+                else StateError(repr(payload))
+        return payload
+
+
 class PipeStateClient(_RPCClient):
     """Processes-worker client: state ops ride the task pipe. The worker's
     main thread both sends the request and pumps the pipe for the reply —
@@ -963,7 +1058,8 @@ def stats() -> dict:
 
 __all__ = [
     "StateService", "StateError", "StateTimeout", "state_context",
-    "PipeStateClient", "service", "reset", "set_default_client",
+    "SockStateClient", "PipeStateClient", "service", "reset",
+    "set_default_client",
     "put", "get", "read", "cas", "update", "add", "extend", "delete",
     "wait", "wait_async", "keys", "version", "stats",
     "scoped_key", "scope_args",

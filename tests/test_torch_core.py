@@ -170,22 +170,23 @@ def test_cancel_unlaunched():
     value(blocker)
 
 
-def test_only_in_process_backends_are_registered():
-    """The in-process backends and ``processes``; the TCP cluster is a
-    later slice of the port."""
-    assert sorted(BACKEND_REGISTRY) == ["asyncio", "cuda_async",
+def test_every_backend_of_the_port_is_registered_and_cluster_resolves():
+    """The in-process backends, ``processes`` and the TCP ``cluster``:
+    ``plan("cluster")`` resolves to the socket backend, whose worker
+    answers a future."""
+    from repro_torch.core.backends.cluster import ClusterBackend
+    assert sorted(BACKEND_REGISTRY) == ["asyncio", "cluster", "cuda_async",
                                         "processes", "sequential", "threads"]
-    with pytest.raises(ValueError, match="unknown backend"):
-        rc.plan("cluster")
+    rc.plan("cluster", workers=1)
+    assert isinstance(rc.active_backend(), ClusterBackend)
+    assert value(future(lambda: 6 * 7), timeout=60) == 42
 
 
-def test_public_names_are_the_references_but_the_out_of_process_ones():
-    """``__all__`` is the JAX package's, less the cluster's launchers and
-    its lineage error (a later slice of the port)."""
+def test_public_names_are_the_references():
+    """``__all__`` is the JAX package's, the cluster's launchers and its
+    lineage error included."""
     import repro.core as ref_core
-    later = {"Launcher", "LocalLauncher", "SSHLauncher", "CommandLauncher",
-             "WorkerProc", "LineageExhaustedError"}
-    assert sorted(rc.__all__) == sorted(set(ref_core.__all__) - later)
+    assert sorted(rc.__all__) == sorted(ref_core.__all__)
     assert all(hasattr(rc, name) for name in rc.__all__)
 
 

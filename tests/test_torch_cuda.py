@@ -983,6 +983,103 @@ def test_processes_worker_without_cuda_refuses_a_cuda_payload_on_card(
 
 
 # --------------------------------------------------------------------------
+# plan("cluster") on the card: a held CUDA result stays on its worker
+# --------------------------------------------------------------------------
+
+@pytest.mark.requires_cuda
+def test_cluster_holds_a_cuda_result_chains_on_holder_and_pulls_bits(
+        cuda_device):
+    """A CUDA tensor a cluster task returns stays on its worker (a
+    RemoteValue at the driver), a continuation runs on the holder's card
+    with under a tenth of the tensor through the driver, and value()
+    pulls it onto this card bit for bit."""
+    import os
+
+    import repro_torch.core as rc
+    from repro_torch.core.backends import transport
+    from repro_torch.core.backends.blobstore import RemoteValue
+
+    def make():
+        g = torch.Generator(device="cuda").manual_seed(7)
+        return torch.randn(1024, 1024, generator=g, device="cuda")
+
+    want = make()
+    rc.plan("cluster", workers=2, token=os.urandom(8).hex())
+    try:
+        backend = rc.active_backend()
+        f = rc.future(make)
+        run = backend.collect(f._handle)
+        assert isinstance(run.value, RemoteValue)
+        holders = backend.locations(run.value.digest)
+        assert len(holders) == 1
+        transport.reset_wire_stats()
+        pid, dev, total = f.then(lambda t: (
+            os.getpid(), t.device.type, t.double().sum().item())) \
+            .value(timeout=300)
+        assert transport.wire_stats()["bytes_recv"] < want.nbytes // 10
+        assert pid != os.getpid() and dev == "cuda"
+        assert total == want.double().sum().item()
+        got = f.value(timeout=300)
+        assert got.is_cuda and torch.equal(got.view(torch.int32),
+                                           want.view(torch.int32))
+    finally:
+        rc.shutdown()
+
+
+@pytest.mark.requires_cuda
+def test_cluster_peer_fetches_a_cuda_result_between_workers(
+        cuda_device, tmp_path):
+    """While the holder of a CUDA result is busy, a future on the other
+    worker that takes the RemoteValue as an argument gets its bytes by
+    peer fetch (not through the driver) and rebuilds it on its own card."""
+    import os
+    import time
+
+    import repro_torch.core as rc
+    from repro_torch.core.backends import transport
+
+    pidfile, release = str(tmp_path / "pid"), str(tmp_path / "go")
+
+    def park(t, _p=pidfile, _r=release):
+        import os as _os
+        import time as _time
+        with open(_p, "w") as fh:
+            fh.write(str(_os.getpid()))
+        while not _os.path.exists(_r):
+            _time.sleep(0.005)
+        return 0
+
+    rc.plan("cluster", workers=2)
+    try:
+        backend = rc.active_backend()
+        f = rc.future(lambda: torch.arange(1 << 20, dtype=torch.float32,
+                                           device="cuda"))
+        rv = backend.collect(f._handle).value
+        holder_wids = backend.locations(rv.digest)
+        with backend._pool_cv:
+            holder_pids = {w.meta["pid"] for w in backend._all
+                           if w.wid in holder_wids}
+        blocker = f.then(park)
+        deadline = time.monotonic() + 120
+        while not os.path.exists(pidfile):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        transport.reset_wire_stats()
+        pid, dev, total = rc.value(rc.future(
+            lambda t: (os.getpid(), t.device.type, float(t.sum())), rv),
+            timeout=300)
+        sent = transport.wire_stats()["bytes_sent"]
+        open(release, "w").close()
+        assert pid not in holder_pids and dev == "cuda"
+        assert total == float(torch.arange(1 << 20, dtype=torch.float32)
+                              .sum())
+        assert sent < rv.nbytes // 10
+        assert rc.value(blocker, timeout=300) == 0
+    finally:
+        rc.shutdown()
+
+
+# --------------------------------------------------------------------------
 # the build, on any host
 # --------------------------------------------------------------------------
 

@@ -1,5 +1,6 @@
 """The port's examples run to their end on the CPU (their own asserts check
-the results: no lost commit, pruning fired): the three Future-API ones and
+the results: no lost commit, pruning fired, a chain kept on its workers):
+the Future-API ones, the cluster's dataflow and payload-cache twins, and
 the qwen2-moe smoke Server."""
 
 import os
@@ -18,6 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
     ("param_server_torch.py", "commits=48"),
     ("async_hyperband_torch.py", "epochs spent:"),
     ("serve_torch.py --arch qwen2-moe-a2.7b", "all requests served"),
+    ("dataflow_chain_torch.py", "fewer bytes through the driver"),
+    ("payload_cache_torch.py", "(reused=True)"),
 ])
 def test_example_runs_on_cpu(name, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

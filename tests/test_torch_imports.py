@@ -63,6 +63,9 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.core.backends.worker",
             "repro_torch.core.backends.blobstore",
             "repro_torch.core.backends.transport",
+            "repro_torch.core.backends.cluster",
+            "repro_torch.core.backends.cluster_worker",
+            "repro_torch.core.backends.launchers",
             "repro_torch.optim.compression"} <= set(_port_modules())
 
 
@@ -78,6 +81,9 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
        ROOT / "examples" / "quickstart_torch.py",
        ROOT / "examples" / "param_server_torch.py",
        ROOT / "examples" / "async_hyperband_torch.py",
+       ROOT / "examples" / "dataflow_chain_torch.py",
+       ROOT / "examples" / "payload_cache_torch.py",
+       ROOT / "tests" / "_torch_cluster_harness.py",
        ROOT / "scripts" / "train_divergence.py",
        ROOT / "scripts" / "profile_torch.py",
        ROOT / "scripts" / "flash_builds.py",
