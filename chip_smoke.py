@@ -72,10 +72,26 @@ Phases, each printing its own lines; any failure exits non-zero:
      one holder), a continuation run on the holder with under 1 MB
      received at the driver, a future on the other worker taking the
      RemoteValue by peer fetch, and value() pulling the in-process call's
-     bytes bit for bit; a held result whose only holder is SIGKILLed
-     raising LineageExhaustedError; an exact state.add fold from 8 futures
-     over the socket; the longest gap between two heartbeats of any
-     worker.
+     bytes bit for bit; held logits (of the sequences reversed) whose
+     only holder is SIGKILLed rebuilt from lineage by value(), bit for bit,
+     the producing task run again on a live worker (10 mLSTM, 2 sLSTM
+     launches read there, recovery_stats() one reconstruction, the
+     rebuild's ms and whether the parameters were sent again), and a
+     .then(argmax) on lost fp64 logits rebuilding its parent first and
+     giving phase 3's tokens; an exact state.add fold from 8 futures over
+     the socket; the longest gap between two heartbeats of any worker;
+  6d. the multi-tenant serving tier: serve() over a two-worker cluster
+     with min_replicas=2 (loopback, random tokens, no TLS), two
+     ServingClientBackend sessions in this process (alice weight 3, bob
+     weight 1) sending 3 and 2 prefill futures, each phase 3's tokens bit
+     for bit with 10 mLSTM and 2 sLSTM launches in its worker (each
+     tenant's first future sent together, from a thread each), the put
+     bytes each worker was sent for each tenant's first future; each
+     tenant's state.put of one key read back as its own value; the
+     completed count of session_stats() exact for each tenant; a held
+     result replicated to both workers surviving the SIGKILL of one
+     holder, value() bit for bit with no reconstruction and the killed
+     worker relaunched.
 Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
 4096, 10.4 B fp32 parameters, random from the seed) takes the card:
   2b. the RG-LRU scan, windowed flash attention and split-S decode
@@ -102,7 +118,7 @@ Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
       its attention summed in fp64 (``WidenedFlash(torch.float64)``);
   4b. the decode Server for this arch answering the same kind of traffic;
       one decode step at B=4 (26 rglru_scan and 12 decode_attention
-      launches) is timed, and the 256-token request's decode-path logits
+      launches) is timed, and the 128-token request's decode-path logits
       are held against the prefill step (the long requests of 4b to 4g
       cut from 512 tokens for time, ``LONG_REQUEST``).
 Then RecurrentGemma is freed and Yi-9B (48 attn layers, d_model 4096, 32
@@ -119,9 +135,9 @@ parameters, random from the seed on the card) takes it:
       other kernel), held against the plain path within 1e-4 of the
       largest logit, beside the 1-ulp yardstick;
   4c. the decode Server for yi-9b answering 6 short requests and one
-      256-token request; one decode step at B=4 with every cache holding
+      128-token request; one decode step at B=4 with every cache holding
       4096 positions (48 decode_attention launches) with its device time,
-      wall time and idle share; the 256-token request's decode-path logits
+      wall time and idle share; the 128-token request's decode-path logits
       held against the prefill step.
 Then Yi-9B is freed and Qwen1.5-MoE-A2.7B (24 moe layers, d_model 2048,
 16 heads over 16 KV heads of 128, 60 routed experts padded to 64, top-4,
@@ -138,9 +154,9 @@ takes it:
       where a decision differs), beside the 1-ulp yardstick, with the
       share of assignments dropped by capacity;
   4d. the decode Server for qwen2-moe-a2.7b answering 6 short requests and
-      one 256-token request; one decode step at B=4 with every cache
+      one 128-token request; one decode step at B=4 with every cache
       holding 4096 positions (24 decode_attention launches) with its
-      device time, wall time and idle share; the 256-token request's
+      device time, wall time and idle share; the 128-token request's
       decode-path logits at every step held by the same rule against a
       prefill that cannot drop (capacity factor n_experts), beside the
       assignments the real prefill drops on that prompt.
@@ -170,10 +186,10 @@ drawn from the seed on the card in bf16, 68.78 GB; nothing cut) takes it:
       the plain path, each within the 1-ulp bf16 yardstick of the same
       run, and (c) timed, with tokens/s and peak memory;
   4f. the decode Server for yi-34b on the bf16 tree (fp32 caches, bf16 q)
-      answering 6 short requests and one 256-token request; one decode step
+      answering 6 short requests and one 128-token request; one decode step
       at B=4 with every bf16 cache holding 4096 positions (60
       decode_attention launches) with its device time, wall time and idle
-      share; the 256-token request's decode-path logits held against the
+      share; the 128-token request's decode-path logits held against the
       prefill step within TOL_DECODE_REL_BF16, beside the yardstick.
 Then Yi-34B is freed and MiniCPM3-4B (62 mla layers, d_model 2560, 40
 heads, latents r_q 768 and r_kv 256, q.k at 64 + 32 dims and v at 64, d_ff
@@ -185,7 +201,7 @@ runs no Pallas kernel there:
       (``mla_logits_fp64``) within 1e-4 of the largest logit, beside the
       1-ulp yardstick, and timed, with tokens/s and peak memory;
   4g. the decode Server for minicpm3-4b answering 6 short requests and one
-      of 256 tokens through the absorbed-latent
+      of 128 tokens through the absorbed-latent
       decode; one decode step at B=4 with every latent cache holding 4096
       positions (no launch) with its device time, wall time and idle
       share; the long request's decode-path logits held against the
@@ -288,9 +304,11 @@ MLA_DEC_B = 4
 # a layer over MiniCPM3's 62), and the long prompt is fed a token a step
 # twice, by the Server and by the decode-path check: at 512 tokens the
 # phases took 1075 s of the 1200 s a run is allowed on a slow host (4g
-# alone 193 s at 512 on another). xLSTM's Server (phase 4) keeps 512.
-# The cut requests still draw 512 tokens, so later phases see the same data.
-LONG_REQUEST = 256
+# alone 193 s at 512 on another); at 256, with phases 6c and 6d grown by
+# lineage and the serving tier, the run took 1023 s. xLSTM's Server
+# (phase 4) keeps 512. The cut requests still draw 512 tokens, so later
+# phases see the same data.
+LONG_REQUEST = 128
 # HuBERT-XLarge (phases 2h, 3h): B clips of S frames, eight 30-second clips
 # at 20 ms a frame, the unit of offline transcription and labelling; 1500
 # = 11 x 128 + 92 = 46 x 32 + 28, so every launch has a ragged query tile
@@ -582,8 +600,12 @@ def main() -> int:
 
     # -- 6c. the same prefill on socket-connected cluster workers ------------
     cluster_phase(cfg, model, params, prefill, tokens, first, smi)
-    del first, tokens, prefill
     phase_done("6c")
+
+    # -- 6d. the multi-tenant serving tier over the same cluster kind --------
+    serving_phase(cfg, model, params, prefill, tokens, first, smi)
+    del first, tokens, prefill
+    phase_done("6d")
 
     # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
     del model, params
@@ -1655,28 +1677,110 @@ def cluster_phase(cfg, model, params, prefill, tokens, first,
         note_gaps(backend)
         del pulled, want, toks, f, g, rv, run, blocker
 
-        # (c') a result whose only holder is killed
-        h = rc.future(lambda: torch.randn(
-            1 << 20, generator=torch.Generator(device="cuda").manual_seed(9),
-            device="cuda"))
-        lost = backend.collect(h._handle).value
-        check(isinstance(lost, RemoteValue), "a 4 MiB result is held")
-        holder = holder_pid(backend, lost.digest)
-        os.kill(holder, signal.SIGKILL)
-        wait_for(lambda: not backend.locations(lost.digest),
-                 "the holder's death was seen")
-        err = None
-        try:
-            h.value(timeout=WORKER_WAIT)
-        except rc.LineageExhaustedError as exc:
-            err = exc
-        print(f"  its only holder {holder} SIGKILLed: value() raises "
-              f"{type(err).__name__}: {str(err)[:160]}")
-        check(err is not None, "a lost sole holder raises "
-              "LineageExhaustedError")
-        del lost, h
+        # (c') lineage: held logits whose only holder is SIGKILLed are
+        # rebuilt by running their producing task again on a live worker
+        def logged_logits(b, wide=False):
+            # the launch counts go to the driver's state (the result must
+            # stay the logits alone); a rebuild runs this body again
+            import os as _os
+
+            import torch
+            from repro_torch.core import state as _state
+            from repro_torch.kernels import mlstm_scan as _MK
+            from repro_torch.kernels import slstm_scan as _SK
+            _MK.launches = _SK.launches = 0
+            with torch.no_grad():
+                lg = model.apply(params, b)[0][:, -1]
+            torch.cuda.synchronize()
+            _state.extend("6c-runs", [(_os.getpid(), _MK.launches,
+                                       _SK.launches)])
+            return lg.double() if wide else lg
+
+        def runs_since(n: int) -> list:
+            got = state.get("6c-runs", default=[])
+            return list(got)[n:]
+
+        # two results held by one worker (the idle list is LIFO), whose
+        # SIGKILL loses both: the survivor runs both producing tasks again,
+        # so the parameters are sent to it at most once (encoded anew: the
+        # driver's 256 MiB store does not keep the 0.58 GB)
+        # (b)'s logits are in the driver's store by now: the first rebuild
+        # takes the prefill of the sequences reversed, bytes no one holds;
+        # the chain's parent is the logits widened to fp64 (another digest,
+        # the same argmax)
+        batch_r = {"tokens": tokens.flip(1).contiguous()}
+        with torch.no_grad():
+            want = model.apply(params, batch_r)[0][:, -1]
+        torch.cuda.synchronize()
+        state.reset()
+        recon0 = backend.recovery_stats()["reconstructions"]
+        f = rc.future(logged_logits, batch_r)
+        f_wide = None
+        held = {}
+        for what in ("the prefill's last-position logits", "the fp64 logits"):
+            if held:
+                f_wide = rc.future(logged_logits, batch, wide=True)
+            rv = backend.collect((f_wide or f)._handle).value
+            check(isinstance(rv, RemoteValue), f"{what} are held")
+            check(len(backend.locations(rv.digest)) == 1,
+                  f"{what} have one holder")
+            held[rv.digest] = (rv, holder_pid(backend, rv.digest))
+        rv = next(iter(held.values()))[0]
+        victims = {pid for _, pid in held.values()}
+        survivors = set(backend.worker_pids()) - victims
+        for victim in victims:
+            os.kill(victim, signal.SIGKILL)
+        wait_for(lambda: not any(backend.locations(d) for d in held),
+                 "the holders' deaths were seen")
+        n_runs = len(runs_since(0))
+        before = backend.put_bytes()
+        t0 = time.perf_counter()
+        rebuilt = f.value(timeout=WORKER_WAIT)
+        rebuild_ms = (time.perf_counter() - t0) * 1e3
+        recon = backend.recovery_stats()["reconstructions"] - recon0
+        reruns = runs_since(n_runs)
+        resent = {pid: n - before.get(pid, 0)
+                  for pid, n in backend.put_bytes().items()
+                  if n - before.get(pid, 0) > 0}
+        same = rebuilt.is_cuda and torch.equal(
+            rebuilt.view(torch.int32), want.view(torch.int32))
+        print(f"  held logits {tuple(want.shape)} ({rv.nbytes} B) and fp64 "
+              f"logits, their only holder(s) {sorted(victims)} SIGKILLed "
+              f"(survivors {sorted(survivors)}): value() rebuilt the "
+              f"logits from lineage in {rebuild_ms:.1f} ms (reconstructions "
+              f"{recon}); the producing task ran again as {reruns} (pid, "
+              f"mLSTM, sLSTM launches); parameters sent again: "
+              f"{'yes, ' + str(resent) + ' B' if resent else 'no'}; bit "
+              f"for bit the in-process call's: {same}")
+        check(recon == 1, "recovery_stats() reads exactly 1 "
+              "reconstruction")
+        check(len(reruns) == 1 and reruns[0][0] not in victims
+              and reruns[0][1:] == (n_m, n_s),
+              f"a live worker runs the producing task again, launching "
+              f"mlstm_scan {n_m}x and slstm_scan {n_s}x")
+        check(same, "the rebuilt logits are the in-process call's bit for "
+              "bit")
+        # a chain on a lost parent rebuilds the parent first
+        n_runs = len(runs_since(0))
+        t0 = time.perf_counter()
+        toks = f_wide.then(lambda lg: lg.argmax(-1, keepdim=True).to(
+            torch.int32)).value(timeout=WORKER_WAIT)
+        chain_ms = (time.perf_counter() - t0) * 1e3
+        recon = backend.recovery_stats()["reconstructions"] - recon0
+        reruns = runs_since(n_runs)
+        print(f"  .then(argmax) on the lost fp64 logits: {chain_ms:.1f} ms, "
+              f"the parent rebuilt as {reruns}; reconstructions {recon}")
+        check(recon == 2 and len(reruns) == 1
+              and reruns[0][0] not in victims
+              and reruns[0][1:] == (n_m, n_s),
+              "the chain rebuilt its lost parent once")
+        check(torch.equal(toks.to(first.device), first),
+              "the chain on a rebuilt parent gives phase 3's tokens")
         wait_for(lambda: len(backend.worker_pids()) == 2,
                  "the pool is whole again")
+        state.reset()
+        del rebuilt, want, toks, f, f_wide, rv, held
+        note_gaps(backend)
 
         # (d) shared state over the socket
         state.reset()
@@ -1698,6 +1802,205 @@ def cluster_phase(cfg, model, params, prefill, tokens, first,
               "the heartbeat timeout")
     finally:
         rc.shutdown()
+    torch.cuda.synchronize()
+
+
+def serving_phase(cfg, model, params, prefill, tokens, first,
+                  smi: str) -> None:
+    """Phase 6d: the multi-tenant serving tier (``repro_torch.core.
+    serving``): one server over a warm two-worker cluster with
+    ``min_replicas=2``, two tenant sessions of different weights sending
+    xLSTM prefill futures, their shared state kept apart, the completions
+    attributed to each tenant, and a replicated held result surviving the
+    SIGKILL of one holder without a rebuild."""
+    import signal
+
+    import torch
+
+    import repro_torch.core as rc
+    from repro_torch.core.backends.blobstore import RemoteValue
+    from repro_torch.core.serving import ServingClientBackend, serve
+
+    n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
+    n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
+    want_launches = {"mlstm_scan": n_m, "slstm_scan": n_s}
+    card = torch.cuda.get_device_name(0)
+    batch = {"tokens": tokens}
+    per_tenant = {"alice": 3, "bob": 2}
+
+    def body(b):
+        # runs in a cluster worker behind the server
+        import os
+
+        import torch
+        from repro_torch.kernels import mlstm_scan as MK
+        from repro_torch.kernels import slstm_scan as SK
+        MK.launches = SK.launches = 0
+        out = prefill(params, b)
+        torch.cuda.synchronize()
+        return (out, {"mlstm_scan": MK.launches, "slstm_scan": SK.launches},
+                os.getpid(), torch.cuda.get_device_name(0))
+
+    def wait_for(pred, what: str) -> None:
+        deadline = time.monotonic() + WORKER_WAIT
+        while not pred():
+            check(time.monotonic() < deadline, f"{what} within "
+                  f"{WORKER_WAIT:.0f} s")
+            time.sleep(0.01)
+
+    tokens_of = {name: os.urandom(16).hex() for name in per_tenant}
+    print("serve({'workers': 2, 'min_replicas': 2}, tokens=alice, bob, "
+          "tenants={'alice': {'weight': 3.0}, 'bob': {'weight': 1.0}}): "
+          "over 127.0.0.1, random tokens, no TLS (held by the CPU tests)")
+    sessions = {}
+    srv = None
+    try:
+        t0 = time.perf_counter()
+        srv = bounded(lambda: serve(
+            {"workers": 2, "min_replicas": 2, "blob_store_bytes": 2 << 30,
+             "token": os.urandom(16).hex(),
+             "connect_timeout": WORKER_WAIT},
+            tokens=tokens_of,
+            tenants={"alice": {"weight": 3.0}, "bob": {"weight": 1.0}}),
+            WORKER_WAIT)
+        inner = srv.inner
+        up_ms = (time.perf_counter() - t0) * 1e3
+        for name in per_tenant:
+            sessions[name] = ServingClientBackend(addr=srv.address,
+                                                  token=tokens_of[name])
+        print(f"  server on {srv.address[0]}:{srv.address[1]} with 2 "
+              f"workers (pids {inner.worker_pids()}) in {up_ms:.1f} ms; "
+              f"sessions {[(s.tenant, s.meta['session']) for s in sessions.values()]}")
+        check([s.tenant for s in sessions.values()] == list(per_tenant),
+              "each session is mapped to its tenant")
+
+        # (a) each tenant's prefill futures. The first ones go together,
+        # from a thread each: each session encodes the 0.58 GB parameter
+        # dict anew (zlib, ~26 s; the driver's 256 MiB store does not keep
+        # it), and the two encodes overlap
+        firsts = {}
+
+        def first_of(name):
+            try:
+                t0 = time.perf_counter()
+                f = rc.future(body, batch, backend=sessions[name])
+                out = rc.value(f, timeout=WORKER_WAIT)
+                firsts[name] = out, (time.perf_counter() - t0) * 1e3
+            except BaseException as exc:             # noqa: BLE001
+                firsts[name] = exc
+
+        t_all = time.perf_counter()
+        before = inner.put_bytes()
+        threads = [threading.Thread(target=first_of, args=(name,),
+                                    daemon=True) for name in per_tenant]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(WORKER_WAIT)
+        check(sorted(firsts) == sorted(per_tenant), "each tenant's first "
+              f"future resolved within {WORKER_WAIT:.0f} s")
+        for out in firsts.values():
+            if isinstance(out, BaseException):
+                raise out
+        put = {p: b - before.get(p, 0) for p, b in inner.put_bytes().items()}
+        for name in per_tenant:
+            (got, counts, pid, dev_name), value_ms = firsts[name]
+            print(f"  {name}'s first prefill future on pid {pid} "
+                  f"({dev_name}): value() at {value_ms:.1f} ms; put bytes "
+                  f"sent to its worker {put.get(pid, 0)} (to each worker "
+                  f"for both first futures: {put}); launches {counts} "
+                  f"({smi})")
+            check(counts == want_launches and dev_name == card,
+                  f"{name}'s future launches mlstm_scan {n_m}x and "
+                  f"slstm_scan {n_s}x on the card")
+            check(torch.equal(got.to(first.device), first),
+                  f"{name}'s prefill tokens are phase 3's bit for bit")
+        futs = {}
+        for name, n in per_tenant.items():
+            futs[name] = [rc.future(body, batch, backend=sessions[name])
+                          for _ in range(n - 1)]
+        for name, fs in futs.items():
+            for f in fs:
+                got, counts, pid, _ = rc.value(f, timeout=WORKER_WAIT)
+                check(counts == want_launches and torch.equal(
+                    got.to(first.device), first),
+                    f"each of {name}'s futures gives phase 3's tokens with "
+                    f"{n_m} mLSTM and {n_s} sLSTM launches")
+        print(f"  {sum(per_tenant.values())} prefill futures "
+              f"({per_tenant}) in {time.perf_counter() - t_all:.1f} s, "
+              f"every one phase 3's tokens with {want_launches}")
+
+        # (b) the same key in each tenant's namespace
+        for name, s in sessions.items():
+            s._state.put("k", f"{name}-data")
+        seen = {name: s._state.get("k") for name, s in sessions.items()}
+        print(f"  state.put('k') by each tenant, read back: {seen}")
+        check(seen == {name: f"{name}-data" for name in per_tenant},
+              "each tenant reads back only its own value")
+
+        # (c) completions attributed per tenant (the count is bumped by a
+        # done-callback that may run after the client saw its result)
+        def completed():
+            return {name: s.session_stats()["tenant_stats"]["completed"]
+                    for name, s in sessions.items()}
+        deadline = time.monotonic() + 30.0
+        while completed() != per_tenant and time.monotonic() < deadline:
+            time.sleep(0.05)
+        stats = {name: s.session_stats()["tenant_stats"]
+                 for name, s in sessions.items()}
+        print(f"  tenant_stats: {stats}")
+        check(completed() == per_tenant, "session_stats' completed count "
+              "is exact for each tenant")
+
+        # (d) a held result replicated under min_replicas=2 survives the
+        # SIGKILL of one holder with no rebuild
+        def last_logits(b):
+            import torch
+            with torch.no_grad():
+                return model.apply(params, b)[0][:, -1]
+
+        with torch.no_grad():
+            want = model.apply(params, batch)[0][:, -1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f = rc.future(last_logits, batch, backend=inner)
+        rv = inner.collect(f._handle).value
+        check(isinstance(rv, RemoteValue), "the logits are held")
+        wait_for(lambda: inner.recovery_stats()["replications"] >= 1
+                 and len(inner.locations(rv.digest)) == 2,
+                 "a replica registered")
+        repl_ms = (time.perf_counter() - t0) * 1e3
+        before_pids = set(inner.worker_pids())
+        with inner._pool_cv:
+            victim = next(w.meta["pid"] for w in inner._all
+                          if w.wid in inner.locations(rv.digest))
+        os.kill(victim, signal.SIGKILL)
+        wait_for(lambda: len(inner.locations(rv.digest)) == 1,
+                 "the holder's death was seen")
+        t0 = time.perf_counter()
+        pulled = f.value(timeout=WORKER_WAIT)
+        pull_ms = (time.perf_counter() - t0) * 1e3
+        same = pulled.is_cuda and torch.equal(
+            pulled.view(torch.int32), want.view(torch.int32))
+        wait_for(lambda: len(inner.worker_pids()) == 2
+                 and victim not in inner.worker_pids(),
+                 "the killed worker was relaunched")
+        recovery = inner.recovery_stats()
+        print(f"  held logits ({rv.nbytes} B) on two holders "
+              f"{repl_ms:.1f} ms after submit; holder {victim} "
+              f"SIGKILLed, value() pulled the survivor's copy in "
+              f"{pull_ms:.1f} ms, bit for bit: {same}; recovery "
+              f"{recovery}; pool {inner.worker_pids()} (was "
+              f"{sorted(before_pids)})")
+        check(same, "value() pulls the in-process call's bytes bit for bit")
+        check(recovery["reconstructions"] == 0, "a replicated result needs "
+              "no rebuild")
+        del pulled, want, f, rv
+    finally:
+        for s in sessions.values():
+            s.shutdown()
+        if srv is not None:
+            srv.close()
     torch.cuda.synchronize()
 
 

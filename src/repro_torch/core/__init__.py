@@ -39,6 +39,7 @@ from .backends import processes as _processes                # noqa: F401
 from .backends import cluster as _cluster                    # noqa: F401
 from .backends import cuda_async as _cuda_async              # noqa: F401
 from .backends import asyncio_loop as _asyncio_loop          # noqa: F401
+from . import serving as _serving                            # noqa: F401
 from .backends.launchers import (CommandLauncher, Launcher,  # noqa: F401
                                  LocalLauncher, SSHLauncher, WorkerProc)
 from .conditions import (CapturedRun, ImmediateCondition, message,  # noqa: F401

@@ -40,6 +40,11 @@ class TaskSpec:
     # cluster backend prefers an idle worker already holding them (locality
     # scheduling for continuation chains); other backends ignore it.
     affinity: tuple = ()
+    # Serving-tier attribution: which tenant submitted this task. ``None``
+    # (direct library use) bypasses per-tenant policy entirely; a named
+    # tenant is dispatched through the cluster's fair-share scheduler and
+    # counted in its wire/recovery stats.
+    tenant: "str | None" = None
 
     @property
     def refs(self) -> tuple:

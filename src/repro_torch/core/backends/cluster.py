@@ -53,12 +53,15 @@ Spec kwargs (``plan("cluster", ...)`` / ``spec("cluster", ...)``):
   servers all wrap in TLS; the cert/key PEM material and a per-backend
   random peer secret ride to workers inside the (already authenticated)
   ``init`` frame.
-
-Not in the port yet, and refused by name: the reference's tenant scheduler
-(``tenants=``, for the serving tier) and its lineage reconstruction and
-proactive replication (``min_replicas=``, ``lineage_max_depth=``,
-``lineage_max_attempts=``, ``lineage_keep=``); ``ROADMAP.md`` names the
-slices that bring them.
+* ``tenants=`` — per-tenant scheduling policy for the serving tier:
+  ``{tenant: weight}`` or ``{tenant: {"weight": w, "max_in_flight": n,
+  "rate": per_s}}`` (also accepted as a tuple of pairs so the spec stays
+  hashable). Tasks carrying ``TaskSpec.tenant`` are queued per tenant and
+  dispatched by start-time fair queuing over the configured weights
+  (``submit_queued``); ``free_slots_for(tenant)`` bounds each tenant's
+  outstanding work and ``tenant_stats()`` attributes dispatch/wire/
+  recovery counters per tenant. Tenant-less tasks bypass the scheduler
+  entirely.
 
 Worker-to-worker dataflow (locality scheduling + the location map): a task
 dispatched with ``keep`` parks any large result in the producing worker's
@@ -82,12 +85,27 @@ whole mechanism (results always travel inline). The location map lives on
 the backend object, so warm-pool re-attach (``planning._WARM_POOL``)
 preserves it across ``plan()`` swaps.
 
-A held result whose every copy is gone — its only holder died, or it was
-evicted everywhere — cannot be rebuilt in the port (no lineage is
-recorded): wherever the reference would re-execute the producing task
-(``_reconstruct``), the dependent pull or dispatch fails with
-:class:`LineageExhaustedError`, the reference's own behaviour when no
-lineage is recorded for the digest.
+Lineage-based reconstruction: every held result's *producing task* is
+remembered in a bounded driver-side lineage registry (the ``TaskSpec``
+whose shipped blob bakes in the content-addressed arg/global refs and the
+RNG seed material, plus the digests of its remote parents). When a holder
+dies, a peer fetch naks through every holder, or an eviction race empties
+the location map, the driver transparently **re-executes the producing
+task** — recursing into missing parents up to ``lineage_max_depth``, at
+most ``lineage_max_attempts`` re-executions per digest — instead of
+failing the dependent future. Re-execution replays the exact same shipped
+blob (the per-future RNG stream key was frozen into it at creation), so
+the rebuilt bytes are digest-identical and every cached copy stays valid.
+Only when no lineage is recorded (the digest's ``RemoteValue`` was GC'd,
+or the bytes never came from a recorded task) or a cap is exceeded does
+the dependent work fail, with a clean :class:`LineageExhaustedError`.
+``min_replicas=N`` layers *proactive replication* on the same machinery:
+newly held results are pushed to additional workers off the select loop
+(``replicate`` frames; the target peer-fetches and confirms with
+``stored``), and any task-path peer fetch promotes the fetcher to a
+registered replica — so single-holder loss usually costs one cheap copy,
+not a recompute. ``recovery_stats()`` reports reconstructions /
+replications / promotions.
 
 Wire protocol (tags on a cluster connection):
 
@@ -103,6 +121,9 @@ Wire protocol (tags on a cluster connection):
                      ("state", rid, op, args)   shared-state op (state.py)
                      ("offer", digest, blob) / ("onak", digest)   answer to
                                            a driver-side fetch
+                     ("stored", digest, nbytes, how)   a verified copy is
+                                           now held (how = "replicate" or
+                                           "fetch": a replica promotion)
   driver -> worker : ("init", nested_blob, seed, hb_interval_s, extras)
                      ("put", digest, blob)          content-addressed payload
                      ("task", task_id, blob, refs, hints, keep)
@@ -111,6 +132,7 @@ Wire protocol (tags on a cluster connection):
                      ("fetch", digest)     send me this blob
                      ("evict", digest)     the last RemoteValue handle for
                                            this result died at the driver
+                     ("replicate", digest, addrs)   peer-fetch a replica
                      ("stop",)
 
 Two lanes ride the same control socket besides tasks and blobs: the
@@ -168,33 +190,6 @@ from .transport import (FrameReader, TLSConfig, generate_self_signed_cert,
 #: pre-hello launch failures retained for error messages
 _LAUNCH_FAILURES_KEEP = 8
 
-#: the reference's kwargs that come with later slices of the port, and the
-#: ROADMAP.md item that brings each
-_LATER = {
-    "tenants": "the tenant scheduler, with the core/serving/ item",
-    "min_replicas": "slice 18: lineage reconstruction and min_replicas "
-                    "replication",
-    "lineage_max_depth": "slice 18: lineage reconstruction and "
-                         "min_replicas replication",
-    "lineage_max_attempts": "slice 18: lineage reconstruction and "
-                            "min_replicas replication",
-    "lineage_keep": "slice 18: lineage reconstruction and min_replicas "
-                    "replication",
-}
-
-
-def _refuse_later(kwargs) -> None:
-    """Refuse, by name, a kwarg of the reference that the port does not
-    have yet (a TypeError, as for any other unknown kwarg)."""
-    for name in kwargs:
-        if name in _LATER:
-            raise TypeError(
-                f"plan('cluster', {name}=...) is not in the port yet: it "
-                f"comes with ROADMAP.md's {_LATER[name]}")
-    if kwargs:
-        raise TypeError(f"unexpected cluster kwargs: {sorted(kwargs)}")
-
-
 class _Handle(CompletionHandle):
     def __init__(self, task: TaskSpec):
         super().__init__()
@@ -211,6 +206,21 @@ class _Handle(CompletionHandle):
         #: the DRIVER_STORE pin of the sources' encoded blobs while in
         #: flight (a need is served without encoding a payload again)
         self.pin = None
+
+
+@dataclasses.dataclass
+class _Lineage:
+    """What it takes to rebuild one held digest: the producing
+    :class:`TaskSpec` — its shipped blob froze the RNG stream key and the
+    content-addressed refs of every input at creation, so re-dispatching
+    it reproduces digest-identical bytes — plus the digests of its remote
+    parents (recursed into first when they are gone too). The TaskSpec is
+    held *strongly*: its pinned ``payload_sources`` (including RemoteSource
+    anchors up the ancestry) must outlive the Future that produced it."""
+
+    task: TaskSpec
+    parents: tuple
+    attempts: int = 0
 
 
 def _queue_release(backend_ref, digest: bytes) -> None:
@@ -264,16 +274,17 @@ class _SockWorker:
         self.put_bytes = 0
         self.put_seconds = 0.0
 
-    def put(self, digest: bytes, blob) -> None:
-        """Send one content-addressed payload. The blob rides the frame
-        out-of-band: handed to sendmsg as is (no copy into the frame, and
-        never zlib'd a second time)."""
+    def put(self, digest: bytes, blob) -> int:
+        """Send one content-addressed payload; returns the frame's bytes.
+        The blob rides the frame out-of-band: handed to sendmsg as is (no
+        copy into the frame, and never zlib'd a second time)."""
         t0 = time.perf_counter()
-        self.put_bytes += send_frame(
-            self.sock, ("put", digest, pickle.PickleBuffer(blob)),
-            self.send_lock)
+        n = send_frame(self.sock, ("put", digest, pickle.PickleBuffer(blob)),
+                       self.send_lock)
+        self.put_bytes += n
         self.put_seconds += time.perf_counter() - t0
         self.known.add(digest)
+        return n
 
     def describe(self) -> str:
         host = self.meta.get("host", self.addr[0] if self.addr else "?")
@@ -310,10 +321,13 @@ class ClusterBackend(EventWaitMixin, Backend):
                  relaunch_reset_after: float = 30.0,
                  blob_store_bytes: "int | None" = None,
                  remote_results: bool = True,
+                 min_replicas: int = 1,
+                 lineage_max_depth: int = 8,
+                 lineage_max_attempts: int = 3,
+                 lineage_keep: int = 512,
                  token: "str | None" = None,
                  tls: "TLSConfig | bool | None" = None,
-                 **later):
-        _refuse_later(later)
+                 tenants: "dict | tuple | None" = None):
         self._blob_store_bytes = blob_store_bytes
         #: keep large results worker-resident (RemoteValue dataflow); False
         #: restores the pre-dataflow wire shape: every result travels inline
@@ -366,9 +380,25 @@ class ClusterBackend(EventWaitMixin, Backend):
         #: digest -> set of wids currently holding that result blob
         self._locations: dict[bytes, set] = {}
         #: digests whose *last* holder died with no driver copy: dependent
-        #: dispatches/pulls fail fast, quoting the holder (bounded memory)
+        #: dispatches/pulls fail fast instead of hanging (bounded memory)
         self._lost: "collections.OrderedDict[bytes, str]" = \
             collections.OrderedDict()
+        # -- lineage + replication (guarded by _lineage_lock; lock order:
+        # _lineage_lock may be held when taking _pool_cv, never reverse) --
+        self._min_replicas = max(int(min_replicas), 1)
+        self._lineage_max_depth = int(lineage_max_depth)
+        self._lineage_max_attempts = int(lineage_max_attempts)
+        self._lineage_keep = int(lineage_keep)
+        self._lineage_lock = threading.Lock()
+        #: digest -> _Lineage (producing task, parents, attempt count);
+        #: bounded LRU — week-long drivers must not grow it without limit
+        self._lineage: "collections.OrderedDict[bytes, _Lineage]" = \
+            collections.OrderedDict()
+        #: digest -> Event for an in-flight reconstruction: concurrent
+        #: pullers of the same lost digest wait instead of re-executing
+        self._rebuilds: dict[bytes, threading.Event] = {}
+        self._recovery = {"reconstructions": 0, "replications": 0,
+                          "replica_promotions": 0}
         # -- driver-side fetch waits (guarded by _fetch_lock, NOT _pool_cv:
         # offers land on the select loop, which must never need _pool_cv
         # held by a blocked puller) --
@@ -420,6 +450,16 @@ class ClusterBackend(EventWaitMixin, Backend):
         #: authenticated-but-unregistered connections handed from the
         #: handshake threads to the select loop (guarded by _pool_cv)
         self._joiners: list[_SockWorker] = []
+
+        # -- per-tenant fair-share scheduling (guarded by _pool_cv) ---------
+        self._tenant_policy: dict[str, dict] = {}
+        self._tenant_rt: dict[str, dict] = {}
+        self._vtime = 0.0                    # start-time fair-queuing clock
+        self._tenant_thread: "threading.Thread | None" = None
+        self._recovery_by_tenant: "collections.Counter" = \
+            collections.Counter()
+        if tenants:
+            self.configure_tenants(dict(tenants))
 
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -616,6 +656,211 @@ class ClusterBackend(EventWaitMixin, Backend):
         with self._pool_cv:
             return sum(1 for w in self._idle if w.sock is not None)
 
+    # -- per-tenant fair-share scheduling ------------------------------------
+    #
+    # Tasks carrying ``TaskSpec.tenant`` do not check a worker out FIFO:
+    # they enter their tenant's pending queue (``submit_queued``) and a
+    # dedicated dispatcher thread serves queues by *start-time fair
+    # queuing* — each dispatch advances its tenant's virtual finish time by
+    # 1/weight, and the tenant with the smallest next finish time goes
+    # first. A tenant flooding its queue therefore advances its own clock
+    # far ahead and cannot starve a light tenant beyond its weight ratio;
+    # ``max_in_flight`` and token-bucket ``rate`` caps gate dispatch per
+    # tenant on top.
+
+    def configure_tenants(self, tenants: "dict | tuple") -> None:
+        """Install/replace per-tenant policy: ``{tenant: weight}`` or
+        ``{tenant: {"weight": w, "max_in_flight": n, "rate": per_s}}``
+        (tuple-of-pairs accepted so hashable specs can carry it)."""
+        policy: dict[str, dict] = {}
+        for name, pol in dict(tenants).items():
+            if isinstance(pol, (int, float)):
+                pol = {"weight": float(pol)}
+            else:
+                pol = dict(pol)
+            pol.setdefault("weight", 1.0)
+            if pol["weight"] <= 0:
+                raise ValueError(f"tenant {name!r} weight must be > 0")
+            policy[str(name)] = pol
+        with self._pool_cv:
+            self._tenant_policy = policy
+            for name in policy:
+                self._tenant_rt_for_locked(name)
+            self._pool_cv.notify_all()
+
+    def _tenant_rt_for_locked(self, name: str) -> dict:
+        rt = self._tenant_rt.get(name)
+        if rt is None:
+            rt = self._tenant_rt[name] = {
+                "queue": collections.deque(), "in_flight": 0,
+                "vfinish": 0.0, "dispatched": 0, "completed": 0,
+                "bytes_sent": 0, "bytes_recv": 0,
+                "tokens": 0.0, "tokens_at": time.monotonic(),
+                "primed": False}
+        return rt
+
+    def _tenant_weight(self, name: str) -> float:
+        return max(self._tenant_policy.get(name, {}).get("weight", 1.0),
+                   1e-9)
+
+    def _next_tenant_locked(self, now: float) -> "str | None":
+        """Pick the dispatchable tenant with the smallest virtual finish
+        time. Caller holds ``_pool_cv``."""
+        best, best_finish = None, None
+        for name, rt in self._tenant_rt.items():
+            if not rt["queue"]:
+                continue
+            pol = self._tenant_policy.get(name, {})
+            cap = pol.get("max_in_flight")
+            if cap is not None and rt["in_flight"] >= cap:
+                continue
+            rate = pol.get("rate")
+            if rate:
+                burst = max(1.0, float(rate))
+                if not rt["primed"]:
+                    # a fresh bucket starts full — the first dispatches of
+                    # a quiet tenant should not wait out the refill
+                    rt["tokens"], rt["primed"] = burst, True
+                rt["tokens"] = min(
+                    burst, rt["tokens"] + (now - rt["tokens_at"]) * rate)
+                rt["tokens_at"] = now
+                if rt["tokens"] < 1.0:
+                    continue
+            # the head task's finish tag was frozen at *enqueue* time
+            # (submit_queued). Recomputing it here against the advancing
+            # _vtime would re-bump a backlogged light tenant's start on
+            # every round and let a heavy tenant starve it outright.
+            finish = rt["queue"][0][3]
+            if best_finish is None or finish < best_finish:
+                best, best_finish = name, finish
+        return best
+
+    def _rate_starved_locked(self) -> bool:
+        """Queued work exists that only a token refill can unblock."""
+        return any(rt["queue"] and self._tenant_policy.get(n, {}).get("rate")
+                   for n, rt in self._tenant_rt.items())
+
+    def _ensure_tenant_thread_locked(self) -> None:
+        if self._tenant_thread is None or not self._tenant_thread.is_alive():
+            self._tenant_thread = threading.Thread(
+                target=self._tenant_dispatch_loop, name="tenant-dispatch",
+                daemon=True)
+            self._tenant_thread.start()
+
+    def _tenant_dispatch_loop(self) -> None:
+        while True:
+            task = handle = worker = name = None
+            with self._pool_cv:
+                while self._open:
+                    now = time.monotonic()
+                    name = self._next_tenant_locked(now)
+                    if name is not None:
+                        rt = self._tenant_rt[name]
+                        peek = rt["queue"][0][0]
+                        worker = self._pick_idle_locked(
+                            self._holders(peek.affinity))
+                        if worker is not None:
+                            task, handle, start, _fin = \
+                                rt["queue"].popleft()
+                            pol = self._tenant_policy.get(name, {})
+                            # SFQ: virtual time is the start tag of the
+                            # task entering service (monotone under caps)
+                            self._vtime = max(self._vtime, start)
+                            rt["in_flight"] += 1
+                            rt["dispatched"] += 1
+                            if pol.get("rate"):
+                                rt["tokens"] -= 1.0
+                            break
+                    # nothing dispatchable now: a short wait when only a
+                    # token refill can unblock queued work, a long one
+                    # otherwise (completions/submissions notify_all)
+                    self._pool_cv.wait(
+                        0.02 if self._rate_starved_locked() else 0.5)
+                if task is None:             # shutdown: drain every queue
+                    drained = []
+                    for rt in self._tenant_rt.values():
+                        while rt["queue"]:
+                            drained.append(rt["queue"].popleft())
+                    self._tenant_thread = None
+            if task is None:
+                for t, h, *_ in drained:
+                    if not h.done.is_set():
+                        h.error = ChannelError(
+                            f"cluster backend shut down while future "
+                            f"{t.label!r} was queued",
+                            future_label=t.label)
+                        self._complete(h)
+                return
+            self._dispatch(task, worker, handle=handle)
+            self.add_done_callback(
+                handle, lambda _h, name=name: self._tenant_task_done(name))
+
+    def _tenant_task_done(self, name: str) -> None:
+        with self._pool_cv:
+            rt = self._tenant_rt.get(name)
+            if rt is not None:
+                rt["in_flight"] = max(rt["in_flight"] - 1, 0)
+                rt["completed"] += 1
+            self._pool_cv.notify_all()
+
+    def submit_queued(self, task: TaskSpec) -> _Handle:
+        """Admission entry point for tenant-tagged work (the serving tier):
+        returns the task's handle immediately and lets the fair-share
+        dispatcher assign a worker when this tenant's turn comes. Tasks
+        without a tenant fall through to plain :meth:`submit`."""
+        if task.tenant is None:
+            return self.submit(task)
+        handle = _Handle(task)
+        with self._pool_cv:
+            if not self._open:
+                raise ChannelError("cluster backend is shut down")
+            rt = self._tenant_rt_for_locked(task.tenant)
+            # start-time fair queuing: tag the task NOW and never again.
+            # A tenant going idle re-anchors at the current virtual time;
+            # a backlogged tenant chains off its own last finish tag, so
+            # its position in the service order is immune to how far the
+            # other tenants' dispatches advance _vtime meanwhile.
+            start = max(self._vtime, rt["vfinish"])
+            finish = start + 1.0 / self._tenant_weight(task.tenant)
+            rt["vfinish"] = finish
+            rt["queue"].append((task, handle, start, finish))
+            self._ensure_tenant_thread_locked()
+            self._pool_cv.notify_all()
+        return handle
+
+    def free_slots_for(self, tenant: "str | None") -> int:
+        """Per-tenant admission: how much more work ``tenant`` may have
+        outstanding (in flight + queued). Bounded by its ``max_in_flight``
+        when configured, else by twice the cluster capacity — enough queue
+        depth for the fair-share scheduler to arbitrate, bounded so a
+        flooding client cannot build an unbounded driver-side queue."""
+        if tenant is None:
+            return self.free_slots()
+        with self._pool_cv:
+            rt = self._tenant_rt_for_locked(tenant)
+            outstanding = rt["in_flight"] + len(rt["queue"])
+            cap = self._tenant_policy.get(tenant, {}).get("max_in_flight")
+            bound = cap if cap is not None else 2 * max(self._capacity, 1)
+            return max(0, int(bound) - outstanding)
+
+    def tenant_stats(self) -> dict:
+        """Per-tenant attribution: ``{tenant: {dispatched, completed,
+        in_flight, queued, bytes_sent, bytes_recv, reconstructions}}`` —
+        the serving tier's answer to "who is using the cluster"."""
+        with self._pool_cv:
+            out = {name: {"dispatched": rt["dispatched"],
+                          "completed": rt["completed"],
+                          "in_flight": rt["in_flight"],
+                          "queued": len(rt["queue"]),
+                          "bytes_sent": rt["bytes_sent"],
+                          "bytes_recv": rt["bytes_recv"]}
+                   for name, rt in self._tenant_rt.items()}
+        with self._lineage_lock:
+            recov = dict(self._recovery_by_tenant)
+        for name, stats in out.items():
+            stats["reconstructions"] = recov.get(name, 0)
+        return out
+
     def resize(self, workers: int) -> None:
         """Elastic scaling: grow by launching connect-back workers (round-
         robin over the host list; external mode just raises the expected
@@ -794,7 +1039,8 @@ class ClusterBackend(EventWaitMixin, Backend):
             self._on_dead(w, repr(exc))
             return
         w.last_seen = time.monotonic()
-        for frame in frames:
+        sizes = w.reader.last_sizes      # index-aligned with ``frames``
+        for idx, frame in enumerate(frames):
             tag = frame[0]
             if tag == "hello":
                 w.meta = frame[1]
@@ -867,6 +1113,10 @@ class ClusterBackend(EventWaitMixin, Backend):
             elif tag == "result":
                 h = w.busy
                 if h is not None and frame[1] == h.task.task_id:
+                    if h.task.tenant is not None and idx < len(sizes):
+                        with self._pool_cv:
+                            self._tenant_rt_for_locked(
+                                h.task.tenant)["bytes_recv"] += sizes[idx]
                     held = frame[3] if len(frame) > 3 else ()
                     if held:
                         # even a discarded late result stays in the
@@ -875,6 +1125,13 @@ class ClusterBackend(EventWaitMixin, Backend):
                             for digest, _nbytes in held:
                                 w.known.add(digest)
                                 self._note_location_locked(digest, w.wid)
+                        # cheap dict inserts only — safe on the select loop
+                        self._record_lineage(h.task, held)
+                        if self._min_replicas > 1:
+                            ds = [d for d, _ in held]
+                            threading.Thread(
+                                target=self._replicate_held, args=(ds,),
+                                name="blob-replicate", daemon=True).start()
                     if h.done.is_set():
                         # soft-cancelled future (external worker): discard
                         # the late result, worker rejoins the pool healthy
@@ -885,8 +1142,7 @@ class ClusterBackend(EventWaitMixin, Backend):
                     else:
                         run = frame[2]
                         if held and isinstance(run.value, PayloadRef):
-                            sizes = dict(held)
-                            nbytes = sizes.get(run.value.digest, 0)
+                            nbytes = dict(held).get(run.value.digest, 0)
                             rv = RemoteValue(run.value.digest, nbytes, self,
                                              label=h.task.label)
                             self._track_remote(rv)
@@ -902,6 +1158,17 @@ class ClusterBackend(EventWaitMixin, Backend):
                 # location and fail the parked pullers over to other holders
                 self._drop_location(frame[1], w.wid)
                 self._resolve_fetch(w.wid, frame[1], None)
+            elif tag == "stored":
+                # replication ack / peer-fetch promotion: the worker now
+                # holds a verified (content-addressed) copy of the digest —
+                # register it as a replica so holder loss has a survivor
+                digest, how = frame[1], frame[3]
+                with self._pool_cv:
+                    w.known.add(digest)
+                    self._note_location_locked(digest, w.wid)
+                with self._lineage_lock:
+                    self._recovery["replications" if how == "replicate"
+                                   else "replica_promotions"] += 1
 
     def _match_pending_locked(self, meta: dict) -> "WorkerProc | None":
         """Pair a hello with the WorkerProc that bootstrapped it: by the
@@ -1016,7 +1283,10 @@ class ClusterBackend(EventWaitMixin, Backend):
                 self._all.remove(w)
             # prune the location map: digests whose *last* holder this was
             # (and that the driver never pulled) are now lost — remember
-            # why (the LineageExhaustedError quotes it)
+            # why (lineage reconstruction quotes it), and digests that
+            # kept a surviving replica but dropped below min_replicas are
+            # queued for a replication top-up
+            refill = []
             for digest, wids in list(self._locations.items()):
                 if w.wid in wids:
                     wids.discard(w.wid)
@@ -1026,12 +1296,17 @@ class ClusterBackend(EventWaitMixin, Backend):
                             self._lost[digest] = w.describe()
                             while len(self._lost) > 512:
                                 self._lost.popitem(last=False)
+                    elif len(wids) < self._min_replicas:
+                        refill.append(digest)
             if self._open and not w.retired:
                 if w.proc is not None and self._launcher is not None:
                     relaunch = True                  # self-heal, same capacity
                 elif w.ready:
                     self._capacity -= 1              # external: shrink
             self._pool_cv.notify_all()
+        if refill:
+            threading.Thread(target=self._replicate_held, args=(refill,),
+                             name="blob-replicate", daemon=True).start()
         if relaunch:
             self._schedule_relaunch(w)
         if h is not None and not h.done.is_set():
@@ -1164,6 +1439,12 @@ class ClusterBackend(EventWaitMixin, Backend):
         from .. import state as state_mod
         _tag, rid, op, args = frame
         svc = state_mod.service()
+        # tenant-tagged tasks see a private key namespace: their keys are
+        # wrapped server-side (the client never sees the wrapper), so one
+        # tenant can neither read nor clobber another's KV entries
+        tenant = getattr(w.busy.task, "tenant", None) \
+            if w.busy is not None else None
+        args = state_mod.scope_args(op, args, tenant)
 
         def _send(status, payload, digest=None):
             try:
@@ -1212,7 +1493,8 @@ class ClusterBackend(EventWaitMixin, Backend):
             return payload
 
         def _serve():
-            status, payload, digest = svc.handle(op, args, w.known)
+            status, payload, digest = svc.handle(op, args, w.known,
+                                                 tenant=tenant)
             if status == "ok":
                 payload = _wrap(payload)
             _send(status, payload, digest)
@@ -1258,6 +1540,11 @@ class ClusterBackend(EventWaitMixin, Backend):
             with self._release_lock:
                 if self._rv_refs.get(digest, 0) > 0:
                     continue                 # re-produced since queued
+            with self._lineage_lock:
+                # nothing can reference the bytes anymore: forget how to
+                # rebuild them too (the lineage record pins the producing
+                # TaskSpec and, through it, ancestor RemoteSource anchors)
+                self._lineage.pop(digest, None)
             with self._pool_cv:
                 wids = self._locations.pop(digest, set())
                 # nothing can reference it anymore: the lost-blob memory
@@ -1271,18 +1558,52 @@ class ClusterBackend(EventWaitMixin, Backend):
                 except (OSError, AttributeError):
                     pass
 
-    # -- lost worker-resident results --------------------------------------
+    # -- lineage: rebuild lost worker-resident results ----------------------
     #
-    # The reference re-executes a lost digest's producing task here; the
-    # port records no lineage yet, so a digest with no live copy fails with
-    # the reference's message for a digest that has no lineage.
+    # ``_reconstruct`` (like the pulls below) runs on *caller* threads only
+    # — it blocks on worker checkout and task completion, both of which the
+    # select loop must keep pumping. Continuation steps are dispatched to
+    # the continuation pool (never inline on the select loop), so every
+    # path that can reach it — submit() preflight, pull_blob, a need-
+    # backfill thread's RemoteSource.encode — is safe.
+
+    def _record_lineage(self, task: TaskSpec, held) -> None:
+        """Remember how to re-produce each newly held digest. The shipped
+        task blob replays byte-identically (per-future RNG stream key and
+        content-addressed input refs were frozen into it at creation), so
+        a lost copy is one re-dispatch away. Re-holding a digest resets
+        its attempt budget: a fresh loss gets a fresh budget."""
+        parents = tuple(d for d, src in task.payload_sources.items()
+                        if getattr(src, "remote", False))
+        with self._lineage_lock:
+            for digest, _nbytes in held:
+                self._lineage[digest] = _Lineage(task, parents)
+                self._lineage.move_to_end(digest)
+            while len(self._lineage) > self._lineage_keep:
+                self._lineage.popitem(last=False)
+
+    def recovery_stats(self, by_tenant: bool = False) -> dict:
+        """Counters for the recovery machinery (tests/diagnostics):
+        ``reconstructions`` (lineage re-executions), ``replications``
+        (proactive pushes under ``min_replicas``), ``replica_promotions``
+        (task-path peer fetches registered as new holders).
+        ``by_tenant=True`` adds a ``{"by_tenant": {tenant:
+        reconstructions}}`` attribution of lineage re-executions to the
+        tenant whose task produced the rebuilt digest."""
+        with self._lineage_lock:
+            out = dict(self._recovery)
+            if by_tenant:
+                out["by_tenant"] = dict(self._recovery_by_tenant)
+            return out
 
     def _ensure_remote_inputs(self, task: TaskSpec) -> None:
-        """Pre-dispatch gate for ``submit()``: every remote input digest
-        must have a live copy somewhere (holder or driver store) *before* a
-        worker is checked out; one that has none fails the future with
-        :class:`LineageExhaustedError`. ``try_submit`` skips this (it must
-        never block); its dispatches fail through the need path instead."""
+        """Pre-dispatch lineage gate for ``submit()``: every remote input
+        digest must have a live copy somewhere (holder or driver store)
+        *before* a worker is checked out — reconstructing after checkout
+        could self-deadlock (the rebuild needs an idle worker, and the
+        caller would be sitting on the last one). ``try_submit`` skips
+        this on purpose (it must never block); its dispatches recover via
+        the need-backfill path instead."""
         for digest, src in task.payload_sources.items():
             if not getattr(src, "remote", False):
                 continue
@@ -1291,25 +1612,131 @@ class ClusterBackend(EventWaitMixin, Backend):
                 continue
             self._reconstruct(digest, task.label or "")
 
-    def _reconstruct(self, digest: bytes, label: str = "") -> None:
-        """Return when a live copy of ``digest`` exists (a holder in the
-        location map, or the bytes in DRIVER_STORE); otherwise raise
-        :class:`LineageExhaustedError` — no producing task is recorded."""
-        if digest in DRIVER_STORE or self._live_holder(digest) is not None:
-            return
+    def _reconstruct(self, digest: bytes, label: str = "",
+                     _depth: int = 0) -> None:
+        """Re-produce a lost worker-resident blob by re-executing its
+        recorded lineage, recursing into missing parents first. Returns
+        once a live copy exists (a holder in the location map, or the
+        bytes in DRIVER_STORE); raises :class:`LineageExhaustedError`
+        when no producing task is recorded or a cap is exceeded."""
         tag = digest.hex()[:12] + (f" ({label})" if label else "")
+        if _depth > self._lineage_max_depth:
+            raise LineageExhaustedError(
+                f"rebuilding remote payload {tag} exceeded the lineage "
+                f"depth cap ({self._lineage_max_depth}) — ancestry chain "
+                f"too deep to re-execute", digest=digest,
+                future_label=label or None)
+        while True:
+            if digest in DRIVER_STORE \
+                    or self._live_holder(digest) is not None:
+                return
+            with self._pool_cv:
+                if not self._open:
+                    raise ChannelError(
+                        f"cluster backend shut down before remote payload "
+                        f"{tag} could be rebuilt")
+            with self._lineage_lock:
+                ev = self._rebuilds.get(digest)
+                if ev is None:
+                    rec = self._lineage.get(digest)
+                    if rec is None:
+                        with self._pool_cv:
+                            where = self._lost.get(digest)
+                        cause = (f"its last holder {where} died" if where
+                                 else "every copy was evicted")
+                        raise LineageExhaustedError(
+                            f"remote payload {tag} was lost ({cause}) and "
+                            f"no producing task is recorded for it "
+                            f"(lineage evicted, or the bytes were not "
+                            f"task-produced)", digest=digest,
+                            future_label=label or None)
+                    if rec.attempts >= self._lineage_max_attempts:
+                        raise LineageExhaustedError(
+                            f"remote payload {tag} was lost and its "
+                            f"re-execution budget is exhausted "
+                            f"({rec.attempts}/{self._lineage_max_attempts}"
+                            f" attempts)", digest=digest,
+                            future_label=label or None)
+                    rec.attempts += 1
+                    self._recovery["reconstructions"] += 1
+                    if rec.task.tenant is not None:
+                        self._recovery_by_tenant[rec.task.tenant] += 1
+                    ev = self._rebuilds[digest] = threading.Event()
+                else:
+                    rec = None
+            if rec is None:
+                # someone else is rebuilding this digest: wait them out,
+                # then loop — the copy check / attempt budget decides
+                ev.wait(self._fetch_timeout)
+                continue
+            try:
+                for parent in rec.parents:
+                    self._reconstruct(parent, label, _depth=_depth + 1)
+                worker = self._checkout_for_rebuild(tag)
+                h = self._dispatch(rec.task, worker)
+                h.done.wait()
+                # h.error (the worker died *again*) and evaluation errors
+                # are not raised here: the loop re-checks for a live copy
+                # and the attempt budget bounds the retries either way
+            finally:
+                with self._lineage_lock:
+                    self._rebuilds.pop(digest, None)
+                ev.set()
+
+    def _checkout_for_rebuild(self, tag: str) -> _SockWorker:
+        """Bounded checkout for a lineage re-execution: a plain
+        ``_checkout`` could wait forever when every worker is parked in
+        ``ensure_refs`` waiting for the very blob this rebuild would
+        produce (workers=1 with a try_submit dispatch), so give up after
+        the fetch timeout with a diagnosable error instead."""
+        deadline = time.monotonic() + self._fetch_timeout
         with self._pool_cv:
-            if not self._open:
-                raise ChannelError(
-                    f"cluster backend shut down before remote payload "
-                    f"{tag} could be rebuilt")
-            where = self._lost.get(digest)
-        cause = (f"its last holder {where} died" if where
-                 else "every copy was evicted")
-        raise LineageExhaustedError(
-            f"remote payload {tag} was lost ({cause}) and no producing task "
-            f"is recorded for it (lineage evicted, or the bytes were not "
-            f"task-produced)", digest=digest, future_label=label or None)
+            while True:
+                w = self._pick_idle_locked(frozenset())
+                if w is not None:
+                    return w
+                if not self._open:
+                    raise ChannelError("cluster backend is shut down")
+                if self._capacity <= 0:
+                    raise ChannelError(
+                        "no live cluster workers (all died and none were "
+                        "respawnable)")
+                if time.monotonic() > deadline:
+                    raise LineageExhaustedError(
+                        f"no idle worker became available within "
+                        f"{self._fetch_timeout}s to re-execute the "
+                        f"producing task of remote payload {tag}")
+                self._pool_cv.wait(0.5)
+
+    # -- proactive replication (min_replicas) -------------------------------
+
+    def _replicate_held(self, digests) -> None:
+        """Push copies of ``digests`` to workers until each has
+        ``min_replicas`` registered holders. Runs on a side thread (never
+        the select loop): targets peer-fetch the bytes from a holder and
+        confirm with ``("stored", digest, nbytes, "replicate")``, which is
+        what actually registers the replica — this thread only sends the
+        small ``replicate`` control frames. Best-effort: no live peer
+        address or a busy pool just leaves the digest under-replicated
+        until the next result/death event retries."""
+        for digest in digests:
+            with self._pool_cv:
+                holders = self._locations.get(digest, set())
+                need = self._min_replicas - len(holders)
+                if need <= 0 or not holders:
+                    continue
+                targets = [w for w in self._all
+                           if w.ready and w.sock is not None
+                           and w.wid not in holders][:need]
+            for w in targets:
+                addrs, _lost = self._peer_addrs(digest, exclude=w.wid)
+                if not addrs:
+                    break                    # no peer server to fetch from
+                try:
+                    send_frame(w.sock, ("replicate", digest, addrs),
+                               w.send_lock)
+                except (OSError, AttributeError):
+                    continue
 
     # -- remote-result pulls (driver side of the fetch protocol) ------------
     #
@@ -1402,8 +1829,9 @@ class ClusterBackend(EventWaitMixin, Backend):
         """Materialize one remote result blob on the driver: driver store
         first, then each live holder over the fetch protocol (caching the
         copy in DRIVER_STORE — later pulls, backfills, and holder deaths
-        are then served locally). A digest with no live copy anywhere
-        raises LineageExhaustedError (``_reconstruct``)."""
+        are then served locally). A digest with no live copy anywhere is
+        rebuilt from its lineage before giving up; only
+        LineageExhaustedError (no lineage / caps hit) escapes."""
         blob = DRIVER_STORE.get(digest)
         if blob is not None:
             return blob
@@ -1416,8 +1844,9 @@ class ClusterBackend(EventWaitMixin, Backend):
                         f"{tag} was fetched")
             w = self._live_holder(digest)
             if w is None:
-                # lost holder or evicted everywhere: raises
-                # LineageExhaustedError (the reference rebuilds here)
+                # lost holder or evicted everywhere: rebuild from lineage
+                # (raises LineageExhaustedError when it can't), then retry
+                # the fetch — the attempt budget guarantees termination
                 self._reconstruct(digest, label)
                 blob = DRIVER_STORE.get(digest)
                 if blob is not None:
@@ -1444,11 +1873,16 @@ class ClusterBackend(EventWaitMixin, Backend):
     # -- Backend API ---------------------------------------------------------
 
     def submit(self, task: TaskSpec) -> _Handle:
+        if task.tenant is not None:
+            # tenant-tagged work never checks out FIFO: it rides the
+            # fair-share queues (handle returned immediately, dispatch
+            # deferred to the tenant scheduler)
+            return self.submit_queued(task)
         try:
             self._ensure_remote_inputs(task)
         except FutureError as exc:
-            # a lost input: surface it through the normal completion path
-            # (value()/callbacks), not at submit
+            # lineage could not cover a lost input: surface it through the
+            # normal completion path (value()/callbacks), not at submit
             handle = _Handle(task)
             handle.error = exc
             self._complete(handle)
@@ -1457,6 +1891,14 @@ class ClusterBackend(EventWaitMixin, Backend):
         return self._dispatch(task, worker)
 
     def try_submit(self, task: TaskSpec) -> "_Handle | None":
+        if task.tenant is not None:
+            # deficit-style queue admission replaces FIFO checkout: the
+            # tenant may enter the scheduler's queues while it has
+            # outstanding budget; the fair-share dispatcher decides when a
+            # worker is actually assigned
+            if self.free_slots_for(task.tenant) <= 0:
+                return None
+            return self.submit_queued(task)
         worker = self._try_checkout(prefer=self._holders(task.affinity))
         if worker is None:
             return None
@@ -1483,8 +1925,9 @@ class ClusterBackend(EventWaitMixin, Backend):
         # dataflow path is that their bytes never route through the driver
         # unless they must. The task frame instead carries per-digest peer
         # addresses (hints); the worker's resolution order is own store ->
-        # peer fetch -> ("need", d) driver fallback (which naks a digest
-        # with no live copy, failing the task with ChannelError).
+        # peer fetch -> ("need", d) driver fallback — and the driver's
+        # need path rebuilds a digest with no live copy from its lineage,
+        # so a lost input delays the task instead of failing it.
         try:
             puts, hints = [], {}
             for digest, src in task.payload_sources.items():
@@ -1503,12 +1946,17 @@ class ClusterBackend(EventWaitMixin, Backend):
             self._finish(worker, handle)
             return handle
         try:
+            sent = 0
             for digest, pblob in puts:
-                worker.put(digest, pblob)
-            send_frame(worker.sock,
-                       ("task", task.task_id, blob, task.refs,
-                        hints, self._remote_results),
-                       worker.send_lock)
+                sent += worker.put(digest, pblob)
+            sent += send_frame(worker.sock,
+                               ("task", task.task_id, blob, task.refs,
+                                hints, self._remote_results),
+                               worker.send_lock)
+            if task.tenant is not None:
+                with self._pool_cv:
+                    self._tenant_rt_for_locked(
+                        task.tenant)["bytes_sent"] += sent
         except (OSError, AttributeError):
             worker.busy = None
             handle.error = WorkerDiedError(
@@ -1597,6 +2045,17 @@ class ClusterBackend(EventWaitMixin, Backend):
         self._fail_all_fetches()     # unblock pull_blob callers (they see
         #                              _open=False and raise ChannelError)
         with self._pool_cv:
+            drained = []
+            for rt in self._tenant_rt.values():
+                while rt["queue"]:
+                    drained.append(rt["queue"].popleft())
+        for t, h, *_ in drained:     # the dispatcher usually beat us here;
+            if not h.done.is_set():  # _complete is idempotent either way
+                h.error = ChannelError(
+                    f"cluster backend shut down while future "
+                    f"{t.label!r} was queued", future_label=t.label)
+                self._complete(h)
+        with self._pool_cv:
             workers = list(self._all)
             self._all, self._idle = [], []
             pending, self._pending = list(self._pending), []
@@ -1676,5 +2135,7 @@ class ClusterBackend(EventWaitMixin, Backend):
 
     @classmethod
     def validate_spec(cls, **kwargs) -> None:
-        """Refuse at ``plan()`` a kwarg of a later slice, by name."""
-        _refuse_later({k: v for k, v in kwargs.items() if k in _LATER})
+        """Refuse at ``plan()`` a kwarg the constructor does not take (a
+        TypeError naming it), not at the first future."""
+        import inspect
+        inspect.signature(cls).bind(**kwargs)

@@ -65,8 +65,13 @@ a long task still serves its blobs; it likewise routes ``state_rep``
 frames (shared-state replies — the main thread is blocked inside user
 code awaiting them; see ``state.py``) straight into the state client's
 wait slots, and applies ``("evict", digest)`` frames (driver-side GC of a
-dead ``RemoteValue``) directly to the blob store; all other frames are
-queued to the main loop in arrival order. When a task arrives with
+dead ``RemoteValue``) directly to the blob store; a ``("replicate",
+digest, addrs)`` frame (proactive replication under ``min_replicas``)
+spawns a side thread that peer-fetches a copy and confirms with
+``("stored", digest, nbytes, "replicate")`` — the same frame, with
+``"fetch"``, registers a task-path peer fetch as a replica promotion; all
+other frames are queued to the main loop in arrival order. When a task
+arrives with
 ``keep`` set, a large result is parked in the local store (a tensor on the
 card through a host copy) and the result frame carries ``run.value =
 PayloadRef(digest)`` plus a ``held`` manifest instead of the bytes — the
@@ -369,6 +374,27 @@ def _serve(sock: socket.socket, *, tag: str = "",
                 # died at the driver — drop our copy (no-op if pinned/gone)
                 store.drop(msg[1])
                 continue
+            if msg[0] == "replicate":
+                # proactive replication: pull a copy of the digest from a
+                # holder peer and confirm, making this worker a registered
+                # replica. The fetch can take a while (multi-MB blob), so
+                # it runs on its own thread — the reader must keep pumping
+                # frames (the main thread may be mid-task).
+                def _replicate(digest=msg[1], addrs=msg[2]):
+                    blob = store.get(digest)
+                    if blob is None:
+                        blob = peer_fetch(digest, addrs)
+                        if blob is None:
+                            return       # no holder reachable: best-effort
+                        store.put(digest, blob)
+                    try:
+                        send_frame(sock, ("stored", digest, len(blob),
+                                          "replicate"), send_lock)
+                    except OSError:
+                        pass
+                threading.Thread(target=_replicate, name="blob-replicate",
+                                 daemon=True).start()
+                continue
             inbox.put(msg)
 
     threading.Thread(target=_reader, name="cluster-read",
@@ -407,6 +433,15 @@ def _serve(sock: socket.socket, *, tag: str = "",
                 except OSError:
                     pass
 
+            def _promoted(d, nbytes):
+                # task-path peer fetch: this worker now holds a copy —
+                # register as a replica with the driver
+                try:
+                    send_frame(sock, ("stored", d, nbytes, "fetch"),
+                               send_lock)
+                except OSError:
+                    pass
+
             state["busy"] = True
             try:
                 with store.pinned(refs):     # siblings survive backfill puts
@@ -416,7 +451,8 @@ def _serve(sock: socket.socket, *, tag: str = "",
                         recv_msg,
                         peer_fetch=(
                             (lambda d: peer_fetch(d, hints.get(d)))
-                            if hints else None))
+                            if hints else None),
+                        on_peer_fetched=_promoted)
                     if stopped == "stop":
                         return "stop"
                     with state_context(st_client):

@@ -190,7 +190,7 @@ def hold_result(store: BlobStore, run, threshold: "int | None" = None):
 
 
 def ensure_refs(store: BlobStore, refs, send_need, recv_msg,
-                peer_fetch=None) -> "str | None":
+                peer_fetch=None, on_peer_fetched=None) -> "str | None":
     """Make sure every digest in ``refs`` is present in ``store``, asking
     the driver with ``send_need(digest)`` and pumping ``recv_msg()`` for the
     ``put`` answers. Returns ``"stop"`` if a stop message arrived
@@ -201,7 +201,9 @@ def ensure_refs(store: BlobStore, refs, send_need, recv_msg,
     digest (the cluster worker's worker-to-worker fetch along the driver's
     location hints); digests a peer cannot serve fall through to the
     ``need`` driver-fallback path, so a partitioned or evicted peer costs
-    one failed fetch, never a stuck task."""
+    one failed fetch, never a stuck task. ``on_peer_fetched(digest,
+    nbytes)`` fires after each successful peer fetch — the cluster worker
+    uses it to tell the driver it now holds a copy (replica promotion)."""
     from ..errors import ChannelError
     missing = [d for d in refs if d not in store]
     if not missing:
@@ -212,6 +214,8 @@ def ensure_refs(store: BlobStore, refs, send_need, recv_msg,
             blob = peer_fetch(d)
             if blob is not None:
                 store.put(d, blob)
+                if on_peer_fetched is not None:
+                    on_peer_fetched(d, len(blob))
             else:
                 still.append(d)
         missing = still

@@ -385,7 +385,7 @@ class Future:
         shipped = None
         sources: dict = {}
         args, kwargs = self._args, self._kwargs
-        if backend.name in ("processes", "cluster"):
+        if backend.name in ("processes", "cluster", "serving"):
             # Content-addressed shipping: large globals leave the task blob
             # as PayloadRef digests (shipped at most once per worker); the
             # extraction doubles as the exportability scan, raising

@@ -21,8 +21,10 @@ default), ``launcher=`` (a ``launchers.Launcher`` instance,
 ``"local"``/``"ssh"``, a scheduler command template containing
 ``{driver}``, or ``"external"``), ``bind=``/``port=``/``advertise=``,
 ``connect_timeout=``, ``heartbeat_interval=``/``heartbeat_timeout=``,
-``relaunch_backoff=``/``relaunch_backoff_cap=``, ``token=``, ``tls=`` and
-``blob_store_bytes=`` — see ``backends/cluster.py`` and
+``relaunch_backoff=``/``relaunch_backoff_cap=``, ``token=``, ``tls=``,
+``blob_store_bytes=``, ``min_replicas=``, the ``lineage_*`` caps and
+``tenants=`` — see ``backends/cluster.py``; ``serving`` takes ``addr=``,
+``token=`` and ``tls_ca=`` (``core/serving``) — and
 ``backends/launchers.py``. Launchers are hashable frozen dataclasses, so
 they ride inside the spec — and the warm-pool key below hashes the whole
 spec: re-planning to the same spec re-attaches to the live workers.
@@ -184,12 +186,17 @@ _WARM_POOL_MAX = 3
 #: excludes the in-process backends — threads are cheap to respawn, and the
 #: asyncio and cuda_async backends' whole cost is one thread: parking them
 #: buys nothing over a cold start, so plan() swaps shut them down instead.
+#: The serving *client* is also excluded: its session holds the
+#: process-wide state-client override and a server-side TTL — parking it
+#: would keep routing state calls to a session the user has planned away
+#: from.
 _POOLABLE = ("processes", "cluster")
 
 
 def _freeze(obj) -> "Any":
-    """Recursively hashable view of a spec kwarg value: a dict-valued
-    kwarg must be poolable even though dicts aren't hashable. Dicts become
+    """Recursively hashable view of a spec kwarg value: ``tenants={"a":
+    {"weight": 3.0}}`` must be poolable even though dicts aren't
+    hashable. Dicts become
     tagged sorted item-tuples (the tag keeps ``{"a": 1}`` distinct from
     ``(("a", 1),)``)."""
     if isinstance(obj, dict):
@@ -206,13 +213,13 @@ def _freeze(obj) -> "Any":
 
 
 def _security_fingerprint(head: BackendSpec) -> tuple:
-    """Credential identity of a cluster spec. Two plans can be
+    """Credential identity of a secured backend spec. Two plans can be
     kwarg-identical yet security-distinct — the cluster token defaults to
     ``$REPRO_CLUSTER_TOKEN`` (mutable between plans) and ``tls=True``
     generates a fresh cert per instantiation — and reattaching a warm pool
     across a credential change would serve the new plan with the old
     secrets. Tokens enter the key hashed, never raw."""
-    if head.name != "cluster":
+    if head.name not in ("cluster", "serving"):
         return ()
     import hashlib
     kwargs = dict(head.kwargs)
@@ -221,7 +228,7 @@ def _security_fingerprint(head: BackendSpec) -> tuple:
         token = os.environ.get("REPRO_CLUSTER_TOKEN", "")
     token_fp = hashlib.blake2b(str(token).encode(),
                                digest_size=8).hexdigest() if token else ""
-    tls = kwargs.get("tls")
+    tls = kwargs.get("tls") or kwargs.get("tls_ca")
     if tls is True:
         # a fresh self-signed cert per instantiation: make the fingerprint
         # spec-stable ("auto") — the *same spec* re-planned still
@@ -231,13 +238,14 @@ def _security_fingerprint(head: BackendSpec) -> tuple:
         tls_fp = tls.fingerprint()
     else:
         tls_fp = _freeze(tls) if tls else ""
-    return (token_fp, tls_fp)
+    return (token_fp, tls_fp, _freeze(kwargs.get("tenants")))
 
 
 def _backend_key(head: BackendSpec, stack: "tuple[BackendSpec, ...]"
                  ) -> tuple:
     """Identity under which a live backend may be reused: same head spec
-    (kwargs deep-frozen), same nested stack (workers captured it at init),
+    (kwargs deep-frozen so dict-valued ones like ``tenants=`` hash), same
+    nested stack (workers captured it at init),
     same session seed (worker RNG streams derive from it), same security
     credentials (:func:`_security_fingerprint`)."""
     from . import rng as rng_mod

@@ -476,12 +476,17 @@ class StateService:
         DRIVER_STORE.put(digest, blob)
         return blob
 
-    def handle(self, op: str, args: tuple, known: "set | None" = None):
+    def handle(self, op: str, args: tuple, known: "set | None" = None,
+               tenant: "str | None" = None):
         """Execute one non-blocking wire op. Returns ``(status, payload,
         sent_digest)`` with status ``"ok"`` or ``"err"`` — never raises
         (malformed ops are the *request's* failure, not the driver's).
-        ``wait`` is not handled here: it blocks, so the driver routes it
-        through a side thread."""
+        ``wait`` is not handled here: it blocks, so each driver routes it
+        through :meth:`add_watch` (cluster) or a side thread (processes).
+
+        ``tenant`` only affects ``keys``: key args must already be scoped
+        by the caller via :func:`scope_args` (the scoping must also cover
+        paths that bypass ``handle`` — ``wait`` watches, size probes)."""
         try:
             if op == "get":
                 key, min_version = args
@@ -555,7 +560,17 @@ class StateService:
             if op == "delete":
                 return "ok", self.delete(args[0]), None
             if op == "keys":
-                return "ok", self.keys(args[0]), None
+                if tenant is None:
+                    return "ok", self.keys(args[0]), None
+                prefix = args[0]
+                with self._lock:
+                    inner = [k[2] for k in self._values
+                             if isinstance(k, tuple) and len(k) == 3
+                             and k[0] == _TENANT_NS and k[1] == tenant]
+                if prefix:
+                    inner = [k for k in inner
+                             if isinstance(k, str) and k.startswith(prefix)]
+                return "ok", sorted(inner, key=repr), None
             if op == "version":
                 return "ok", self.version(args[0]), None
             if op == "blob":

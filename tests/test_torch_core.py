@@ -171,12 +171,13 @@ def test_cancel_unlaunched():
 
 
 def test_every_backend_of_the_port_is_registered_and_cluster_resolves():
-    """The in-process backends, ``processes`` and the TCP ``cluster``:
-    ``plan("cluster")`` resolves to the socket backend, whose worker
-    answers a future."""
+    """The in-process backends, ``processes``, the TCP ``cluster`` and the
+    ``serving`` client: ``plan("cluster")`` resolves to the socket
+    backend, whose worker answers a future."""
     from repro_torch.core.backends.cluster import ClusterBackend
     assert sorted(BACKEND_REGISTRY) == ["asyncio", "cluster", "cuda_async",
-                                        "processes", "sequential", "threads"]
+                                        "processes", "sequential", "serving",
+                                        "threads"]
     rc.plan("cluster", workers=1)
     assert isinstance(rc.active_backend(), ClusterBackend)
     assert value(future(lambda: 6 * 7), timeout=60) == 42

@@ -1,7 +1,8 @@
 """The port's examples run to their end on the CPU (their own asserts check
-the results: no lost commit, pruning fired, a chain kept on its workers):
-the Future-API ones, the cluster's dataflow and payload-cache twins, and
-the qwen2-moe smoke Server."""
+the results: no lost commit, pruning fired, a chain kept on its workers, a
+lost result rebuilt, two tenants served): the Future-API ones, the
+cluster's dataflow, payload-cache and lineage twins, the serving tier's,
+and the qwen2-moe smoke Server."""
 
 import os
 import pathlib
@@ -21,6 +22,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
     ("serve_torch.py --arch qwen2-moe-a2.7b", "all requests served"),
     ("dataflow_chain_torch.py", "fewer bytes through the driver"),
     ("payload_cache_torch.py", "(reused=True)"),
+    ("lineage_recovery_torch.py", "OK: lost results rebuilt "
+                                  "digest-identical; replicas make "
+                                  "recovery free"),
+    ("multi_tenant_serving_torch.py --tls", "server: per-tenant attribution"),
 ])
 def test_example_runs_on_cpu(name, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

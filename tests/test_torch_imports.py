@@ -66,6 +66,8 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.core.backends.cluster",
             "repro_torch.core.backends.cluster_worker",
             "repro_torch.core.backends.launchers",
+            "repro_torch.core.serving",
+            "repro_torch.core.serving.__main__",
             "repro_torch.optim.compression"} <= set(_port_modules())
 
 
@@ -83,6 +85,8 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
        ROOT / "examples" / "async_hyperband_torch.py",
        ROOT / "examples" / "dataflow_chain_torch.py",
        ROOT / "examples" / "payload_cache_torch.py",
+       ROOT / "examples" / "lineage_recovery_torch.py",
+       ROOT / "examples" / "multi_tenant_serving_torch.py",
        ROOT / "tests" / "_torch_cluster_harness.py",
        ROOT / "scripts" / "train_divergence.py",
        ROOT / "scripts" / "profile_torch.py",
