@@ -91,7 +91,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      completed count of session_stats() exact for each tenant; a held
      result replicated to both workers surviving the SIGKILL of one
      holder, value() bit for bit with no reconstruction and the killed
-     worker relaunched.
+     worker relaunched;
+  6e. the multi-pod DiLoCo driver (``repro_torch.launch.train``) from
+     phase 3's parameters: two xLSTM-125M pods at full width as workers of
+     plan("cluster", workers=2) (loopback, a random token, no TLS), 2
+     rounds of 2 local steps at phase 5's B=8, S=512 and lr, int8 + error
+     feedback, pod 0's first dispatch killed (exit 43) and re-dispatched;
+     each pod round's pid (not the driver's), card and launch counts read
+     in its worker (20 mlstm_scan, 4 slstm_scan), its loss and every delta
+     leaf bit for bit the same ``pod_round`` call in this process (made on
+     a thread beside the driver); every leaf with a nonzero delta moved by
+     the outer step; the last checkpoint restored bit for bit; every task
+     frame under 1 MiB and each pod round's worker sent the round's large
+     leaves as puts; each round's seconds and tokens/s, each worker's task
+     and put bytes with their seconds, each pod's pull time, the
+     exchange's ms and the re-dispatch's.
 Then the xLSTM model is freed and RecurrentGemma-9B (38 layers, d_model
 4096, 10.4 B fp32 parameters, random from the seed) takes the card:
   2b. the RG-LRU scan, windowed flash attention and split-S decode
@@ -606,6 +620,10 @@ def main() -> int:
     serving_phase(cfg, model, params, prefill, tokens, first, smi)
     del first, tokens, prefill
     phase_done("6d")
+
+    # -- 6e. two pods of the multi-pod driver as cluster workers -------------
+    multipod_phase(cfg, params, smi)
+    phase_done("6e")
 
     # -- RecurrentGemma-9B: free the xLSTM model first -----------------------
     del model, params
@@ -1876,8 +1894,8 @@ def serving_phase(cfg, model, params, prefill, tokens, first,
 
         # (a) each tenant's prefill futures. The first ones go together,
         # from a thread each: each session encodes the 0.58 GB parameter
-        # dict anew (zlib, ~26 s; the driver's 256 MiB store does not keep
-        # it), and the two encodes overlap
+        # dict anew (the driver's 256 MiB store does not keep it), and the
+        # two encodes overlap
         firsts = {}
 
         def first_of(name):
@@ -2002,6 +2020,257 @@ def serving_phase(cfg, model, params, prefill, tokens, first,
         if srv is not None:
             srv.close()
     torch.cuda.synchronize()
+
+
+class PodResults:
+    """Records every pod result the multi-pod driver pulls, by wrapping the
+    ``value`` that ``repro_torch.launch.train`` calls (a candidate that
+    raised, the node failure, is not recorded), and the wall clock at the
+    call's start and end."""
+
+    def __enter__(self):
+        import repro_torch.launch.train as T
+        self._mod, self._value = T, T.value
+        self.results = []
+        self.pulls: dict = {}     # (round, pod) -> value()'s wall clock
+
+        def recording(f, *args, **kwargs):
+            t0 = time.time()
+            out = self._value(f, *args, **kwargs)
+            self.results.append(out)
+            self.pulls[(out["round"], out["pod"])] = (t0, time.time())
+            return out
+        T.value = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.value = self._value
+        return False
+
+
+class FrameTally:
+    """The bytes of the ``task`` and ``put`` frames the cluster driver sends
+    to each worker, by the worker's pid, the seconds their ``send_frame``
+    calls took (the frame's encode and the socket write) and the wall clock
+    at each call's end, by wrapping ``cluster.send_frame``."""
+
+    def __init__(self, backend):
+        self._backend = backend
+        self._lock = threading.Lock()
+        #: pid -> [(tag, bytes, seconds, wall clock at the end), ...]
+        self.frames: dict = {}
+
+    def __enter__(self):
+        import repro_torch.core.backends.cluster as C
+        self._mod, self._send = C, C.send_frame
+
+        def counting(sock, frame, lock=None):
+            t0 = time.perf_counter()
+            n = self._send(sock, frame, lock)
+            if frame[0] in ("task", "put"):
+                pid = next((w.meta.get("pid") for w in list(
+                    self._backend._all) if w.sock is sock), None)
+                with self._lock:
+                    self.frames.setdefault(pid, []).append(
+                        (frame[0], n, time.perf_counter() - t0,
+                         time.time()))
+            return n
+        C.send_frame = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.send_frame = self._send
+        return False
+
+
+#: the longest phase 6e's driver.run() may take: a redispatch that never
+#: completes fails the phase
+MULTIPOD_WAIT = 420.0
+
+
+def multipod_phase(cfg, params, smi: str) -> None:
+    """Phase 6e: the multi-pod DiLoCo driver (``repro_torch.launch.train``)
+    with two xLSTM-125M pods at full width as cluster workers on the card,
+    from phase 3's parameters: a node failure re-dispatched, the kernels
+    launched in each pod's worker, every pod round bit for bit the same
+    call in this process (made on a thread of its own while the driver
+    ships the round), the outer step and the checkpoint."""
+    import tempfile
+
+    import torch
+
+    import repro_torch.core as rc
+    from repro_torch.core.backends.blobstore import PAYLOAD_REF_THRESHOLD
+    from repro_torch.launch.train import (MultiPodDriver, PodRunConfig,
+                                          pod_round)
+    from repro_torch.tree import leaves
+
+    steps, pods = 2, 2
+    n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
+    n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
+    # the forward of each local step launches the kernels; the backward
+    # recomputes through the plain versions and launches none
+    want_launches = {"mlstm_scan": steps * n_m, "slstm_scan": steps * n_s}
+    card = torch.cuda.get_device_name(0)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-6e-")
+    marker = os.path.join(tmp, "pod0-die-once")
+    pcfg = PodRunConfig(
+        arch=cfg.name, smoke=False, pods=pods, rounds=2, local_steps=steps,
+        batch=TRAIN_B, seq=TRAIN_S, lr=TRAIN_LR, compress=True,
+        ckpt_dir=os.path.join(tmp, "ckpt"), fail_marker=marker,
+        device="cuda", plan_kwargs={"token": os.urandom(16).hex(),
+                                    "connect_timeout": WORKER_WAIT})
+    initial = [p.detach().cpu().numpy() for p in leaves(params)]
+    nbytes = sum(p.nbytes for p in initial)
+    print(f"MultiPodDriver: {pods} pods of {cfg.name} at full width "
+          f"({len(initial)} leaves, {nbytes} B fp32), {pcfg.rounds} "
+          f"rounds of {steps} local steps at B={TRAIN_B}, S={TRAIN_S}, lr "
+          f"{TRAIN_LR}, int8 + error feedback; plan('cluster', workers="
+          f"{pods}): local launcher over 127.0.0.1, a random token, no TLS; "
+          f"pod 0's first dispatch dies ({smi})")
+    snaps, round_s, mine, errors = [], [], {}, []
+    threads: list = []
+
+    def in_process(rnd, snap):
+        # the same calls in this process, while the driver ships the round
+        try:
+            for pod in range(pods):
+                t0 = time.perf_counter()
+                out = pod_round(cfg.name, False, snap, rnd, pod, pods, steps,
+                                TRAIN_B, TRAIN_S, TRAIN_LR, pcfg.seed,
+                                device="cuda")
+                mine[(rnd, pod)] = (out, (time.perf_counter() - t0) * 1e3)
+        except BaseException as exc:                 # noqa: BLE001
+            errors.append(exc)
+
+    try:
+        driver = MultiPodDriver(pcfg, params=initial)
+        backend = rc.active_backend()
+        inner = driver.run_round
+
+        def run_round(rnd):
+            for th in threads:
+                th.join()
+            snaps.append(list(driver.params))     # the round's shipped list
+            threads.append(threading.Thread(
+                target=in_process, args=(rnd, snaps[-1]), daemon=True))
+            threads[-1].start()
+            t0 = time.perf_counter()
+            rec = inner(rnd)
+            round_s.append(time.perf_counter() - t0)
+            return rec
+        driver.run_round = run_round
+        t0 = time.perf_counter()
+        with PodResults() as log, FrameTally(backend) as tally:
+            hist = bounded(driver.run, MULTIPOD_WAIT)
+        run_s = time.perf_counter() - t0
+        pids, put_bytes = backend.worker_pids(), backend.put_bytes()
+    finally:
+        rc.shutdown()
+        rc.plan("sequential")
+    for th in threads:
+        th.join(WORKER_WAIT)
+        check(not th.is_alive(), "the in-process pod rounds finished")
+    if errors:
+        raise errors[0]
+
+    # -- the rounds: times, bytes, the node failure --------------------------
+    results = {(r["round"], r["pod"]): r for r in log.results}
+    check(len(log.results) == len(results) == pods * pcfg.rounds,
+          f"one result for each pod of each round ({len(log.results)})")
+    frames = {pid: list(fs) for pid, fs in tally.frames.items()}
+    print(f"  driver.run(): {run_s:.3f} s for {pcfg.rounds} rounds; pod "
+          f"workers at the end {pids}")
+    for rnd, rec in enumerate(hist):
+        print(f"  round {rnd}: loss {rec['loss']:.6f}, {round_s[rnd]:.3f} s "
+              f"(dispatches included; {rec['wall_s']:.3f} s from the last "
+              f"dispatch, the reference's wall_s), {rec['tokens']} tokens, "
+              f"{rec['tokens'] / round_s[rnd]:.1f} tokens/s; exchange "
+              f"(compress, mean, outer step) "
+              f"{rec['exchange_s'] * 1e3:.1f} ms")
+        for pod in range(pods):
+            r = results[(rnd, pod)]
+            print(f"    pod {pod} on pid {r['pid']} ({r['device']}): loss "
+                  f"{r['loss']:.6f}, result pulled at "
+                  f"{rec['pulled_s'][pod] * 1e3:.1f} ms after the last "
+                  f"dispatch, launches {r['launches']}")
+            start, end = r["clock"]
+            sent = max(t for tag, _, _, t in tally.frames.get(r["pid"], ())
+                       if tag == "task" and t <= start)
+            p0, p1 = log.pulls[(rnd, pod)]
+            print(f"      from its task frame: {start - sent:.3f} s to "
+                  f"pod_round's start (the task's decode), {end - start:.3f}"
+                  f" s in it (2 steps and the delta), {p0 - end:.3f} s to "
+                  f"the result's arrival (the held delta encoded and "
+                  f"digested), {p1 - p0:.3f} s in value() (the pull and "
+                  f"its decode)")
+            check(r["pid"] != os.getpid(), "the pod runs on a cluster worker")
+            check(r["device"] == card, "the pod trains on the card")
+            check(r["launches"] == want_launches,
+                  f"a pod round launches {want_launches} in its worker")
+    # each leaf at or over the ref threshold rides a put of its raw bytes,
+    # once a worker and round; the rest ride the task frame
+    big = sum(p.nbytes for p in initial if p.nbytes >= PAYLOAD_REF_THRESHOLD)
+    for pid, fs in sorted(frames.items(), key=lambda kv: str(kv[0])):
+        tasks = [(n, sec) for tag, n, sec, _ in fs if tag == "task"]
+        puts = [(n, sec) for tag, n, sec, _ in fs if tag == "put"]
+        put_b, put_s = sum(n for n, _ in puts), sum(t for _, t in puts)
+        ran = {r["round"] for r in log.results if r["pid"] == pid}
+        print(f"    sent to pid {pid} (ran pods of rounds {sorted(ran)}): "
+              f"{len(tasks)} "
+              f"task frames of {[n for n, _ in tasks]} B in "
+              f"{sum(t for _, t in tasks):.3f} s; {len(puts)} put frames, "
+              f"{put_b} B in {put_s:.3f} s"
+              + (f" ({put_b / put_s / 1e9:.3f} GB/s)" if put_s else ""))
+        check(all(n < (1 << 20) for n, _ in tasks),
+              "the parameter list rides outside the task frame")
+        check(put_b >= len(ran) * big, f"a worker is sent each round's "
+              f"{big} B of large leaves as puts")
+    print(f"  put bytes at the driver's sockets at the end, by pid "
+          f"{put_bytes}")
+    fails = hist[0]["redispatched"]
+    check(os.path.exists(marker) and [p for p, _ in fails] == [0]
+          and all(not h["redispatched"] for h in hist[1:]),
+          "pod 0's first dispatch died once and was re-dispatched")
+    t_fail = fails[0][1]
+    print(f"  node failure: pod 0's first worker exited, seen "
+          f"{t_fail * 1e3:.1f} ms after the round's last dispatch; the "
+          f"re-dispatched pod 0 pulled "
+          f"{(hist[0]['pulled_s'][0] - t_fail) * 1e3:.1f} ms after that")
+    check(all(np.isfinite(h["loss"]) for h in hist), "round losses finite")
+
+    # -- each pod round against the same call in this process ----------------
+    for key, r in sorted(results.items()):
+        out, ms = mine[key]
+        diff = [i for i, (a, b) in enumerate(zip(r["delta"], out["delta"]))
+                if not np.array_equal(a, b)]
+        worst = max((float(np.abs(r["delta"][i] - out["delta"][i]).max())
+                     for i in diff), default=0.0)
+        print(f"  round {key[0]} pod {key[1]} in process ({ms:.1f} ms, "
+              f"beside the driver): loss {out['loss']:.6f} against the "
+              f"worker's {r['loss']:.6f}; {len(diff)} of {len(out['delta'])} "
+              f"delta leaves differ (largest {worst:.3e})")
+        check(out["loss"] == r["loss"] and not diff,
+              "a pod round in its worker is the in-process call bit for bit")
+    mine.clear()
+
+    # -- the outer step and the checkpoint ------------------------------------
+    moved = [i for i, (a, b) in enumerate(zip(driver.params, initial))
+             if not np.array_equal(a, b)]
+    touched = [i for i in range(len(initial))
+               if any(np.any(r["delta"][i]) for r in log.results)]
+    print(f"  outer step: {len(moved)} of {len(initial)} leaves moved; "
+          f"{len(touched)} had a nonzero pod delta")
+    check(set(touched) <= set(moved), "every leaf with a nonzero delta moved")
+    restored, step = driver.ckpt.restore(
+        {str(i): torch.from_numpy(p) for i, p in enumerate(driver.params)})
+    same = step == pcfg.rounds and all(
+        np.array_equal(restored[str(i)].numpy(), p)
+        for i, p in enumerate(driver.params))
+    print(f"  checkpoint of step {step} restored bit for bit: {same}")
+    check(same, "the last checkpoint restores the driver's params")
+    del log, results, snaps, restored, driver
+    gc.collect()
 
 
 def kernel_modules() -> dict:

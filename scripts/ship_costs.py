@@ -7,12 +7,13 @@ worker goes, step by step, on one NVIDIA GPU and its host.
 The parameters (random from seed 0, on the card) are a dict global of a
 future, so the backend pickles the dict at every ``future()``, digests the
 pickle, and for a worker that lacks it encodes it (zlib level 1 over the
-pickle) and the worker decodes it again at every task: a dict is not kept
-decoded. Times each of those steps once, on the host's clock with the card
+pickle only where a window of it shrinks 4x: a dict of float weights ships
+as its plain pickle) and the worker decodes it again at every task: a dict
+is not kept decoded. Times each of those steps once, on the host's clock with the card
 synchronised:
   pickle: ``dumps_robust`` of the dict (each tensor copied to the host);
   digest: blake2b of the pickle;
-  encode: ``encode_payload`` of the dict from that pickle (the zlib pass);
+  encode: ``encode_payload`` of the dict from that pickle;
   decode: ``decode_payload`` of the blob, back to tensors on the card.
 Beside them, the same bytes as one payload a tensor leaf, as a top-level
 tensor global ships: each leaf's digest, raw encode and decode.

@@ -76,10 +76,13 @@ def _write(host: dict, step: int, directory: str, keep: int) -> int:
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3,
-                 async_save: bool = True):
+                 async_save: bool = True, backend=None):
+        """``backend``: where the write futures run (default: the active
+        plan's backend)."""
         self.dir = directory
         self.keep = keep
         self.async_save = async_save
+        self.backend = backend
         os.makedirs(directory, exist_ok=True)
         self._inflight: Future | None = None
 
@@ -91,7 +94,8 @@ class CheckpointManager:
         host = _flatten(state)               # device->host copy happens here
         write = functools.partial(_write, host, step, self.dir, self.keep)
         if self.async_save and not block:
-            self._inflight = future(write, label=f"ckpt-{step}")
+            self._inflight = future(write, label=f"ckpt-{step}",
+                                    backend=self.backend)
         else:
             write()
 

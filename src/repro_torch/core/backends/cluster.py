@@ -130,8 +130,12 @@ Wire protocol (tags on a cluster connection):
                      ("nak", digest)       driver cannot serve the digest
                      ("state_rep", rid, status, payload)
                      ("fetch", digest)     send me this blob
-                     ("evict", digest)     the last RemoteValue handle for
-                                           this result died at the driver
+                     ("evict", digest, n)  the last RemoteValue handle for
+                                           this result died at the driver;
+                                           n = the worker's reports of
+                                           holding it (held manifests and
+                                           "stored" frames) the driver had
+                                           read since its last evict of it
                      ("replicate", digest, addrs)   peer-fetch a replica
                      ("stop",)
 
@@ -140,9 +144,15 @@ Two lanes ride the same control socket besides tasks and blobs: the
 ``repro_torch.core.state`` reach the driver-hosted
 :class:`~..state.StateService`; small ops are answered inline on the select
 loop, large values and ``wait`` notifications from side threads) and the
-*GC* lane (``("evict", digest)`` — when the last :class:`RemoteValue`
+*GC* lane (``("evict", digest, n)`` — when the last :class:`RemoteValue`
 handle for a worker-resident result is garbage-collected at the driver,
 holders are told to drop the bytes instead of waiting for LRU pressure).
+A holder drops its copy only if it has reported holding the digest
+exactly ``n`` times since its last evict: a copy it stored and reported
+after the driver read its n-th report (a new result with the same
+content, made while the evict was in flight) is one the driver records as
+held, and it stays. Both sides then subtract ``n`` and forget a digest
+whose count reaches 0, so neither map outlives the digests in use.
 
 Fault model: EOF / reset / heartbeat loss on a busy worker surfaces as
 :class:`WorkerDiedError` on that future, and the driver — which **owns**
@@ -258,6 +268,9 @@ class _SockWorker:
         #: send_lock; its LRU may still evict them -> ("need", d) backfill).
         #: A replacement worker starts with a fresh, empty set: cold cache.
         self.known: set[bytes] = set()
+        #: digest -> the reports of holding it read from this worker
+        #: (guarded by the backend's _pool_cv; see _count_reports)
+        self.reports: dict[bytes, int] = {}
         self.busy: _Handle | None = None
         self.ready = False                 # hello received
         self.retired = False               # deliberate down-scale, not a death
@@ -410,7 +423,7 @@ class ClusterBackend(EventWaitMixin, Backend):
         # -- driver-side GC of worker-resident blobs: RemoteValue handles
         # are refcounted per digest; when the last one is collected its
         # finalizer queues the digest here and the select loop sends
-        # ("evict", digest) to the holders. RLock: a finalizer can run at
+        # ("evict", digest, n) to the holders. RLock: a finalizer can run at
         # any allocation, including while this thread already holds it.
         self._release_lock = threading.RLock()
         self._rv_refs: dict[bytes, int] = {}
@@ -1112,12 +1125,14 @@ class ClusterBackend(EventWaitMixin, Backend):
                         h.immediate.append(frame[2])
             elif tag == "result":
                 h = w.busy
+                held = frame[3] if len(frame) > 3 else ()
+                if held:
+                    self._count_reports(w, (d for d, _ in held))
                 if h is not None and frame[1] == h.task.task_id:
                     if h.task.tenant is not None and idx < len(sizes):
                         with self._pool_cv:
                             self._tenant_rt_for_locked(
                                 h.task.tenant)["bytes_recv"] += sizes[idx]
-                    held = frame[3] if len(frame) > 3 else ()
                     if held:
                         # even a discarded late result stays in the
                         # holder's store — record it either way
@@ -1163,6 +1178,7 @@ class ClusterBackend(EventWaitMixin, Backend):
                 # holds a verified (content-addressed) copy of the digest —
                 # register it as a replica so holder loss has a survivor
                 digest, how = frame[1], frame[3]
+                self._count_reports(w, (digest,))
                 with self._pool_cv:
                     w.known.add(digest)
                     self._note_location_locked(digest, w.wid)
@@ -1550,13 +1566,25 @@ class ClusterBackend(EventWaitMixin, Backend):
                 # nothing can reference it anymore: the lost-blob memory
                 # of it (if any) is noise now too
                 self._lost.pop(digest, None)
-                holders = [w for w in self._all
-                           if w.wid in wids and w.sock is not None]
-            for w in holders:
+                # each evict names the reports read so far, and the count
+                # starts again from 0 (so the map keeps live digests only)
+                holders = [(w, w.reports.pop(digest, 0)) for w in self._all
+                           if (w.wid in wids or digest in w.reports)
+                           and w.sock is not None]
+            for w, n in holders:
                 try:
-                    send_frame(w.sock, ("evict", digest), w.send_lock)
+                    send_frame(w.sock, ("evict", digest, n), w.send_lock)
                 except (OSError, AttributeError):
                     pass
+
+    def _count_reports(self, w: _SockWorker, digests) -> None:
+        """Count the worker's reports of holding each digest, every one
+        read, whether or not its frame is otherwise used: an evict names
+        the count read since the digest's last evict, and the worker keeps
+        a copy it reported after those."""
+        with self._pool_cv:
+            for digest in digests:
+                w.reports[digest] = w.reports.get(digest, 0) + 1
 
     # -- lineage: rebuild lost worker-resident results ----------------------
     #

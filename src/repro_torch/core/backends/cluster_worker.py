@@ -64,8 +64,11 @@ driver socket and serves ``fetch`` frames *inline*, so a holder busy with
 a long task still serves its blobs; it likewise routes ``state_rep``
 frames (shared-state replies — the main thread is blocked inside user
 code awaiting them; see ``state.py``) straight into the state client's
-wait slots, and applies ``("evict", digest)`` frames (driver-side GC of a
-dead ``RemoteValue``) directly to the blob store; a ``("replicate",
+wait slots, and applies ``("evict", digest, n)`` frames (driver-side GC
+of a dead ``RemoteValue``) directly to the blob store, unless this worker
+has reported holding the digest more than ``n`` times since the last evict
+(a copy the driver had not heard of when it released the digest), keeping
+only the count of those unread reports; a ``("replicate",
 digest, addrs)`` frame (proactive replication under ``min_replicas``)
 spawns a side thread that peer-fetches a copy and confirms with
 ``("stored", digest, nbytes, "replicate")`` — the same frame, with
@@ -97,6 +100,41 @@ from ..errors import ChannelError
 from .transport import (TLSConfig, client_tls_context, dial_auth,
                         recv_frame, send_frame, serve_auth,
                         server_tls_context)
+
+
+class HeldReports:
+    """This worker's reports of holding each digest (held manifests and
+    ``stored`` frames) that no ``("evict", digest, n)`` has answered yet.
+    A copy is stored and counted as one step, and an evict compares and
+    subtracts under the same lock, so a copy reported after the driver
+    released the digest survives the late evict."""
+
+    def __init__(self, store):
+        self.store = store
+        self.counts: dict = {}
+        self._lock = threading.Lock()
+
+    def put(self, digest, blob) -> None:
+        """Store ``blob`` and count its report."""
+        with self._lock:
+            self.store.put(digest, blob)
+            self.counts[digest] = self.counts.get(digest, 0) + 1
+
+    def count(self, digest) -> None:
+        """Count a report of a copy stored already (pinned by a task)."""
+        with self._lock:
+            self.counts[digest] = self.counts.get(digest, 0) + 1
+
+    def evict(self, digest, n: int) -> bool:
+        """The driver released ``digest`` after reading ``n`` reports:
+        drop the copy unless more were sent since, and keep only the count
+        of those. True iff the copy was dropped."""
+        with self._lock:
+            left = self.counts.pop(digest, 0) - n
+            if left > 0:
+                self.counts[digest] = left
+                return False
+            return self.store.drop(digest)
 
 
 def _answer_fetch(sock, send_lock, store, digest) -> None:
@@ -349,6 +387,7 @@ def _serve(sock: socket.socket, *, tag: str = "",
     # ("__down__", exc) sentinel so the main loop keeps the existing
     # stop/idle/eof return semantics.
     inbox: "queue.SimpleQueue" = queue.SimpleQueue()
+    reports = HeldReports(store)
 
     def _reader():
         while True:
@@ -372,7 +411,8 @@ def _serve(sock: socket.socket, *, tag: str = "",
             if msg[0] == "evict":
                 # driver-side GC: the RemoteValue handle for this digest
                 # died at the driver — drop our copy (no-op if pinned/gone)
-                store.drop(msg[1])
+                # unless we stored and reported it again since
+                reports.evict(msg[1], msg[2])
                 continue
             if msg[0] == "replicate":
                 # proactive replication: pull a copy of the digest from a
@@ -386,7 +426,7 @@ def _serve(sock: socket.socket, *, tag: str = "",
                         blob = peer_fetch(digest, addrs)
                         if blob is None:
                             return       # no holder reachable: best-effort
-                        store.put(digest, blob)
+                    reports.put(digest, blob)
                     try:
                         send_frame(sock, ("stored", digest, len(blob),
                                           "replicate"), send_lock)
@@ -435,7 +475,9 @@ def _serve(sock: socket.socket, *, tag: str = "",
 
             def _promoted(d, nbytes):
                 # task-path peer fetch: this worker now holds a copy —
-                # register as a replica with the driver
+                # register as a replica with the driver (the copy is
+                # pinned by the task, so no evict lands before the count)
+                reports.count(d)
                 try:
                     send_frame(sock, ("stored", d, nbytes, "fetch"),
                                send_lock)
@@ -472,7 +514,7 @@ def _serve(sock: socket.socket, *, tag: str = "",
                 state["busy"] = False
             held = ()
             if keep:
-                run, held = hold_result(store, run)
+                run, held = hold_result(store, run, put=reports.put)
             try:
                 send_frame(sock, ("result", task_id, run, held), send_lock)
             except OSError:

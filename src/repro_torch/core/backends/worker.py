@@ -151,7 +151,8 @@ def error_run(exc: Exception) -> Any:
     return _sanitize_run(CapturedRun(error=exc))
 
 
-def hold_result(store: BlobStore, run, threshold: "int | None" = None):
+def hold_result(store: BlobStore, run, threshold: "int | None" = None, *,
+                put=None):
     """Worker-resident results (the cluster's dataflow): when ``run.value``
     encodes (losslessly — never through the opt-in int8 codec) to
     ``threshold`` bytes or more, park the blob in this worker's own store
@@ -163,7 +164,9 @@ def hold_result(store: BlobStore, run, threshold: "int | None" = None):
     A tensor on the card is encoded through a host copy; whoever decodes
     the blob (a chained task on this worker, a peer, the driver) rebuilds
     it on its own card. The digest is computed over the *encoded blob*, so
-    it names exactly the bytes a fetch/offer exchange will move."""
+    it names exactly the bytes a fetch/offer exchange will move. ``put``
+    (default ``store.put``) parks the blob; the cluster worker's counts
+    the copy as reported with it."""
     from . import transport
     from .blobstore import (PayloadRef, RESULT_REF_THRESHOLD, array_nbytes,
                             blob_digest)
@@ -184,7 +187,7 @@ def hold_result(store: BlobStore, run, threshold: "int | None" = None):
     if len(blob) < threshold:
         return run, ()
     digest = blob_digest(blob)
-    store.put(digest, blob)
+    (put or store.put)(digest, blob)
     run = dataclasses.replace(run, value=PayloadRef(digest))
     return run, ((digest, len(blob)),)
 

@@ -249,10 +249,13 @@ def extract_call_refs(args: tuple, kwargs: dict, *, backend: str,
     memoized), ``bytes``/``str`` at or over ``threshold`` (cheap ``len``
     probe), and worker-resident :class:`~.backends.blobstore.RemoteValue`
     results — the fuel of continuation chains, which ship as a ~500 B ref
-    plus peer-fetch hints instead of the multi-MB value. Other values travel
-    inline (no speculative pickling on the small-arg fast path); a
-    ``RemoteValue`` *nested* inside a container is converted during the
-    shipping pickle by ``_ShippingPickler.reducer_override``.
+    plus peer-fetch hints instead of the multi-MB value. The items of a
+    top-level list or tuple are addressed one by one the same way (a flat
+    parameter list ships each large leaf once per worker, raw, and never
+    inside the task blob). Other values travel inline (no speculative
+    pickling on the small-arg fast path); a ``RemoteValue`` *nested*
+    deeper is converted during the shipping pickle by
+    ``_ShippingPickler.reducer_override``.
     """
     from .backends import blobstore
     if threshold is None:
@@ -276,8 +279,16 @@ def extract_call_refs(args: tuple, kwargs: dict, *, backend: str,
             return blobstore.PayloadRef(digest)
         return val
 
-    args = tuple(convert(v, f"<arg{i}>") for i, v in enumerate(args))
-    kwargs = {k: convert(v, f"<kwarg:{k}>") for k, v in kwargs.items()}
+    def convert_top(val, name):
+        if type(val) in (list, tuple):
+            items = [convert(v, f"{name}[{i}]") for i, v in enumerate(val)]
+            if any(a is not b for a, b in zip(items, val)):
+                return type(val)(items)
+            return val
+        return convert(val, name)
+
+    args = tuple(convert_top(v, f"<arg{i}>") for i, v in enumerate(args))
+    kwargs = {k: convert_top(v, f"<kwarg:{k}>") for k, v in kwargs.items()}
     return args, kwargs, sources
 
 

@@ -198,6 +198,26 @@ def test_large_call_args_are_content_addressed_and_deduped():
     assert transport.wire_stats()["bytes_sent"] < _N * 8 // 10
 
 
+def test_a_list_of_large_args_ships_leaf_by_leaf():
+    """The items of a top-level list argument are content-addressed one by
+    one: the task frame stays small, each large leaf rides a put once a
+    worker, and a second call with the same list sends none of it."""
+    backend = _plan(workers=1)
+    flat = [np.full(_N, float(k)) for k in range(3)] + [np.ones(4)]
+    want = sum(float(a.sum()) for a in flat)
+    wid = backend.worker_pids()[0]
+    before = backend.put_bytes().get(wid, 0)
+    transport.reset_wire_stats()
+    assert future(lambda xs: sum(float(a.sum()) for a in xs),
+                  flat).value(timeout=WAIT) == want
+    first = transport.wire_stats()["bytes_sent"]
+    assert backend.put_bytes()[wid] - before >= 3 * _N * 8
+    assert first - (backend.put_bytes()[wid] - before) < _N * 8 // 10
+    transport.reset_wire_stats()
+    assert future(lambda xs: len(xs), flat).value(timeout=WAIT) == 4
+    assert transport.wire_stats()["bytes_sent"] < _N * 8 // 10
+
+
 def test_remote_results_off_restores_inline_results():
     _plan(workers=2, remote_results=False)
     f = future(_big)
@@ -533,6 +553,85 @@ def test_gc_spares_shared_digest_until_last_reference_dies():
     del f2, rv2
     gc.collect()
     _wait(lambda: not backend.locations(digest), what="GC eviction")
+
+
+def test_stale_release_spares_a_copy_made_after_it(tmp_path, monkeypatch):
+    """Fault F4: a released digest's ``evict`` that reaches the holder
+    after the holder stored a new result with the same digest must not
+    drop the new copy, which the driver records as held. The evict frame
+    is held back at the driver until the new result is in (the order a
+    busy worker's reader can see), then sent; the chain on the new
+    result must still run on the holder without the 1 MiB from the
+    driver's store."""
+    import gc
+
+    from repro_torch.core.backends import cluster as cluster_mod
+    backend = _plan(workers=1)
+    f1 = future(_big, 44.25)
+    digest = _remote_value_of(f1).digest
+    f1.value()                       # a copy in DRIVER_STORE to backfill from
+    pidfile, release = str(tmp_path / "pid"), str(tmp_path / "go")
+
+    def again(_p=pidfile, _r=release):
+        import os as _os
+        import time as _time
+        with open(_p, "w") as fh:
+            fh.write(str(_os.getpid()))
+        while not _os.path.exists(_r):
+            _time.sleep(0.005)
+        return np.arange(1 << 17, dtype=np.float64) + 44.25
+
+    f2 = future(again)
+    _wait(lambda: os.path.exists(pidfile), what="second producer running")
+    held, real = [], cluster_mod.send_frame
+
+    def holding_evict(sock, frame, lock=None):
+        if frame[0] == "evict" and frame[1] == digest:
+            held.append((sock, frame, lock))
+            return 0
+        return real(sock, frame, lock)
+
+    monkeypatch.setattr(cluster_mod, "send_frame", holding_evict)
+    del f1
+    gc.collect()
+    _wait(lambda: held, what="the release's evict frame")
+    open(release, "w").close()
+    rv2 = _remote_value_of(f2)
+    assert rv2.digest == digest and backend.locations(digest)
+    for sock, frame, lock in held:   # the late evict reaches the worker
+        real(sock, frame, lock)
+    transport.reset_wire_stats()
+    chain = f2.then(lambda a: (os.getpid(), float(a.sum())))
+    pid, total = chain.value(timeout=WAIT)
+    wire = transport.wire_stats()
+    assert total == float(_big(44.25).sum())
+    assert pid == int(open(pidfile).read())
+    assert wire["bytes_sent"] < _N * 8 // 10, wire
+    # the new copy's own release empties the driver's report counts
+    del f2, rv2, chain
+    gc.collect()
+    _wait(lambda: not backend.locations(digest), what="the second release")
+    assert all(not w.reports for w in list(backend._all))
+
+
+def test_report_counts_empty_after_the_release_in_the_f4_order():
+    """The holder's side of fault F4, in the order above: a result stored
+    and reported, the same digest stored and reported again, then the
+    first release's evict (n=1) keeps the copy and one count, and the
+    second release's evict (n=1) drops it and leaves the map empty."""
+    from repro_torch.core.backends.blobstore import BlobStore
+    from repro_torch.core.backends.cluster_worker import HeldReports
+    store = BlobStore()
+    reports = HeldReports(store)
+    digest, blob = b"d" * 16, b"x" * 64
+    reports.put(digest, blob)
+    reports.put(digest, blob)
+    assert not reports.evict(digest, 1)
+    assert digest in store and reports.counts == {digest: 1}
+    assert reports.evict(digest, 1)
+    assert digest not in store and reports.counts == {}
+    reports.count(digest)                     # a stale count, no copy
+    assert not reports.evict(digest, 1) and reports.counts == {}
 
 
 def test_chain_on_gc_candidate_still_resolves():

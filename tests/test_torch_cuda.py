@@ -1079,6 +1079,40 @@ def test_cluster_peer_fetches_a_cuda_result_between_workers(
         rc.shutdown()
 
 
+@pytest.mark.requires_cuda
+def test_cluster_pod_round_on_card_matches_in_process(cuda_device):
+    """One smoke round of a pod of the multi-pod driver in a cluster worker
+    on the card, at S=512 (the mLSTM block's chunkwise form, so both
+    kernels run): they launch in the worker (2 mLSTM and 1 sLSTM layers,
+    2 steps), and its loss and every delta leaf are the same call in this
+    process bit for bit."""
+    import os
+
+    import repro_torch.core as rc
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import pod_round
+    from repro_torch.models import Model
+    from repro_torch.tree import leaves
+
+    cfg = get_arch("xlstm-125m", smoke=True)
+    flat = [p.numpy() for p in leaves(Model(cfg).init(
+        torch.Generator().manual_seed(0), device="cpu"))]
+    args = ("xlstm-125m", True, flat, 0, 1, 2, 2, 2, 512, 1e-3, 0)
+    rc.plan("cluster", workers=1, token=os.urandom(8).hex())
+    try:
+        got = rc.future(pod_round, *args).value(timeout=300)
+    finally:
+        rc.shutdown()
+    want = pod_round(*args)
+    assert got["pid"] != os.getpid()
+    assert got["device"] == torch.cuda.get_device_name(0)
+    assert got["launches"] == {"mlstm_scan": 4, "slstm_scan": 2}
+    assert got["loss"] == want["loss"]
+    assert len(got["delta"]) == len(want["delta"]) == len(flat)
+    for a, b in zip(got["delta"], want["delta"]):
+        assert np.array_equal(a, b)
+
+
 # --------------------------------------------------------------------------
 # the build, on any host
 # --------------------------------------------------------------------------

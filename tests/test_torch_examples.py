@@ -1,8 +1,9 @@
 """The port's examples run to their end on the CPU (their own asserts check
 the results: no lost commit, pruning fired, a chain kept on its workers, a
-lost result rebuilt, two tenants served): the Future-API ones, the
-cluster's dataflow, payload-cache and lineage twins, the serving tier's,
-and the qwen2-moe smoke Server."""
+lost result rebuilt, two tenants served, pods trained through a failure,
+a straggler and a resize): the Future-API ones, the cluster's dataflow,
+payload-cache, lineage and fault twins, the serving tier's, and the
+qwen2-moe smoke Server."""
 
 import os
 import pathlib
@@ -26,6 +27,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
                                   "digest-identical; replicas make "
                                   "recovery free"),
     ("multi_tenant_serving_torch.py --tls", "server: per-tenant attribution"),
+    ("cluster_faults_torch.py", "OK: converged through failure, straggler, "
+                                "and resize"),
 ])
 def test_example_runs_on_cpu(name, expect):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -68,7 +68,9 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.core.backends.launchers",
             "repro_torch.core.serving",
             "repro_torch.core.serving.__main__",
-            "repro_torch.optim.compression"} <= set(_port_modules())
+            "repro_torch.optim.compression",
+            "repro_torch.launch",
+            "repro_torch.launch.train"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
@@ -87,6 +89,7 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
        ROOT / "examples" / "payload_cache_torch.py",
        ROOT / "examples" / "lineage_recovery_torch.py",
        ROOT / "examples" / "multi_tenant_serving_torch.py",
+       ROOT / "examples" / "cluster_faults_torch.py",
        ROOT / "tests" / "_torch_cluster_harness.py",
        ROOT / "scripts" / "train_divergence.py",
        ROOT / "scripts" / "profile_torch.py",
@@ -119,6 +122,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.models import Model
     from repro_torch.convert import train_state_from_jax
     from repro_torch.data import Prefetcher
+    from repro_torch.launch.train import pod_round
     from repro_torch.serve import Server
     from repro_torch.train import Trainer, TrainerConfig
 
@@ -133,6 +137,8 @@ def test_entry_points_raise_without_cuda(no_cuda):
                  lambda: train_state_from_jax(None, cfg),
                  lambda: Trainer(cfg, TrainerConfig()),
                  lambda: Prefetcher(cfg, batch=1, seq=8),
+                 lambda: pod_round("xlstm-125m", True, [], 0, 0, 1, 1, 1,
+                                   16, 1e-3, 0),
                  lambda: rc.plan("cuda_async")):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -525,6 +525,45 @@ def test_payload_refs_only_split_large_globals():
     assert set(sources) == {refd["big"].digest, refd["tbig"].digest}
 
 
+def test_call_refs_split_the_large_items_of_a_top_level_list():
+    from repro_torch.core.globals_capture import extract_call_refs
+    small = np.arange(16, dtype=np.float32)
+    big = np.arange(PAYLOAD_REF_THRESHOLD, dtype=np.float32)
+    tbig = torch.arange(PAYLOAD_REF_THRESHOLD, dtype=torch.float32)
+    plain = [small, 3]
+    args, kwargs, sources = extract_call_refs(
+        ([small, big, 3], plain, (tbig,)), {"xs": [big]}, backend="cluster")
+    lst, same, tup = args
+    assert lst[0] is small and lst[2] == 3 and type(lst) is list
+    assert isinstance(lst[1], PayloadRef) and same is plain
+    assert type(tup) is tuple and isinstance(tup[0], PayloadRef)
+    assert kwargs["xs"][0].digest == lst[1].digest
+    assert set(sources) == {lst[1].digest, tup[0].digest}
+    nested = [[big]]                  # only the top level is split
+    args, _, sources = extract_call_refs((nested,), {}, backend="cluster")
+    assert args[0] is nested and not sources
+
+
+def test_large_float_pickles_skip_zlib_and_repetitive_ones_keep_it():
+    """Over ``PROBE_THRESHOLD`` a pickle is zlib'd only when a window from
+    its middle shrinks 4x: float arrays (here a parameter-like tree) ship
+    as plain pickles, a repetitive one still compressed; both round-trip."""
+    rng = np.random.default_rng(0)
+    n = transport.PROBE_THRESHOLD // 4 + 1024
+    floats = {"w": [rng.standard_normal(n // 2, dtype=np.float32) * 0.02,
+                    rng.standard_normal(n // 2, dtype=np.float32)]}
+    blob = transport.encode_payload(floats)
+    assert blob[0] == transport.P_PICKLE
+    got, _ = transport.decode_payload(blob)
+    assert all(np.array_equal(a, b) for a, b in zip(got["w"], floats["w"]))
+    rep = {"toks": ["token-%d" % (i % 100) for i in range(1_500_000)]}
+    assert len(pickle.dumps(rep, pickle.HIGHEST_PROTOCOL)) >= \
+        transport.PROBE_THRESHOLD
+    blob = transport.encode_payload(rep)
+    assert blob[0] == transport.P_ZPICKLE
+    assert transport.decode_payload(blob)[0] == rep
+
+
 # --------------------------------------------------------------------------
 # End to end on processes (test_payload_cache.py:199, :446, :461, :504,
 # :521, :532, and the warm pool)
