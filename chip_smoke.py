@@ -174,9 +174,33 @@ takes it:
       decode-path logits at every step held by the same rule against a
       prefill that cannot drop (capacity factor n_experts), beside the
       assignments the real prefill drops on that prompt.
-Then qwen2-moe is freed and DeepSeekMoE-16B (28 layers, a dense first
-one; 64 routed experts, top-6, 2 shared; 16.38 B fp32 parameters) takes
-it:
+  7a. the multi-device runtime's expert parallelism: (i) right after 3d,
+      the same prefill through ``Model(cfg, mesh=...)`` on a (1, 1)
+      ("data", "model") mesh in this process (NCCL, world size 1; 24
+      flash_attention launches), its logits held against 3d's kernel run
+      by the flip-aware rule with 3d's yardstick; (ii) once qwen2-moe is
+      freed, two spawned processes as the ranks of a (1, 2) mesh on gloo
+      (NCCL refuses two ranks on one GPU) sharing the card, each drawing
+      the tree as 3d does but keeping its 32 of the 64 padded experts
+      (every leaf's integer digest equal to 3d's tree's, its own expert
+      rows), 24 flash_attention launches in each rank's process (pid not
+      this one's, the card's name), the logits held against 3d's by the
+      same rule, the two ranks' logits bit for bit; each rank's prefill ms
+      and peak memory;
+  7b. the GPipe pipeline: Yi-9B at full width cut to 8 of its 48 layers
+      (1.91 B parameters), two spawned stage processes on a (2, 1, 1)
+      ("pod", "data", "model") gloo mesh, 4 layers a stage, B=8, S=512 in
+      4 microbatches, remat "full": against the plain loss, its grads and
+      one AdamW step of the same 8-layer tree in one process (each rank
+      runs it in turn before the pipeline, keeping its stage's part), the
+      pipelined loss within 1e-4, every grad leaf within 1e-3 of its
+      scale, the params after one ``make_pipeline_train_step`` within
+      1e-3 of each leaf's largest where the reference's grad decides the
+      step's sign (elsewhere within the most two first Adam steps can
+      part), 32 flash_attention launches a stage a step, one hand-off each
+      way a microbatch, with its bytes and seconds through the host.
+Then DeepSeekMoE-16B (28 layers, a dense first one; 64 routed experts,
+top-6, 2 shared; 16.38 B fp32 parameters) takes it:
   3e. its prefill at B=1, S=4096 (28 flash_attention launches) held by the
       flip-aware rule, and one decode step at B=4 with every cache holding
       4096 positions (28 decode_attention launches), timed.
@@ -3148,12 +3172,16 @@ def hold_flip_rule(label: str, err, flips: tuple, tol: float,
     check(ok, f"{label}: the flip-aware rule")
 
 
-def moe_prefill_phase(cfg, model, params, tokens, smi: str) -> int:
+def moe_prefill_phase(cfg, model, params, tokens, smi: str,
+                      keep: bool = False):
     """The prefill step at B=1 through the entry point a user calls (one
     flash_attention launch a layer and no other kernel) and its time; then
     the kernel path's logits at every position against the plain path's by
     the flip-aware rule, with the share of assignments dropped by capacity
-    and the 1-ulp yardstick. Returns the flash_attention launches."""
+    and the 1-ulp yardstick. Returns the flash_attention launches; with
+    ``keep`` also the kernel path's run for later checks, on the host:
+    {"logits" (S, V), "decisions" (each MoE layer's), "yardstick" (the
+    flip-aware rule's), "tokens"}."""
     import torch
 
     from repro_torch.models import Model
@@ -3187,6 +3215,7 @@ def moe_prefill_phase(cfg, model, params, tokens, smi: str) -> int:
             got = model.apply(params, batch)[0][0]
         err = err_by_position(got, want)
         got_last = got[-1].clone()
+        kept = got.cpu() if keep else None
         del got
         with RoutingLog() as alt_log:
             alt = plain.apply(one_ulp_moved(params), batch)[0][0]
@@ -3199,9 +3228,9 @@ def moe_prefill_phase(cfg, model, params, tokens, smi: str) -> int:
           f"({capacity(cfg.moe, s)} slots an expert), summed over {n_moe} "
           f"MoE layers: {dropped} of {assigned} ({dropped / assigned:.4f})")
     flips = routing_diff(got_dec, want_dec)
+    yardstick = (*routing_diff(alt_log.layers(n_moe), want_dec), alt_err)
     hold_flip_rule("prefill logits, kernels vs plain", err, flips,
-                   TOL_PREFILL_REL,
-                   (*routing_diff(alt_log.layers(n_moe), want_dec), alt_err))
+                   TOL_PREFILL_REL, yardstick)
     last = want[-1]
     scale = last.abs().max().item()
     top2 = last.topk(2).values
@@ -3213,9 +3242,13 @@ def moe_prefill_phase(cfg, model, params, tokens, smi: str) -> int:
               "the prefill step's first token is the plain path's")
     print(f"peak device memory so far: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    del want, last, err, alt_err, want_log, got_log, alt_log
+    if keep:
+        kept = {"logits": kept, "tokens": tokens.cpu(),
+                "decisions": [tuple(t.cpu() for t in d) for d in got_dec],
+                "yardstick": (*yardstick[:4], yardstick[4].cpu())}
+    del want, last, err, alt_err, want_log, got_log, alt_log, yardstick
     torch.cuda.empty_cache()
-    return n_a
+    return (n_a, kept) if keep else n_a
 
 
 def moe_decode_step(cfg, model, params, smi: str) -> int:
@@ -3365,10 +3398,14 @@ def moe_phases(dev, rng, kernels: dict, smi: str) -> None:
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB allocated")
     tokens = torch.from_numpy(
         rng.integers(0, cfg.vocab_size, size=(1, MOE_S))).to(dev)
-    kernels["flash_attention@qwen2-moe-a2.7b"]["launches"] = \
-        moe_prefill_phase(cfg, model, params, tokens, smi)
+    kernels["flash_attention@qwen2-moe-a2.7b"]["launches"], ref = \
+        moe_prefill_phase(cfg, model, params, tokens, smi, keep=True)
     del tokens
     phase_done("3d")
+
+    # -- 7a(i). the same prefill on a (1, 1) mesh, expert-parallel path ------
+    ref = ep_one_rank_phase(cfg, params, ref)
+    phase_done("7a(i)")
 
     # -- 4d. the Server for qwen2-moe-a2.7b at full width --------------------
     server = Server("qwen2-moe-a2.7b", smoke=False, slots=4, max_new=16,
@@ -3381,12 +3418,19 @@ def moe_phases(dev, rng, kernels: dict, smi: str) -> None:
     hold_long_request_moe(cfg, model, params, long_prompt, replies[6][0])
     phase_done("4d")
 
-    # -- 3e. DeepSeekMoE-16B: free qwen2-moe first ---------------------------
+    # -- 7a(ii), 7b. two ranks on the card: free qwen2-moe first ------------
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     print(f"after qwen2-moe-a2.7b is freed: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    ep_ranks_phase(cfg, ref, smi)
+    del ref
+    phase_done("7a(ii)")
+    pipeline_phase(smi)
+    phase_done("7b")
+
+    # -- 3e. DeepSeekMoE-16B ---------------------------------------------------
     cfg = get_arch("deepseek-moe-16b")
     model = Model(cfg)
     t0 = time.perf_counter()
@@ -3405,6 +3449,476 @@ def moe_phases(dev, rng, kernels: dict, smi: str) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("3e")
+
+
+# --------------------------------------------------------------------------
+# Phases 7a and 7b: the multi-device runtime, two ranks on the one card
+# --------------------------------------------------------------------------
+
+#: the longest the ranks of phase 7a or 7b may take, spawn to exit
+RANKS_WAIT = 240.0
+#: phase 7a: Qwen1.5-MoE-A2.7B's 64 padded experts over 2 ``model`` ranks
+EP_RANKS = 2
+#: phase 7b: Yi-9B cut to PP_LAYERS of its 48 layers (AdamW's state for all
+#: 48, 8.83 B x 16 B, does not fit one card), PP_STAGES stages over ``pod``,
+#: a batch of PP_B x PP_S in PP_MICRO microbatches; each stage launches
+#: flash_attention once a layer a microbatch in the forward and once more
+#: in the backward's recompute (remat "full"): 4 x 4 x 2 = 32 a train step
+PP_STAGES, PP_LAYERS, PP_B, PP_S, PP_MICRO = 2, 8, 8, 512, 4
+PP_LAUNCHES = 2 * PP_MICRO * PP_LAYERS // PP_STAGES
+
+
+def leaf_digests(params) -> dict:
+    """Exact digests of every fp32 leaf's bits, on its device: {path: (2,)
+    int64} for a leaf, (L, E, 2) for a stacked MoE expert leaf (one row an
+    expert). Sums of the int32 words, plain and weighted by position, mod
+    2^64: exact in any order and chunking, so a rank's own experts compare
+    with their rows of the whole tree's digest."""
+    import torch
+
+    from repro_torch.tree import map_with_path
+
+    def words(t):
+        flat = t.reshape(-1).view(torch.int32)
+        out = torch.zeros(2, dtype=torch.int64, device=t.device)
+        for i in range(0, flat.numel(), 1 << 26):
+            w = flat[i:i + (1 << 26)].long()
+            pos = torch.arange(i, i + w.numel(), device=t.device) % 65521 + 1
+            out[0] += w.sum()
+            out[1] += (w * pos).sum()
+        return out
+
+    digests = {}
+
+    def visit(path, t):
+        if re.search(r"/moe/w_(gate|up|down)$", path) and t.ndim == 4:
+            digests[path] = torch.stack([torch.stack([words(t[l, e])
+                                                      for e in range(
+                                                          t.shape[1])])
+                                         for l in range(t.shape[0])])
+        else:
+            digests[path] = words(t)
+
+    map_with_path(visit, params)
+    return digests
+
+
+def _rank_entry(body: str, rank: int, world: int, work: str) -> None:
+    """One rank of ``run_ranks``: a gloo process group on a file store in
+    ``work`` (NCCL refuses two ranks on one GPU), ``body`` run, its result
+    pickled into ``work``."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    with open(os.path.join(work, "job.pkl"), "rb") as f:
+        job = pickle.load(f)
+    if job["device"] == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{work}/store",
+                            rank=rank, world_size=world)
+    try:
+        out = globals()[body](rank, world, job)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    out.update(pid=os.getpid(), rank=rank,
+               device=(torch.cuda.get_device_name(0)
+                       if job["device"] == "cuda" else "cpu"))
+    with open(os.path.join(work, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(body: str, world: int, job: dict) -> list:
+    """``world`` spawned processes running ``body(rank, world, job)`` as
+    ranks of one gloo group; each rank's result. A rank that fails, or
+    ranks still running after RANKS_WAIT, fail the phase."""
+    import multiprocessing
+    import pickle
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        with open(os.path.join(work, "job.pkl"), "wb") as f:
+            pickle.dump(job, f)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_rank_entry, args=(body, r, world, work))
+                 for r in range(world)]
+        # the ranks share one card: each allocator grows its segments in
+        # place rather than keeping freed blocks of fixed segments, which
+        # held 3.6 GB a rank in 7b's AdamW step beside 33.8 GB in use
+        saved = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            for p in procs:
+                p.start()
+        finally:
+            if saved is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = saved
+        deadline = time.monotonic() + RANKS_WAIT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.1))
+        late = [p for p in procs if p.is_alive()]
+        for p in late:
+            p.kill()
+            p.join()
+        check(not late, f"{body}: ranks still running after {RANKS_WAIT} s")
+        codes = [p.exitcode for p in procs]
+        check(codes == [0] * world, f"{body}: the ranks exited {codes}")
+        out = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gb(dev) -> float:
+    import torch
+    return (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else float("nan"))
+
+
+def ep_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 7a's rank: Qwen1.5-MoE-A2.7B on a (1, world) ("data",
+    "model") mesh, its experts split over the ``model`` ranks. The rank
+    draws the tree as one process does, keeping its own experts, and checks
+    every leaf's digest against the whole tree's; then the prefill step
+    (launches, ms) and the logits at every position against the
+    single-process run kept in ``job["ref"]``, and, on rank 0, every other
+    rank's logits bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step
+    dev = torch.device(job["device"])
+    ref = torch.load(job["ref"], mmap=True)
+    mesh = init_device_mesh(dev.type, (1, world),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_arch(job["arch"], smoke=job["smoke"])
+    model = Model(cfg, mesh=mesh)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    _sync(dev)
+    draw_s = time.perf_counter() - t0
+    epp = cfg.moe.e_pad // world
+    differ = []
+    for path, d in leaf_digests(params).items():
+        want = ref["digests"][path]
+        if d.ndim == 3:
+            want = want[:, rank * epp:(rank + 1) * epp]
+        if not torch.equal(d.cpu(), want):
+            differ.append(path)
+    batch = {"tokens": ref["tokens"].to(dev)}
+    prefill = make_prefill_step(model)
+    zero_counts()
+    first = prefill(params, batch)
+    _sync(dev)
+    launches = read_counts()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        prefill(params, batch)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / 2 * 1e3
+    n_moe = sum(kind == "moe" for kind in cfg.layer_pattern)
+    with torch.no_grad(), RoutingLog() as log:
+        logits = model.apply(params, batch)[0][0]
+    flips = routing_diff(log.layers(n_moe),
+                         [tuple(t.to(dev) for t in d)
+                          for d in ref["decisions"]])
+    s = logits.shape[0]
+    err = torch.empty(s)
+    same = True
+    for i in range(0, s, 512):
+        part = logits[i:i + 512]
+        err[i:i + 512] = err_by_position(
+            part, ref["logits"][i:i + 512].to(dev)).cpu()
+        host = part.cpu()
+        for other in range(1, world):     # every rank's logits to rank 0
+            if rank == 0:
+                theirs = torch.empty_like(host)
+                dist.recv(theirs, src=other)
+                same = same and torch.equal(host, theirs)
+            elif rank == other:
+                dist.send(host, dst=0)
+    return {"draw_s": draw_s, "digests_differ": differ,
+            "n_digests": len(ref["digests"]), "launches": launches,
+            "first": int(first), "ms": ms, "err": err, "flips": flips,
+            "same_as_others": same if rank == 0 else None,
+            "peak_gb": _peak_gb(dev), "experts": epp}
+
+
+def ep_one_rank_phase(cfg, params, ref: dict) -> dict:
+    """Phase 7a(i), right after 3d on its tree: the same model on a (1, 1)
+    mesh in this process (world size 1; NCCL on the card), one
+    flash_attention launch a layer and its logits held against the
+    single-process run ``ref`` (``moe_prefill_phase(..., keep=True)``) by
+    the flip-aware rule. Returns ``ref`` with the tree's leaf digests, for
+    7a(ii) (:func:`ep_ranks_phase`): after the tree is freed, EP_RANKS
+    spawned ranks on a (1, EP_RANKS) mesh (``ep_rank``), each drawing the
+    tree with e_pad / EP_RANKS experts of its own, held the same way."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step
+    dev = params["embed"]["table"].device
+    n_a = len(cfg.layer_pattern)
+    n_moe = sum(kind == "moe" for kind in cfg.layer_pattern)
+    want_launches = n_a if dev.type == "cuda" else 0
+    mesh = make_host_mesh(device_type=dev.type)
+    try:
+        print(f"7a(i): (1, 1) mesh on one rank, backend "
+              f"{dist.get_backend()}, world size {dist.get_world_size()}")
+        one = Model(cfg, mesh=mesh)
+        batch = {"tokens": ref["tokens"].to(dev)}
+        zero_counts()
+        make_prefill_step(one)(params, batch)
+        _sync(dev)
+        launches = read_counts()
+        with torch.no_grad(), RoutingLog() as log:
+            logits = one.apply(params, batch)[0][0]
+        err = torch.cat([err_by_position(logits[i:i + 512],
+                                         ref["logits"][i:i + 512].to(dev))
+                         for i in range(0, logits.shape[0], 512)])
+        del logits
+    finally:
+        dist.destroy_process_group()
+    check(launches == dict.fromkeys(launches, 0)
+          | {"flash_attention": want_launches},
+          f"7a(i) launches {launches}, flash_attention {want_launches}x "
+          f"wanted")
+    hold_flip_rule("7a(i) prefill logits on a (1, 1) mesh vs one process",
+                   err.cpu(), routing_diff(
+                       [tuple(t.cpu() for t in d) for d in log.layers(n_moe)],
+                       ref["decisions"]),
+                   TOL_PREFILL_REL, ref["yardstick"])
+    ref["digests"] = {k: v.cpu() for k, v in leaf_digests(params).items()}
+    return ref
+
+
+def ep_ranks_phase(cfg, ref: dict, smi: str, device: str = "cuda",
+                   smoke: bool = False) -> None:
+    """Phase 7a(ii): see :func:`ep_one_rank_phase`. No model may be left
+    on the card when it runs."""
+    import tempfile
+
+    import torch
+    n_a = len(cfg.layer_pattern)
+    want = n_a if device == "cuda" else 0
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "ref.pt")
+        t0 = time.perf_counter()
+        torch.save(ref, path)
+        print(f"7a(ii): the single-process run written for the ranks "
+              f"({os.path.getsize(path) / 1e9:.2f} GB) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        results = run_ranks("ep_rank", EP_RANKS, {
+            "device": device, "arch": cfg.name, "smoke": smoke,
+            "ref": path})
+    for r in results:
+        print(f"7a rank {r['rank']} (pid {r['pid']}, {r['device']}): "
+              f"{r['experts']} of {cfg.moe.e_pad} experts, drawn in "
+              f"{r['draw_s']:.1f} s, {r['n_digests'] - len(r['digests_differ'])}"
+              f" of {r['n_digests']} leaf digests equal the single-process "
+              f"tree's; launches {r['launches']}; prefill (B,S)=(1, "
+              f"{len(r['err'])}) {r['ms']:.1f} ms beside the other rank, "
+              f"{len(r['err']) / r['ms'] * 1e3:.0f} tokens/s; peak memory "
+              f"{r['peak_gb']:.2f} GB ({smi})")
+        check(r["pid"] != os.getpid(), "each rank runs in its own process")
+        check(device != "cuda" or r["device"] == torch.cuda.get_device_name(0),
+              "each rank runs on the card")
+        check(not r["digests_differ"],
+              f"rank {r['rank']}'s leaves differ from the single-process "
+              f"tree: {r['digests_differ'][:5]}")
+        check(r["launches"] == dict.fromkeys(r["launches"], 0)
+              | {"flash_attention": want},
+              f"rank {r['rank']} must launch flash_attention {want}x")
+        hold_flip_rule(f"7a rank {r['rank']} prefill logits vs one process",
+                       r["err"], r["flips"], TOL_PREFILL_REL,
+                       ref["yardstick"])
+    check(len({r["first"] for r in results}) == 1,
+          "the ranks' first tokens agree")
+    print(f"7a: the ranks' logits bit for bit: "
+          f"{results[0]['same_as_others']}")
+    check(results[0]["same_as_others"] is True,
+          "every rank's logits equal rank 0's bit for bit")
+
+
+def pp_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 7b's rank: stage ``rank`` of a (world, 1, 1) ("pod", "data",
+    "model") pipeline. First the reference, one rank at a time: the whole
+    cut model drawn as one process draws it, the plain ``Model.loss`` and
+    its grads on the whole batch and one AdamW step, of which this stage's
+    leaves are kept on the host; then the pipelined loss and grads
+    (``value_and_grad``) and one ``make_pipeline_train_step``."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synth_batch
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import init_train_state
+    from repro_torch.train.pipeline import (local_stage_params,
+                                            make_pipeline_loss,
+                                            make_pipeline_train_step)
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import leaves, map_with_path, tree_map
+    dev = torch.device(job["device"])
+    mesh = init_device_mesh(dev.type, (world, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    cfg = dataclasses.replace(get_arch(job["arch"], smoke=job["smoke"]),
+                              n_layers=job["layers"])
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(
+        cfg, batch=job["batch"], seq=job["seq"], seed=SEED,
+        step=0).items()}
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=TRAIN_STEPS)
+    host = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    for turn in range(world):
+        if turn == rank:
+            t0 = time.perf_counter()
+            model = Model(cfg)
+            params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                                device=dev)
+            (loss, _), grads = value_and_grad(model, params, batch)
+            new, _, _ = adamw.apply_updates(opt, params, grads,
+                                            adamw.init_state(params))
+            ref = {"loss": loss.item(),
+                   "grads": host(local_stage_params(grads, mesh)),
+                   "params": host(local_stage_params(new, mesh))}
+            local = tree_map(lambda t: t.clone(),
+                             local_stage_params(params, mesh))
+            del params, grads, new
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            ref_s = time.perf_counter() - t0
+        dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    loss_fn = make_pipeline_loss(model, mesh, microbatches=job["micro"],
+                                 remat="full")
+    loss, grads = loss_fn.value_and_grad(local, batch)
+    names = []
+    map_with_path(lambda path, _: names.append(path), grads)
+    grad_err = [((g - r.to(dev)).abs().max().item()
+                 / max(r.abs().max().item(), 1e-30), path)
+                for path, g, r in zip(names, leaves(grads),
+                                      leaves(ref["grads"]))]
+    del grads
+    step = make_pipeline_train_step(model, opt, mesh,
+                                    microbatches=job["micro"], remat="full")
+    zero_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    state, metrics = step(init_train_state(local), batch)
+    _sync(dev)
+    step_s = time.perf_counter() - t0
+    launches = read_counts()
+    h = step.loss_fn.handoff
+    param_err = []
+    for path, p_new, p_old, r_new, r_g in zip(
+            names, leaves(state.params), leaves(local),
+            leaves(ref["params"]), leaves(ref["grads"])):
+        r_new, r_g = r_new.to(dev), r_g.to(dev)
+        diff = (p_new - r_new).abs()
+        scale = r_new.abs().max().item()
+        decided = r_g.abs() > TOL_TRAIN_GRAD_REL * r_g.abs().max()
+        undecided = diff[~decided]
+        reach = 2 * opt.lr * (1 + opt.weight_decay
+                              * p_old.abs().max().item())
+        param_err.append((
+            (diff[decided].max().item() if decided.any() else 0.0) / scale,
+            path, (undecided.max().item() if undecided.numel() else 0.0)
+            / reach, int((undecided > TOL_TRAIN_GRAD_REL * scale).sum())))
+    return {"stage": mesh.get_local_rank("pod"), "ref_s": ref_s,
+            "ref_loss": ref["loss"], "loss": loss.item(),
+            "step_loss": metrics["loss"].item(),
+            "grad_norm": metrics["grad_norm"].item(),
+            "grad_err": grad_err, "param_err": param_err,
+            "launches": launches, "step_s": step_s,
+            "handoff": (h.sent, h.received, h.host_bytes, h.copy_s),
+            "reduce_s": step.loss_fn.reduce_s,
+            "peak_gb": _peak_gb(dev)}
+
+
+def pipeline_phase(smi: str, device: str = "cuda", smoke: bool = False,
+                   layers: int = PP_LAYERS, b: int = PP_B, s: int = PP_S
+                   ) -> None:
+    """Phase 7b: Yi-9B at full width cut to PP_LAYERS layers, trained as
+    PP_STAGES GPipe stages over ``pod`` in spawned ranks (``pp_rank``):
+    the loss within TOL_TRAIN_LOSS_REL of the reference's, every grad leaf
+    within TOL_TRAIN_GRAD_REL of its scale, the params after one AdamW step
+    within the same bound wherever the reference's grad exceeds the grad
+    limit (where it does not, the grads' rounding can flip the first
+    step's sign, so those elements are held to the most two steps can move
+    apart, 2 lr (1 + wd max|p|)), and PP_LAUNCHES flash_attention launches
+    a stage a train step."""
+    import torch
+    if device == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        print(f"7b: {free / 1e9:.2f} of {total / 1e9:.2f} GB free on the "
+              f"card before the stages start")
+    results = run_ranks("pp_rank", PP_STAGES, {
+        "device": device, "arch": "yi-9b", "smoke": smoke,
+        "layers": layers, "batch": b, "seq": s, "micro": PP_MICRO})
+    want = PP_LAUNCHES if device == "cuda" else 0
+    for r in sorted(results, key=lambda r: r["stage"]):
+        rel = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+        g = max(r["grad_err"])
+        pe = max(r["param_err"])
+        reach = max(x[2] for x in r["param_err"])
+        flipped = sum(x[3] for x in r["param_err"])
+        sent, received, nbytes, copy_s = r["handoff"]
+        print(f"7b stage {r['stage']} (pid {r['pid']}, {r['device']}): "
+              f"reference in {r['ref_s']:.1f} s; loss {r['loss']:.6f} vs "
+              f"{r['ref_loss']:.6f}, relative {rel:.3e} (tolerance "
+              f"{TOL_TRAIN_LOSS_REL}); grads, {len(r['grad_err'])} leaves: "
+              f"worst {g[1]} {g[0]:.3e} of its scale (tolerance "
+              f"{TOL_TRAIN_GRAD_REL}); params after the step: worst decided "
+              f"{pe[1]} {pe[0]:.3e}, undecided at most {reach:.3f} of 2 lr "
+              f"(1 + wd max|p|), {flipped} undecided elements past "
+              f"{TOL_TRAIN_GRAD_REL} of the scale; train step "
+              f"{r['step_s']:.2f} s ({b * s / r['step_s']:.0f} "
+              f"tokens/s), launches {r['launches']}; hand-off {sent} sent, "
+              f"{received} received, {nbytes / 1e6:.1f} MB through the host "
+              f"in {copy_s:.3f} s; the replicated leaves' grads summed over "
+              f"pod in {r['reduce_s']:.2f} s; peak memory "
+              f"{r['peak_gb']:.2f} GB ({smi})")
+        check(r["pid"] != os.getpid(), "each stage runs in its own process")
+        check(device != "cuda" or r["device"] == torch.cuda.get_device_name(0),
+              "each stage runs on the card")
+        check(np.isfinite(r["loss"]) and rel <= TOL_TRAIN_LOSS_REL,
+              f"stage {r['stage']}: the pipelined loss")
+        check(g[0] <= TOL_TRAIN_GRAD_REL, f"stage {r['stage']}: the grads")
+        check(pe[0] <= TOL_TRAIN_GRAD_REL and reach <= 1.0,
+              f"stage {r['stage']}: the params after the step")
+        check(r["launches"] == dict.fromkeys(r["launches"], 0)
+              | {"flash_attention": want},
+              f"stage {r['stage']} must launch flash_attention {want}x a "
+              f"train step")
+        check(sent == received == PP_MICRO,
+              f"stage {r['stage']}: one hand-off each way a microbatch")
+    for key in ("loss", "step_loss"):
+        check(len({r[key] for r in results}) == 1,
+              f"every stage's {key} is the same")
 
 
 def yi34_phases(dev, rng, kernels: dict, smi: str) -> None:

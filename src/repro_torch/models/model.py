@@ -22,6 +22,11 @@ repeats over views ``p[r]``. ``Model.loss`` is the training loss;
 frontend (HuBERT) the batch carries ``frames`` (B, S, frontend_dim) in
 place of tokens; such an encoder-only config (``decode_capable=False``)
 has no decode step.
+
+Under a ``DeviceMesh`` (``Model(cfg, mesh=mesh)``) whose ``model`` axis
+divides the padded expert count, the ``moe`` blocks take the manual
+expert-parallel path (``moe.moe_apply_manual``) and ``Model.init`` keeps
+only this rank's experts; every other leaf stays whole on each rank.
 """
 
 from __future__ import annotations
@@ -134,12 +139,22 @@ def _norm(cfg: ArchConfig, p: Params, x):
     return L.rmsnorm(p, x, cfg.norm_eps)
 
 
+def expert_parallel(cfg: ArchConfig, mesh) -> bool:
+    """Whether ``moe`` blocks run ``moe_apply_manual`` on ``mesh``: it has
+    a ``model`` axis and the padded experts divide over it."""
+    return (mesh is not None and cfg.moe is not None
+            and "model" in (mesh.mesh_dim_names or ())
+            and cfg.moe.e_pad % mesh["model"].size() == 0)
+
+
 def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
-                positions=None, cache=None, kernel_impl: str = "hopper"):
+                positions=None, cache=None, kernel_impl: str = "hopper",
+                mesh=None):
     """Returns (x_out, aux, new_cache); aux is the MoE block's
     load-balancing loss, the float 0.0 for the other kinds (nothing to
     launch on a decode step). ``positions`` (the batch's, or None) reach
-    the attention blocks' RoPE."""
+    the attention blocks' RoPE. Under ``mesh`` a ``moe`` block runs the
+    expert-parallel path when :func:`expert_parallel` allows it."""
     aux = 0.0
     if kind in _ATTN_KINDS:
         h, new_cache = L.attention_apply(
@@ -151,7 +166,9 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
             cache=cache, norm_eps=cfg.norm_eps, kernel_impl=kernel_impl)
         x = x + h
         h2 = _norm(cfg, p["ln2"], x)
-        if kind == "moe":
+        if kind == "moe" and expert_parallel(cfg, mesh):
+            y, aux = MOE.moe_apply_manual(p["moe"], h2, cfg.moe, mesh)
+        elif kind == "moe":
             y, aux = MOE.moe_apply(p["moe"], h2, cfg.moe)
         else:
             y = L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
@@ -237,10 +254,12 @@ def _maybe_remat(fn, remat: str):
 class Model:
     """``kernel_impl="hopper"`` runs each kernel of the path on a CUDA
     tensor and its plain version on a CPU tensor; ``"plain"`` runs the
-    plain versions on any device. ``remat`` is one of ``REMATS``."""
+    plain versions on any device. ``remat`` is one of ``REMATS``. With a
+    ``mesh`` bound, ``moe`` blocks use the manual expert-parallel path
+    (see :func:`expert_parallel`)."""
 
     def __init__(self, cfg: ArchConfig, kernel_impl: str = "hopper",
-                 remat: str = "none"):
+                 remat: str = "none", mesh=None):
         if kernel_impl not in KERNEL_IMPLS:
             raise ValueError(f"kernel_impl must be one of {KERNEL_IMPLS}")
         if remat not in REMATS:
@@ -252,6 +271,7 @@ class Model:
         self.cfg = cfg
         self.kernel_impl = kernel_impl
         self.remat = remat
+        self.mesh = mesh
 
     # -- params ---------------------------------------------------------------
 
@@ -259,7 +279,9 @@ class Model:
              dtype=torch.float32) -> Params:
         """Random parameters drawn from ``generator`` (on its own device)
         and placed on ``device`` (the GPU by default; ``"meta"`` gives the
-        shapes alone)."""
+        shapes alone). Under expert parallelism every leaf is drawn as in
+        one process, a unit at a time, and each ``moe`` block keeps only
+        this rank's experts (``moe.local_experts``)."""
         cfg = self.cfg
         dev = resolve_device(device)
         norm_init = (L.layernorm_init if cfg.norm == "layernorm"
@@ -280,11 +302,22 @@ class Model:
         p["stages"] = []
         for pattern, repeat in cfg.stages:
             def unit(_pattern=pattern):
-                return {f"b{bi}": block_init(generator, cfg, kind, dtype, dev)
-                        for bi, kind in enumerate(_pattern)}
+                return self._local_unit(
+                    {f"b{bi}": block_init(generator, cfg, kind, dtype, dev)
+                     for bi, kind in enumerate(_pattern)}, _pattern)
             p["stages"].append(unit() if repeat == 1
                                else _stack_filled(unit, repeat))
         return p
+
+    def _local_unit(self, unit: Params, pattern) -> Params:
+        """A stage's unit as drawn, with each ``moe`` block's experts cut
+        to this rank's under expert parallelism."""
+        if not expert_parallel(self.cfg, self.mesh):
+            return unit
+        return {key: (dict(blk, moe=MOE.local_experts(
+                    blk["moe"], self.cfg.moe, self.mesh))
+                      if kind == "moe" else blk)
+                for (key, blk), kind in zip(unit.items(), pattern)}
 
     # -- forward --------------------------------------------------------------
 
@@ -332,7 +365,8 @@ class Model:
                 for bi, kind in enumerate(_pattern):
                     xx, a, _ = block_apply(lp[f"b{bi}"], xx, cfg, kind,
                                            positions=positions,
-                                           kernel_impl=self.kernel_impl)
+                                           kernel_impl=self.kernel_impl,
+                                           mesh=self.mesh)
                     acc = acc + a
                 return xx, acc
             for lp in _repeats(sp, repeat):
@@ -395,7 +429,7 @@ class Model:
                 for bi, kind in enumerate(pattern):
                     x, _, nc[f"b{bi}"] = block_apply(
                         lp[f"b{bi}"], x, cfg, kind, cache=lc[f"b{bi}"],
-                        kernel_impl=self.kernel_impl)
+                        kernel_impl=self.kernel_impl, mesh=self.mesh)
                 if repeat > 1:
                     _write_back(lc, nc)
             new_caches.append(nc if repeat == 1 else sc)

@@ -7,9 +7,10 @@ Covers qwen2-moe (4 shared + 60 routed, top-4) and deepseek-moe (2 shared +
 of ``e_pad`` experts; the router has ``n_experts`` columns, so the pad
 experts are never routed. Routing, dispatch, the expert products and the
 combine are functions of their own that :func:`moe_apply` looks up at each
-call, so a caller can wrap one to record the decisions or time it. The
-reference's expert-parallel ``moe_apply_manual`` comes with the
-multi-device substrate.
+call, so a caller can wrap one to record the decisions or time it.
+:func:`moe_apply_manual` is the reference's expert-parallel path: each rank
+of the mesh's ``model`` axis holds only its own experts and the outputs are
+summed over the axis.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import collectives as C
 from .layers import Params, _he, mlp_apply, mlp_init
 
 
@@ -158,3 +160,68 @@ def moe_apply(p: Params, x: torch.Tensor, dims: MoEDims
     if "shared" in p:
         y = y + mlp_apply(p["shared"], x, "swiglu")
     return y, r.aux
+
+
+# --------------------------------------------------------------------------
+# Manual expert parallelism over the mesh's ``model`` axis
+# --------------------------------------------------------------------------
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def experts_per_rank(dims: MoEDims, mesh) -> int:
+    """``e_pad / tp``, the experts each ``model`` rank holds."""
+    tp = mesh["model"].size()
+    if dims.e_pad % tp:
+        raise ValueError(f"{dims.e_pad} experts do not divide over "
+                         f"model={tp}: pad them (n_experts_padded)")
+    return dims.e_pad // tp
+
+
+def local_experts(p: Params, dims: MoEDims, mesh) -> Params:
+    """``p`` (one MoE block's leaves) with the expert leaves cut to this
+    rank's ``e_pad / tp`` experts, each a copy, so the rest can be
+    freed."""
+    epp = experts_per_rank(dims, mesh)
+    r = mesh.get_local_rank("model")
+    return {k: (v[r * epp:(r + 1) * epp].clone()
+                if k in EXPERT_LEAVES else v) for k, v in p.items()}
+
+
+def moe_apply_manual(p: Params, x: torch.Tensor, dims: MoEDims, mesh, *,
+                     dp_axis: str = "data",
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism with explicit communication. ``p`` holds this
+    rank's experts only (``local_experts``); ``x`` (B_loc, S, d) is this
+    ``data`` rank's rows, the same on every ``model`` rank.
+
+    Every ``model`` rank routes all its local tokens (the routing is the
+    same on each), scatters the assignments to its own experts into an
+    (e_pad / tp, C, d) buffer, runs them and mixes their outputs back with
+    the gates; the partial outputs are summed over ``model``. The capacity
+    C = cf * B_loc * S * k / E counts the rank's tokens together, with the
+    slots taken in order over the flattened (B_loc * S, k) assignments (so
+    :func:`route` runs on the tokens as one row). ``aux`` is averaged over
+    ``dp_axis``. The experts run in ``x``'s type, the gate mix and the sum
+    in fp32, as in the reference; ``y`` returns in ``x``'s type."""
+    b, s, d = x.shape
+    epp = experts_per_rank(dims, mesh)
+    m_idx = mesh.get_local_rank("model")
+    mp = mesh.get_group("model")
+    r = route(p["router"], x.reshape(1, b * s, d), dims)
+    aux = C.pmean(r.aux, mesh.get_group(dp_axis))
+
+    # the assignments that belong to this rank's experts; the gates and
+    # the tokens enter its partial sum through pcopy, so their gradients
+    # gather every rank's share
+    local_e = r.gate_idx - m_idx * epp
+    mine = (local_e >= 0) & (local_e < epp) & r.within
+    r_loc = r._replace(gate_idx=local_e.clamp(0, epp - 1), within=mine,
+                       gate_vals=C.pcopy(r.gate_vals, mp))
+    xl = C.pcopy(x, mp).reshape(1, b * s, d)
+    w = {k: p[k].to(x.dtype) for k in EXPERT_LEAVES}
+    y = combine(experts(w, dispatch(xl, r_loc, epp)), r_loc, torch.float32)
+    y = C.psum(y, mp).reshape(b, s, d).to(x.dtype)
+    if "shared" in p:
+        y = y + mlp_apply(p["shared"], x, "swiglu")
+    return y, aux

@@ -60,10 +60,14 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params: Any, grads: Any,
-                  state: dict) -> tuple[Any, dict, dict]:
-    """One AdamW step. Returns (new_params, new_state, metrics)."""
+                  state: dict, *, grad_norm: "torch.Tensor | None" = None
+                  ) -> tuple[Any, dict, dict]:
+    """One AdamW step. Returns (new_params, new_state, metrics). The
+    clipping norm is ``global_norm(grads)`` unless ``grad_norm`` is given:
+    a caller that holds only part of the gradients (a pipeline stage) passes
+    the norm over all of them."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = (torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
              if cfg.grad_clip else torch.ones((), device=gnorm.device))
     lr = schedule(cfg, step)

@@ -1147,3 +1147,66 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("mlstm_scan")
+
+
+# --------------------------------------------------------------------------
+# on the card: the multi-device runtime, two gloo ranks sharing it
+# --------------------------------------------------------------------------
+
+@pytest.mark.requires_cuda
+def test_moe_manual_on_two_ranks_on_card(cuda_device):
+    """``moe_apply_manual`` with 8 experts over 2 ``model`` ranks, each in
+    its own process, against ``moe_apply`` in this one (a capacity that
+    drops nothing), within the fp32 attention tolerance."""
+    from _torch_dist_harness import card_moe_params, run
+
+    from repro_torch.models.moe import MoEDims, moe_apply
+    dims = MoEDims(d_model=64, n_experts=8, top_k=2, d_expert=32,
+                   n_shared=2, capacity_factor=16.0)
+    x = np.random.default_rng(0).standard_normal((1, 64, 64)).astype(
+        np.float32)
+    ranks = run("moe_card", 2, {"device": "cuda", "seed": 0, "x": x,
+                                "dims": dims.__dict__})
+    y, aux = moe_apply(card_moe_params(dims, 0), t(x, cuda_device), dims)
+    assert len({r["pid"] for r in ranks} | {os.getpid()}) == 3
+    for r in ranks:
+        np.testing.assert_allclose(r["y"], n(y), **ATTN_TOL["float32"])
+        np.testing.assert_allclose(r["aux"], float(aux), rtol=1e-6)
+
+
+@pytest.mark.requires_cuda
+def test_pipeline_on_two_stages_on_card(cuda_device):
+    """Two GPipe stages of a narrow yi-9b (head dim 64, 4 layers), each in
+    its own process on the card: the loss and every grad leaf against the
+    plain ``Model.loss`` in this process, and the flash launches a stage (2
+    layers x 2 microbatches, forward and remat's recompute)."""
+    from _torch_dist_harness import card_pipeline_cfg, run
+
+    from repro_torch.data import synth_batch
+    from repro_torch.models import Model
+    from repro_torch.train.step import value_and_grad
+    from repro_torch.tree import map_with_path
+    cfg = card_pipeline_cfg()
+    batch = synth_batch(cfg, batch=4, seq=128, seed=0, step=0)
+    ranks = sorted(run("pipeline_card", 2, {
+        "device": "cuda", "seed": 0, "batch": batch, "microbatches": 2}),
+        key=lambda r: r["stage"])
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device=cuda_device)
+    (loss, _), grads = value_and_grad(
+        model, params, {k: t(v, cuda_device) for k, v in batch.items()})
+    want = {}
+    map_with_path(lambda p, g: want.__setitem__(p, n(g)), grads)
+    got = [{} for _ in ranks]
+    for r, flat in zip(ranks, got):
+        map_with_path(lambda p, g, flat=flat: flat.__setitem__(p, g),
+                      r["grads"])
+        np.testing.assert_allclose(r["loss"], float(loss), rtol=1e-5)
+        assert r["launches"] == 2 * 2 * 2
+        assert r["handoff"][:2] == (2, 2)
+    for path, w in want.items():
+        g = (np.concatenate([f[path] for f in got]).reshape(w.shape)
+             if path.startswith("stages/") else got[0][path])
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=path)

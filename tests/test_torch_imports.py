@@ -70,7 +70,11 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.core.serving.__main__",
             "repro_torch.optim.compression",
             "repro_torch.launch",
-            "repro_torch.launch.train"} <= set(_port_modules())
+            "repro_torch.launch.train",
+            "repro_torch.launch.mesh",
+            "repro_torch.models.sharding",
+            "repro_torch.train.pipeline",
+            "repro_torch.collectives"} <= set(_port_modules())
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
@@ -91,13 +95,15 @@ _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
        ROOT / "examples" / "multi_tenant_serving_torch.py",
        ROOT / "examples" / "cluster_faults_torch.py",
        ROOT / "tests" / "_torch_cluster_harness.py",
+       ROOT / "tests" / "_torch_dist_harness.py",
        ROOT / "scripts" / "train_divergence.py",
        ROOT / "scripts" / "profile_torch.py",
        ROOT / "scripts" / "flash_builds.py",
        ROOT / "scripts" / "flash_phases.py",
        ROOT / "scripts" / "flash_knobs.py",
        ROOT / "scripts" / "pipe_bench.py",
-       ROOT / "scripts" / "ship_costs.py"]),
+       ROOT / "scripts" / "ship_costs.py",
+       ROOT / "scripts" / "multidevice_phase.py"]),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_file_of_the_port_imports_repro_or_jax(path):
     assert not _IMPORT_REPRO.findall(path.read_text())
@@ -122,6 +128,7 @@ def test_entry_points_raise_without_cuda(no_cuda):
     from repro_torch.models import Model
     from repro_torch.convert import train_state_from_jax
     from repro_torch.data import Prefetcher
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
     from repro_torch.launch.train import pod_round
     from repro_torch.serve import Server
     from repro_torch.train import Trainer, TrainerConfig
@@ -139,7 +146,9 @@ def test_entry_points_raise_without_cuda(no_cuda):
                  lambda: Prefetcher(cfg, batch=1, seq=8),
                  lambda: pod_round("xlstm-125m", True, [], 0, 0, 1, 1, 1,
                                    16, 1e-3, 0),
-                 lambda: rc.plan("cuda_async")):
+                 lambda: rc.plan("cuda_async"),
+                 lambda: make_production_mesh(),
+                 lambda: make_host_mesh()):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
