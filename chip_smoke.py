@@ -3,6 +3,7 @@
 the port starts on the card).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phases "3c'" 8    # the build, then these alone
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit, then the build of every CUDA kernel
@@ -148,6 +149,17 @@ parameters, random from the seed on the card) takes it:
   3c. the prefill step at B=1, S=4096 (48 flash_attention launches and no
       other kernel), held against the plain path within 1e-4 of the
       largest logit, beside the 1-ulp yardstick;
+  3c'. the dry run's analyzer (``repro_torch.launch.op_analysis``) held
+      against that prefill on the card: the plain prefill traced on
+      ``meta`` tensors of the same shapes, then run on the card under the
+      analyzer and ``FlopCounterMode``: the card's FLOPs equal the meta
+      trace's and ``FlopCounterMode``'s, its HBM bytes and ops counted the
+      meta trace's, its argument bytes the tree's and the tokens'; the
+      card's peak (``max_memory_allocated`` after a reset) within
+      ``DRYRUN_PEAK_TOL`` of the trace's; the trace's roofline time no
+      more than the plain prefill's measured time; and ``model_flops`` of
+      the prefill over 3c's kernel prefill time as a share of the fp32
+      peak, with the card's name and power limit;
   4c. the decode Server for yi-9b answering 6 short requests and one
       128-token request; one decode step at B=4 with every cache holding
       4096 positions (48 decode_attention launches) with its device time,
@@ -262,7 +274,15 @@ S=1500 frames. An encoder has no decode step, so it has no Server phase:
       q, k and v), held against its widened-kernel forward and against
       the plain path within HUBERT_BF16_YARDSTICKS of the 1-ulp bf16
       yardstick of the same run.
-Each phase prints its seconds. The line before the last is a JSON object
+Last, with no model on the card:
+  8. the dry-run CLI (``python -m repro_torch.launch.dryrun``) on this
+     machine's host, its entry point called in this process, for
+     ``DRYRUN_CELLS`` (yi-9b x train_4k on the 512-rank mesh and
+     xlstm-125m x decode_32k on the 256-rank one): each record
+     ``status: "ok"`` with every count positive.
+Each phase prints its seconds. ``--phases`` runs the phases it names
+(``ALONE``: 3c' with 3c's tree and timing before it, and 8) alone after
+phase 1, and prints no result. The line before the last is a JSON object
 with one entry per kernel, and one more for each attention kernel at
 Yi-9B's, qwen2-moe's, Yi-34B's (bf16) and HuBERT-XLarge's (fp32 and bf16)
 shapes; the last line is ``{"ok": true, "device": {...}}``.
@@ -373,6 +393,13 @@ HUBERT_BF16_YARDSTICKS = 2.0
 # that yardstick stays near 5e-5 while a zeroed or 10% scaled mLSTM
 # backward moves the curve by 1e-2 and 2e-3 (scripts/train_divergence.py)
 TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 8, 512, 3e-5, 4
+# phase 3c': the card's peak memory against the dry-run trace's, as a
+# share of the trace's peak plus bytes (the caching allocator's rounding,
+# library workspaces and temporaries inside a kernel, which no op shows)
+DRYRUN_PEAK_TOL = (0.02, 256 * 2 ** 20)
+# phase 8: the dry-run cells run on the host
+DRYRUN_CELLS = (("yi-9b", "train_4k", "multi"),
+                ("xlstm-125m", "decode_32k", "single"))
 TOL_TRAIN_LOSS_REL = 1e-4
 TOL_TRAIN_GRAD_REL = 1e-3
 TOL_TRAIN_CURVE_REL = 1e-3
@@ -445,7 +472,12 @@ def bound(flops: float, nbytes: float,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def main() -> int:
+def main(argv: list | None = None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", nargs="+", choices=sorted(ALONE),
+                    help="run only these phases after phase 1 (the build)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -478,6 +510,10 @@ def main() -> int:
     print(f"build: {len(reports)} kernels in "
           f"{time.perf_counter() - t0:.1f} s")
     phase_done("1")
+    if args.phases:
+        for name in args.phases:
+            ALONE[name](smi)
+        return 0
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -691,6 +727,12 @@ def main() -> int:
     print(f"after minicpm3-4b is freed: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     hubert_phases(dev, rng, kernels, smi)
+
+    # -- 8. the dry run on this host, no model on the card -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_cells_phase()
+    phase_done("8")
 
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -3035,9 +3077,14 @@ def gqa_phases(dev, rng, kernels: dict, smi: str) -> None:
           f"the tolerance)")
     print(f"peak device memory so far: "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
-    del got, want, alt, first, tokens
+    del got, want, alt, first
     torch.cuda.empty_cache()
     phase_done("3c")
+
+    # -- 3c'. the dry run's analyzer against this prefill on the card --------
+    dryrun_prefill_phase(cfg, params, tokens, ms, smi)
+    del tokens
+    phase_done("3c'")
 
     # -- 4c. the Server for yi-9b at full width ------------------------------
     server = Server("yi-9b", smoke=False, slots=4, max_new=16, device=dev,
@@ -3115,6 +3162,185 @@ class RoutingLog:
         return [tuple(torch.cat(parts, 1)
                       for parts in zip(*self.calls[i::n_layers]))
                 for i in range(n_layers)]
+
+
+def dryrun_prefill_phase(cfg, params, tokens, kernel_ms: float,
+                         smi: str) -> None:
+    """Phase 3c': the plain prefill traced on ``meta`` tensors, then run on
+    the card under the same analyzer; see the module docstring."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.specs import model_flops
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step
+    from repro_torch.tree import leaves, tree_map
+
+    plain = make_prefill_step(Model(cfg, kernel_impl="plain"))
+    batch = {"tokens": tokens}
+    real_bytes = sum(t.numel() * t.element_size()
+                     for t in leaves((params, batch)))
+
+    # (i) the trace on meta tensors, one device, no mesh; warm, as the
+    # card's run follows 3c's: an untraced call fills the per-device
+    # caches first (the RoPE table)
+    t0 = time.perf_counter()
+    meta = OpCounter()
+    meta_args = tree_map(lambda t: torch.empty_like(t, device="meta"),
+                         (params, batch))
+    plain(*meta_args)
+    with meta:
+        meta_arg_bytes = meta.hold(meta_args)
+        plain(*meta_args)
+    trace_s = time.perf_counter() - t0
+    mr = meta.roof
+
+    # (ii) the same prefill on the card under the analyzer and FLOP counter
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - real_bytes
+    torch.cuda.reset_peak_memory_stats()
+    card = OpCounter()
+    counter = FlopCounterMode(display=False)
+    with counter, card:
+        card_arg_bytes = card.hold((params, batch))
+        plain(params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    cr = card.roof
+    print(f"dry-run analyzer, yi-9b plain prefill (B,S)={tuple(tokens.shape)}"
+          f": meta trace {trace_s:.1f} s, {mr.ops} ops; FLOPs meta "
+          f"{mr.flops:.6e}, card {cr.flops:.6e}, FlopCounterMode "
+          f"{counter.get_total_flops():.6e}; HBM bytes meta "
+          f"{mr.hbm_bytes:.6e}, card {cr.hbm_bytes:.6e}; argument bytes "
+          f"meta {meta_arg_bytes}, card {card_arg_bytes}, tensors "
+          f"{real_bytes}")
+    check(mr.flops == cr.flops == counter.get_total_flops(),
+          "the card's FLOPs equal the meta trace's and FlopCounterMode's")
+    check(mr.ops == cr.ops, "the card runs the meta trace's ops")
+    check(mr.hbm_bytes == cr.hbm_bytes,
+          "the card's HBM bytes equal the meta trace's")
+    check(meta_arg_bytes == card_arg_bytes == real_bytes,
+          "the argument bytes are the tree's and the tokens'")
+
+    # (iii) the peak, against the trace's
+    share, extra = DRYRUN_PEAK_TOL
+    gap = peak - mr.peak_bytes
+    print(f"  peak: card {peak / 1e9:.4f} GB (max_memory_allocated less "
+          f"{resident / 1e6:.1f} MB resident before the run), trace "
+          f"{mr.peak_bytes / 1e9:.4f} GB, card - trace {gap / 1e6:.1f} MB "
+          f"(limit {share} of the trace + {extra / 2 ** 20:.0f} MiB)")
+    check(abs(gap) <= share * mr.peak_bytes + extra,
+          "the card's peak is within DRYRUN_PEAK_TOL of the trace's")
+
+    # (iv) no bound exceeds a measurement
+    plain_ms = cuda_ms(lambda: plain(params, batch), 1)
+    secs = mr.seconds(1)
+    bound_ms = max(secs["compute_s"], secs["memory_s"]) * 1e3
+    print(f"  roofline of the plain prefill: compute {secs['compute_s']:.4f}"
+          f" s ({ {k: f'{v:.4e}' for k, v in mr.flops_by_dtype.items()} }"
+          f" FLOPs), memory {secs['memory_s']:.4f} s; bound {bound_ms:.1f}"
+          f" ms against the measured plain prefill {plain_ms:.1f} ms "
+          f"({bound_ms / plain_ms:.3f} of it) ({smi})")
+    check(bound_ms <= plain_ms, "the trace's roofline time is no more than "
+          "the measured plain prefill")
+
+    # (v) the model-FLOPs share of 3c's kernel prefill
+    mf = model_flops(cfg, ShapeSpec("prefill_4k", int(tokens.shape[1]),
+                                    int(tokens.shape[0]), "prefill"))
+    rate = mf["model_flops"] / (kernel_ms / 1e3)
+    print(f"  model FLOPs of the prefill {mf['model_flops']:.6e} (dense "
+          f"{mf['dense_flops']:.6e}, attention {mf['attn_flops']:.6e}) "
+          f"over 3c's kernel prefill {kernel_ms:.1f} ms: "
+          f"{rate / 1e12:.2f} TFLOP/s, {rate / PEAK_FP32_FLOPS:.4f} of the "
+          f"fp32 peak ({PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) ({smi})")
+
+
+def dryrun_cells_phase() -> None:
+    """Phase 8: the dry-run CLI's entry point on this host for
+    ``DRYRUN_CELLS``, in this process: a process of its own takes ~20 s
+    to start on the card's host, and its fake process group takes the
+    place of the one phase 7a left."""
+    import tempfile
+
+    from repro_torch.launch import dryrun
+
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            try:
+                dryrun.main(["--arch", arch, "--shape", shape, "--mesh",
+                             mesh, "--out", out])
+            except SystemExit as exc:
+                check(False, f"dry run {arch} x {shape} x {mesh}: exit "
+                      f"{exc.code}")
+            wall = time.perf_counter() - t0
+            path = os.path.join(out, f"{arch}_{shape}_{mesh}.json")
+            with open(path) as f:
+                rec = json.load(f)
+            counts = {k: rec.get(k) for k in (
+                "op_flops_per_device", "op_bytes_per_device",
+                "link_bytes_per_device", "arg_bytes_per_device",
+                "compute_s", "memory_s", "collective_s")}
+            counts["peak_bytes"] = rec["memory_analysis"]["peak_bytes"]
+            print(f"dry run {arch} x {shape} x {mesh} ({rec['chips']} "
+                  f"ranks): {rec['status']} in {rec['total_s']} s ({wall:.1f}"
+                  f" s with the mesh), dominant {rec['dominant']}, "
+                  f"collectives {rec['collectives']}, "
+                  + ", ".join(f"{k} {v:.6g}" for k, v in counts.items()))
+            check(rec["status"] == "ok" and all(
+                v is not None and v > 0 for v in counts.values()),
+                f"the dry run of {arch} x {shape} x {mesh} reads ok with "
+                f"every count positive")
+
+
+def dryrun_prefill_alone(smi: str) -> None:
+    """``--phases "3c'"``: 3c's Yi-9B tree and prompt, drawn as
+    ``gqa_phases`` draws them, its kernel prefill timed, then phase 3c'."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    from repro_torch.train import make_prefill_step
+
+    dev = torch.device("cuda")
+    cfg = get_arch("yi-9b")
+    n_a = sum(kind == "attn" for kind in cfg.layer_pattern)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, size=(1, YI_S))).to(dev)
+    prefill = make_prefill_step(model)
+    counters = kernel_modules()
+    zero_counts()
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    check(read_counts() == dict.fromkeys(counters, 0)
+          | {"flash_attention": n_a},
+          f"prefill must launch flash_attention {n_a}x and nothing else")
+    ms = cuda_ms(lambda: prefill(params, {"tokens": tokens}), 2)
+    print(f"prefill (B,S)={(1, YI_S)}: {ms:.1f} ms with {n_a} "
+          f"flash_attention launches ({smi})")
+    phase_done("3c")
+    dryrun_prefill_phase(cfg, params, tokens, ms, smi)
+    phase_done("3c'")
+    del params, tokens, prefill
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_cells_alone(smi: str) -> None:
+    """``--phases 8``: phase 8."""
+    dryrun_cells_phase()
+    phase_done("8")
+
+
+# the phases ``--phases`` runs alone, each after phase 1 (the build)
+ALONE = {"3c'": dryrun_prefill_alone, "8": dryrun_cells_alone}
 
 
 def routing_diff(got: list, want: list) -> tuple:

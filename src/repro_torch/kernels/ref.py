@@ -107,12 +107,12 @@ def slstm_scan_ref(z, i, f, o, rz, ri, rf, ro):
     b, nh, s, hd = z.shape
     r_all = torch.cat([rz, ri, rf, ro], -1)
     h = c = n = m = z.new_zeros(b, nh, hd)
-    out = torch.empty_like(z)
+    hs = []
     for t in range(s):
         h, c, n, m = slstm_step(h, c, n, m, z[:, :, t], i[:, :, t],
                                 f[:, :, t], o[:, :, t], r_all)
-        out[:, :, t] = h
-    return out
+        hs.append(h)
+    return torch.stack(hs, 2)
 
 
 #: bytes of scores that one block of :func:`flash_attention` may hold, and
@@ -152,7 +152,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     kf, vf = k.to(acc), v.to(acc)
     kpos = torch.arange(skv, device=q.device)[None, :]
     step = flash_row_block(b, h, sq, skv, qg.element_size())
-    out = torch.empty(b, kv, g, sq, v.shape[-1], dtype=acc, device=q.device)
+    outs = []
     for q0 in range(0, sq, step):
         rows = slice(q0, min(q0 + step, sq))
         logits = torch.einsum("bkgqd,bksd->bkgqs", qg[:, :, :, rows],
@@ -167,7 +167,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         probs = torch.softmax(logits.masked_fill(~mask, float("-inf")), -1)
         del logits
         probs = probs.masked_fill(~mask.any(-1, keepdim=True), 0.0)
-        out[:, :, :, rows] = torch.einsum("bkgqs,bksd->bkgqd", probs, vf)
+        outs.append(torch.einsum("bkgqs,bksd->bkgqd", probs, vf))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, 3)
     return out.reshape(b, h, sq, -1).to(q.dtype)
 
 

@@ -17,14 +17,20 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from ..device import resolve_device
 
 
+def production_layout(multi_pod: bool = False) -> tuple:
+    """(shape, axis names) of the production mesh: 16x16 = 256 ranks a
+    pod; 2 pods for the multi-pod layout."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(multi_pod: bool = False, *,
                          device_type: str = "cuda") -> DeviceMesh:
-    """16x16 = 256 ranks a pod; 2 pods for the multi-pod layout. The
-    process group must hold exactly that many ranks. On the GPU unless
-    ``device_type="cpu"``."""
+    """The :func:`production_layout` mesh. The process group must hold
+    exactly that many ranks. On the GPU unless ``device_type="cpu"``."""
     resolve_device(device_type)
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    shape, axes = production_layout(multi_pod)
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..launch import dtensor_rules as DR
 
 Params = dict  # nested dict of tensors
 
@@ -223,19 +224,20 @@ def attention_apply(p: Params, x: torch.Tensor, dims: AttnDims, *,
         q, k = rotate(q, pos[:, None]), rotate(k, pos[:, None])
         ck, cv = cache["k"], cache["v"]
         smax = ck.shape[1]
-        rows = torch.arange(b, device=x.device)
-        k_new, v_new = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
-        if window is not None:
-            slot = (pos % smax).long()
-        else:
+        k_new, v_new = k.to(ck.dtype), v.to(cv.dtype)          # (B,1,KV,D)
+        slot = (pos % smax if window is not None
+                else pos.clamp(max=smax - 1)).long()
+        # a gather and a scatter along the sequence dim, so that a cache
+        # sharded on its batch and head dims (DTensor) stays sharded
+        idx = slot[:, None, None, None].expand(k_new.shape)
+        if window is None:
             # past the end the slot's old contents are written back, so
             # nothing changes and pos never leaves the device
-            slot = pos.clamp(max=smax - 1).long()
-            keep = (pos >= smax)[:, None, None]
-            k_new = torch.where(keep, ck[rows, slot], k_new)
-            v_new = torch.where(keep, cv[rows, slot], v_new)
-        ck[rows, slot] = k_new                                   # in place
-        cv[rows, slot] = v_new
+            keep = (pos >= smax)[:, None, None, None]
+            k_new = torch.where(keep, ck.gather(1, idx), k_new)
+            v_new = torch.where(keep, cv.gather(1, idx), v_new)
+        ck.scatter_(1, idx, k_new)                               # in place
+        cv.scatter_(1, idx, v_new)
         lengths = torch.clamp(pos + 1, max=smax).to(torch.int32)
         # q in its own type: the kernel widens it and returns that type
         out = ops.decode_attention(q[:, 0], ck, cv, lengths,
@@ -246,12 +248,16 @@ def attention_apply(p: Params, x: torch.Tensor, dims: AttnDims, *,
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
         q, k = rotate(q, positions), rotate(k, positions)
+        if kvh > 1:
+            q, k, v = (DR.whole_heads(t) for t in (q, k, v))
         # (B,H,S,D) views of the (B,S,H,D) projections; the output keeps
         # that layout, so the reshape below is free
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=causal,
                                   window=window,
                                   kernel_impl=kernel_impl).transpose(1, 2)
+        if kvh > 1:
+            out = DR.whole_heads_grad(out)
         new_cache = None
     out = out.reshape(b, s, h * hd)
     return out @ p["wo"], new_cache
@@ -321,7 +327,9 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["table"][tokens]
+    """The table's rows at ``tokens``, a negative id counting from the end
+    as in the reference (on DTensors: ``dtensor_rules.lookup``)."""
+    return DR.lookup(p["table"], tokens)
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:

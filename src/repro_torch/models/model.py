@@ -38,6 +38,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from ..device import resolve_device
+from ..launch import dtensor_rules as DR
 from ..kernels.ops import KERNEL_IMPLS
 from ..tree import leaves, tree_map
 from . import layers as L
@@ -75,11 +76,20 @@ def _attn_dims(cfg: ArchConfig) -> L.AttnDims:
 
 
 def _repeats(tree, repeat: int) -> list:
-    """A stage's tree for each repeat: views ``t[r]`` of a stacked stage,
-    the tree itself for an unstacked one."""
+    """A stage's tree for each repeat: views ``t[r]`` of a stacked stage
+    (cut by one ``split``, whose backward is one ``cat``, not a select and
+    a stack-sized zero gradient a repeat), the tree itself for an unstacked
+    one."""
     if repeat == 1:
         return [tree]
-    return [tree_map(lambda t: t[r], tree) for r in range(repeat)]
+
+    def pick(node, r):
+        if isinstance(node, dict):
+            return {k: pick(v, r) for k, v in node.items()}
+        return node[r].squeeze(0)
+
+    pieces = tree_map(lambda t: t.split(1), tree)
+    return [pick(pieces, r) for r in range(repeat)]
 
 
 def _write_back(dst, src) -> None:
@@ -149,12 +159,14 @@ def expert_parallel(cfg: ArchConfig, mesh) -> bool:
 
 def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
                 positions=None, cache=None, kernel_impl: str = "hopper",
-                mesh=None):
+                mesh=None, layout=None):
     """Returns (x_out, aux, new_cache); aux is the MoE block's
     load-balancing loss, the float 0.0 for the other kinds (nothing to
     launch on a decode step). ``positions`` (the batch's, or None) reach
     the attention blocks' RoPE. Under ``mesh`` a ``moe`` block runs the
-    expert-parallel path when :func:`expert_parallel` allows it."""
+    expert-parallel path when :func:`expert_parallel` allows it. Over
+    DTensors, each residual sum is pinned to ``layout``
+    (``launch/dtensor_rules.py``: :func:`pin`)."""
     aux = 0.0
     if kind in _ATTN_KINDS:
         h, new_cache = L.attention_apply(
@@ -164,7 +176,7 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
             causal=cfg.causal,
             window=cfg.attn_window if kind == "lattn" else None,
             cache=cache, norm_eps=cfg.norm_eps, kernel_impl=kernel_impl)
-        x = x + h
+        x = DR.pin(x + h, layout)
         h2 = _norm(cfg, p["ln2"], x)
         if kind == "moe" and expert_parallel(cfg, mesh):
             y, aux = MOE.moe_apply_manual(p["moe"], h2, cfg.moe, mesh)
@@ -172,32 +184,32 @@ def block_apply(p: Params, x, cfg: ArchConfig, kind: str, *,
             y, aux = MOE.moe_apply(p["moe"], h2, cfg.moe)
         else:
             y = L.mlp_apply(p["mlp"], h2, cfg.mlp_kind)
-        return x + y, aux, new_cache
+        return DR.pin(x + y, layout), aux, new_cache
     if kind == "mla":
         h, new_cache = MLA.mla_apply(
             p["attn"], _norm(cfg, p["ln1"], x), cfg.mla,
             positions=positions, cache=cache, rope_theta=cfg.rope_theta,
             norm_eps=cfg.norm_eps)
-        x = x + h
+        x = DR.pin(x + h, layout)
         y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
-        return x + y, aux, new_cache
+        return DR.pin(x + y, layout), aux, new_cache
     if kind == "rglru":
         h, new_cache = RG.rglru_block_apply(
             p["rec"], _norm(cfg, p["ln1"], x), cfg.rglru, cache=cache,
             kernel_impl=kernel_impl)
-        x = x + h
+        x = DR.pin(x + h, layout)
         y = L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], x), cfg.mlp_kind)
-        return x + y, aux, new_cache
+        return DR.pin(x + y, layout), aux, new_cache
     if kind == "mlstm":
         h, new_cache = XL.mlstm_block_apply(
             p["cell"], _norm(cfg, p["ln1"], x), cfg.xlstm, cache=cache,
             kernel_impl=kernel_impl)
-        return x + h, aux, new_cache
+        return DR.pin(x + h, layout), aux, new_cache
     if kind == "slstm":
         h, new_cache = XL.slstm_block_apply(p["cell"], x, cfg.xlstm,
                                             cache=cache,
                                             kernel_impl=kernel_impl)
-        return x + h, aux, new_cache
+        return DR.pin(x + h, layout), aux, new_cache
     raise _unsupported(kind)
 
 
@@ -332,17 +344,19 @@ class Model:
             logits = torch.tanh(logits / c) * c
         return logits
 
-    def _frontend(self, params: Params, batch: dict) -> torch.Tensor:
+    def _frontend(self, params: Params, batch: dict,
+                  layout=None) -> torch.Tensor:
         """Token embeddings; under the vision stub the batch's
         ``vision_embeds`` (B, P, d) replace the first P of them. Under the
         audio stub the batch's ``frames`` (B, S, frontend_dim), taken in
         the parameters' type, are projected to d and the conv positional
-        encoding is added."""
+        encoding is added. Over DTensors the lookup is pinned to
+        ``layout`` at once (``launch/dtensor_rules.py``)."""
         if self.cfg.frontend == "audio":
             fp = params["frontend"]
             x = batch["frames"].to(fp["proj"].dtype) @ fp["proj"]
             return x + L.convpos_apply(fp["convpos"], x)
-        x = L.embed(params["embed"], batch["tokens"])
+        x = DR.pin(L.embed(params["embed"], batch["tokens"]), layout)
         if self.cfg.frontend == "vision" and "vision_embeds" in batch:
             ve = batch["vision_embeds"].to(x.dtype)
             x = torch.cat([ve, x[:, ve.shape[1]:]], 1)
@@ -356,7 +370,8 @@ class Model:
         (3,B,S) under M-RoPE), when given, are where the attention blocks
         apply RoPE."""
         cfg = self.cfg
-        x = self._frontend(params, batch)
+        layout = DR.layout_of(batch.get("tokens", batch.get("frames")))
+        x = DR.pin(self._frontend(params, batch, layout), layout)
         positions = batch.get("positions")
         aux = x.new_zeros((), dtype=torch.float32)
         for (pattern, repeat), sp in zip(cfg.stages, params["stages"]):
@@ -366,7 +381,7 @@ class Model:
                     xx, a, _ = block_apply(lp[f"b{bi}"], xx, cfg, kind,
                                            positions=positions,
                                            kernel_impl=self.kernel_impl,
-                                           mesh=self.mesh)
+                                           mesh=self.mesh, layout=layout)
                     acc = acc + a
                 return xx, acc
             for lp in _repeats(sp, repeat):
@@ -381,7 +396,7 @@ class Model:
         logits, aux = self.apply(params, batch)
         labels = batch["labels"]
         logp = torch.log_softmax(logits, -1)
-        nll = -logp.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+        nll = DR.label_nll(logp, labels.clamp_min(0).long())
         mask = (labels >= 0).float()
         ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
         return ce + aux, {"ce": ce, "aux": aux}
@@ -420,7 +435,8 @@ class Model:
         encoder-only config raises (:func:`check_decode_capable`)."""
         cfg = self.cfg
         check_decode_capable(cfg)
-        x = L.embed(params["embed"], tokens)
+        layout = DR.layout_of(tokens)
+        x = DR.pin(L.embed(params["embed"], tokens), layout)
         new_caches = []
         for (pattern, repeat), sp, sc in zip(cfg.stages, params["stages"],
                                              cache):
@@ -429,7 +445,8 @@ class Model:
                 for bi, kind in enumerate(pattern):
                     x, _, nc[f"b{bi}"] = block_apply(
                         lp[f"b{bi}"], x, cfg, kind, cache=lc[f"b{bi}"],
-                        kernel_impl=self.kernel_impl, mesh=self.mesh)
+                        kernel_impl=self.kernel_impl, mesh=self.mesh,
+                        layout=layout)
                 if repeat > 1:
                     _write_back(lc, nc)
             new_caches.append(nc if repeat == 1 else sc)

@@ -20,8 +20,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .. import collectives as C
+from ..launch import dtensor_rules as DR
 from .layers import Params, _he, mlp_apply, mlp_init
 
 
@@ -203,7 +205,12 @@ def moe_apply_manual(p: Params, x: torch.Tensor, dims: MoEDims, mesh, *,
     slots taken in order over the flattened (B_loc * S, k) assignments (so
     :func:`route` runs on the tokens as one row). ``aux`` is averaged over
     ``dp_axis``. The experts run in ``x``'s type, the gate mix and the sum
-    in fp32, as in the reference; ``y`` returns in ``x``'s type."""
+    in fp32, as in the reference; ``y`` returns in ``x``'s type.
+
+    On DTensors it runs on each rank's local shards
+    (``dtensor_rules.moe_apply_manual``)."""
+    if isinstance(x, DTensor):
+        return DR.moe_apply_manual(p, x, dims, mesh, dp_axis=dp_axis)
     b, s, d = x.shape
     epp = experts_per_rank(dims, mesh)
     m_idx = mesh.get_local_rank("model")

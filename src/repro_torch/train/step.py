@@ -15,6 +15,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..launch import dtensor_rules as DR
 from ..models.model import Model
 from ..optim import adamw
 from ..tree import leaves, tree_map
@@ -35,28 +36,42 @@ def value_and_grad(model: Model, params, batch: dict):
     return (loss.detach(), metrics), grads
 
 
+def _split(x: torch.Tensor, microbatches: int) -> torch.Tensor:
+    """(B, ...) -> (M, B/M, ...); M-RoPE positions (3, B, S) are split on
+    axis 1, to (M, 3, B/M, S)."""
+    if x.ndim == 3 and x.shape[0] == 3:
+        return x.reshape(3, microbatches, -1, *x.shape[2:]).transpose(0, 1)
+    return x.reshape(microbatches, x.shape[0] // microbatches, *x.shape[1:])
+
+
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig, *,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1,
+                    grad_specs: Any = None) -> Callable:
     """With ``microbatches`` > 1 the batch is split on axis 0, the grads
     are summed in fp32 and divided, and the metrics are the mean loss as
-    ``ce`` with ``aux`` 0, as in the reference."""
+    ``ce`` with ``aux`` 0, as in the reference. ``grad_specs``: an optional
+    :class:`~repro_torch.models.sharding.Spec` tree the gradients (DTensors)
+    are redistributed to on their mesh, the reference's sharding constraint
+    (ZeRO-1: grads reduce-scattered onto the optimizer-state sharding)."""
 
     def train_step(state: TrainState, batch: dict
                    ) -> tuple[TrainState, dict]:
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(model, state.params,
                                                      batch)
+            grads = DR.constrain(grads, grad_specs)
         else:
-            micro = {k: x.reshape(microbatches, x.shape[0] // microbatches,
-                                  *x.shape[1:]) for k, x in batch.items()}
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
+            micro = {k: DR.microbatches(x, microbatches, _split)
+                     for k, x in batch.items()}
+            grads = DR.constrain(tree_map(
+                lambda p: torch.zeros_like(p, dtype=torch.float32),
+                state.params), grad_specs)
             loss = torch.zeros((), device=next(leaves(grads)).device)
             for i in range(microbatches):
                 (l_i, _), g_i = value_and_grad(
                     model, state.params, {k: x[i] for k, x in micro.items()})
                 grads = tree_map(lambda a, g: a + g.to(torch.float32),
-                                 grads, g_i)
+                                 grads, DR.constrain(g_i, grad_specs))
                 loss = loss + l_i
             grads = tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches

@@ -72,9 +72,38 @@ def test_importing_every_module_leaves_jax_out():
             "repro_torch.launch",
             "repro_torch.launch.train",
             "repro_torch.launch.mesh",
+            "repro_torch.launch.specs",
+            "repro_torch.launch.op_analysis",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.dtensor_rules",
             "repro_torch.models.sharding",
             "repro_torch.train.pipeline",
             "repro_torch.collectives"} <= set(_port_modules())
+
+
+def test_dryrun_help_leaves_jax_out():
+    """``python -m repro_torch.launch.dryrun --help`` runs and imports no
+    JAX module and nothing of the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--help"], env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0 and "--arch" in proc.stdout, proc.stderr
+    code = ("import runpy, sys\n"
+            "sys.argv = ['dryrun', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch.launch.dryrun',\n"
+            "                     run_name='__main__')\n"
+            "except SystemExit as exc:\n"
+            "    assert exc.code == 0\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "             or m == 'repro' or m.startswith('repro.'))\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 _IMPORT_REPRO = re.compile(r"^\s*(import\s+repro\b(?!_torch)|"
