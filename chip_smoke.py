@@ -4,6 +4,7 @@ the port starts on the card).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phases "3c'" 8    # the build, then these alone
+    python3 chip_smoke.py --phases 5          # the build, xLSTM training
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. the card's name and power limit, then the build of every CUDA kernel
@@ -13,7 +14,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      against the stated tolerance, times and bounds; for the mLSTM also its
      launch geometry (column tile, CTAs, waves, shared memory), for the
      sLSTM its cluster geometry, its time a step and that of one chain
-     alone;
+     alone; the sLSTM backward kernel at the train shape (B=8, S=512):
+     the training forward's h bit for bit the store-free forward's, each
+     of the eight grads against the plain backward and against autograd of
+     the plain version in fp64 within SLSTM_BWD_YARDSTICKS times the fp32
+     recompute's error (printed beside), its geometry, ms and bound;
   3. the prefill step at full width through the entry points a user calls,
      with the launch counts zeroed just before and read just after (10
      mLSTM and 2 sLSTM launches), held against the same model on the plain
@@ -23,15 +28,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      long request's first token and its logits are held against the
      prefill step on the same prompt;
   5. xLSTM-125M training at full width (B=8, S=512, fp32, remat "none"):
-     one train step's loss and every grad leaf with the kernels (their
-     backward a recompute through the plain versions) against the plain
-     path from the same params and batch, with the launch counts read after
-     the forward (10 mLSTM, 2 sLSTM) and after the backward (none); the
+     one train step's loss and every grad leaf with the kernels (the
+     sLSTM's backward its backward kernel, the mLSTM's a recompute through
+     its plain version) against the plain path from the same params and
+     batch, with the launch counts read after the forward (10 mLSTM, 2
+     sLSTM) and after the backward (2 sLSTM backward), and no step of the
+     plain sLSTM run (``PlainSlstmCalls``); the
      Trainer for 4 steps under plan("threads") with checkpoints at steps 2
      and 4, its loss curve held against the plain path's and the step-4
      checkpoint restored bit for bit; then the train step's times (forward
      with loss, backward with the optimiser), tokens/s, peak memory and the
-     share of the backward spent recomputing each kernel's plain version;
+     share of the backward in each kernel's backward: the mLSTM's
+     recompute, the sLSTM's backward kernel and the recompute it replaced;
   6. the Future API on the card, with phase 3's params: three prefills
      (B=8, S=2048) as futures under plan("cuda_async"), each with the host
      ms until future() returns, resolved() right then, the ms until
@@ -99,7 +107,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      rounds of 2 local steps at phase 5's B=8, S=512 and lr, int8 + error
      feedback, pod 0's first dispatch killed (exit 43) and re-dispatched;
      each pod round's pid (not the driver's), card and launch counts read
-     in its worker (20 mlstm_scan, 4 slstm_scan), its loss and every delta
+     in its worker (20 mlstm_scan, 4 slstm_scan, 4 sLSTM backward), its
+     loss and every delta
      leaf bit for bit the same ``pod_round`` call in this process (made on
      a thread beside the driver); every leaf with a nonzero delta moved by
      the outer step; the last checkpoint restored bit for bit; every task
@@ -281,7 +290,8 @@ Last, with no model on the card:
      xlstm-125m x decode_32k on the 256-rank one): each record
      ``status: "ok"`` with every count positive.
 Each phase prints its seconds. ``--phases`` runs the phases it names
-(``ALONE``: 3c' with 3c's tree and timing before it, and 8) alone after
+(``ALONE``: 3c' with 3c's tree and timing before it, 5 with phase 3's
+tree before it, and 8) alone after
 phase 1, and prints no result. The line before the last is a JSON object
 with one entry per kernel, and one more for each attention kernel at
 Yi-9B's, qwen2-moe's, Yi-34B's (bf16) and HuBERT-XLarge's (fp32 and bf16)
@@ -393,6 +403,16 @@ HUBERT_BF16_YARDSTICKS = 2.0
 # that yardstick stays near 5e-5 while a zeroed or 10% scaled mLSTM
 # backward moves the curve by 1e-2 and 2e-3 (scripts/train_divergence.py)
 TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 8, 512, 3e-5, 4
+# the sLSTM backward kernel (phase 2, at the train shape): each of the
+# eight gradients' largest error, against autograd of the plain version in
+# fp64 and against the plain backward on the kernel's own saved states,
+# over that gradient's largest fp64 value, is at most this many times the
+# fp32 recompute's error of the first kind (autograd of the plain version
+# in fp32, the backward the kernel replaces; at least one fp32 ulp). The
+# two fp32 backwards sum in other orders, through 512 steps, so their
+# errors are alike in size; a dropped adjoint or a tie sent one way moves
+# a gradient by far more than ten times
+SLSTM_BWD_YARDSTICKS = 10
 # phase 3c': the card's peak memory against the dry-run trace's, as a
 # share of the trace's peak plus bytes (the caching allocator's rounding,
 # library workspaces and temporaries inside a kernel, which no op shows)
@@ -410,7 +430,8 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-_last_mark = [time.perf_counter()]
+_started = time.perf_counter()
+_last_mark = [_started]
 
 
 def phase_done(name: str) -> None:
@@ -599,6 +620,7 @@ def main(argv: list | None = None) -> int:
     print(f"  slstm_scan, one chain at HD=16 (latency of a step alone): "
           f"{ms_one:.4f} ms a launch, {ms_one * 1e3 / S:.4f} us a step")
     del zs, rs, out, ref, err, one
+    slstm_backward_case(dev, kernels, NH, HD, smi)
     for kr in kernels.values():
         print(f"  {kr['name']}: kernel {kr['ms']:.3f} ms, plain "
               f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.3f} ms "
@@ -638,6 +660,7 @@ def main(argv: list | None = None) -> int:
           f"{(got - want).abs().max().item():.3e}, relative {rel:.3e} "
           f"(tolerance {TOL_PREFILL_REL}) {'ok' if ok else 'FAIL'}")
     check(ok, "prefill with the kernels disagrees with the plain path")
+    kernels["slstm_scan_backward"]["launches"] = 0   # phase 5 sets it
     print("kernels: " + json.dumps([{"name": n, "launches": kr["launches"]}
                                     for n, kr in kernels.items()]))
     del got, want
@@ -660,7 +683,7 @@ def main(argv: list | None = None) -> int:
     phase_done("4")
 
     # -- 5. xLSTM-125M training at full width --------------------------------
-    training_phase(dev, cfg, params, smi)
+    training_phase(dev, cfg, params, smi, kernels)
     phase_done("5")
 
     # -- 6. the Future API on the card ---------------------------------------
@@ -734,6 +757,8 @@ def main(argv: list | None = None) -> int:
     dryrun_cells_phase()
     phase_done("8")
 
+    print(f"chip_smoke: {time.perf_counter() - _started:.1f} s in all, "
+          f"the build included (limit 1200 s)")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -902,7 +927,126 @@ def mlstm_b_i_scales(cfg, names) -> dict:
             and kinds[int(name.split("/")[2][1:])] == "mlstm"}
 
 
-def training_phase(dev, cfg, params, smi: str) -> None:
+SLSTM_GRADS = ("z", "i", "f", "o", "r_z", "r_i", "r_f", "r_o")
+
+
+def slstm_backward_case(dev, kernels: dict, nh: int, hd: int,
+                        smi: str) -> None:
+    """Phase 2's sLSTM backward at the train shape (B=8, S=512): the
+    training forward's h against the store-free forward's, bit for bit;
+    the backward kernel's eight grads against the plain backward on the
+    kernel's own saved states and against autograd of the plain version in
+    fp64, within SLSTM_BWD_YARDSTICKS times the fp32 recompute's error
+    (printed beside); the kernel's ms, its bound and launch geometry, the
+    whole backward's (the kernel and the dR product) and the plain
+    backward's ms."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import slstm_scan as SK
+
+    b, s = TRAIN_B, TRAIN_S
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    args = [rand(b, nh, s, hd) for _ in range(4)] + [
+        rand(nh, hd, hd, scale=hd ** -0.5) for _ in range(4)]
+    rs = args[4:]
+    grad_h = rand(b, nh, s, hd)
+    geo = SK.launch_geometry(b, nh, hd)
+    print(f"slstm_scan backward (B,NH,S,HD)={(b, nh, s, hd)}: the forward's "
+          f"geometry, clusters of {geo.cl} CTAs x {geo.threads} threads, "
+          f"{geo.rb} batch rows a cluster, {geo.n_clusters} clusters, at "
+          f"most {SK.backward_resident_clusters(geo)} backward clusters "
+          f"resident")
+    with torch.no_grad():
+        h, states = SK._launch_train(*args)
+        same = torch.equal(h, SK._launch(*args))
+    print(f"  training forward's h against the store-free forward's: "
+          f"{'bit for bit' if same else 'DIFFERENT'}")
+    check(same, "the training forward's h is the store-free forward's")
+    got = SK._launch_backward(h, states, *rs, grad_h)
+    torch.cuda.synchronize()
+    plain = SK.plain_backward(h, states, *rs, grad_h)
+    wide = [a.double().requires_grad_(True) for a in args]
+    want = [g.float() for g in torch.autograd.grad(
+        SK.plain(*wide), wide, grad_h.double())]
+    fresh = [a.clone().requires_grad_(True) for a in args]
+    yard = torch.autograd.grad(SK.plain(*fresh), fresh, grad_h)
+    del wide, fresh
+    max_abs = 0.0
+    for name, g, p, w, y in zip(SLSTM_GRADS, got, plain, want, yard):
+        scale = max(w.abs().max().item(), 1e-30)
+        e_y = (y - w).abs().max().item() / scale
+        limit = SLSTM_BWD_YARDSTICKS * max(e_y, 2.0 ** -23)
+        e_w = (g - w).abs().max().item() / scale
+        e_p = (g - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
+        ok = bool(torch.isfinite(g).all()) and e_w <= limit and e_p <= limit
+        max_abs = max(max_abs, (g - p).abs().max().item())
+        print(f"  d{name}: against fp64 {e_w:.3e}, against the plain "
+              f"backward {e_p:.3e} of the largest {scale:.3e}; yardstick, "
+              f"the fp32 recompute against fp64, {e_y:.3e}; limit {limit:.3e}"
+              f" ({SLSTM_BWD_YARDSTICKS}x) {'ok' if ok else 'FAIL'}")
+        check(ok, f"the sLSTM backward kernel's d{name} is off")
+    del plain, want, yard, got
+    # the kernel's own work: the R^T matvecs (the cell is negligible), its
+    # saved planes, grad_h and R read once, dpre written once; the whole
+    # backward adds the dR products and reads h
+    seq = b * nh * s * hd
+    k_bound = bound(8.0 * seq * hd, 4.0 * (12 * seq + 4 * nh * hd * hd))
+    w_bound = bound(16.0 * seq * hd, 4.0 * (13 * seq + 8 * nh * hd * hd))
+    kernels["slstm_scan_backward"] = dict(
+        name="slstm_scan_backward", route="cuda",
+        source="src/repro_torch/kernels/csrc/slstm_scan.cu",
+        replaces="src/repro/kernels/slstm_scan.py:29",
+        max_abs_err=max_abs,
+        ms=cuda_ms(lambda: SK._backward_kernel(h, states, *rs, grad_h), 10),
+        plain_ms=cuda_ms(lambda: SK.plain_backward(h, states, *rs, grad_h),
+                         1),
+        bound_ms=k_bound[0], bound_by=k_bound[1], library_ms=None)
+    whole = cuda_ms(lambda: SK._launch_backward(h, states, *rs, grad_h), 10)
+    dr_ms = cuda_ms(lambda: ref.slstm_recurrent_grads(h, states[:4]), 10)
+    kr = kernels["slstm_scan_backward"]
+    print(f"  slstm_scan backward kernel: {kr['ms']:.4f} ms a launch, "
+          f"{kr['ms'] * 1e3 / s:.4f} us a step, bound {kr['bound_ms']:.4f} "
+          f"ms ({kr['bound_by']}); with the dR product {whole:.4f} ms (the "
+          f"product alone {dr_ms:.4f} ms), bound {w_bound[0]:.4f} ms "
+          f"({w_bound[1]}); the plain backward {kr['plain_ms']:.2f} ms "
+          f"({smi})")
+    del h, states, args, rs, grad_h
+
+
+class PlainSlstmCalls:
+    """While active, counts the plain sLSTM's work: each step of the
+    plain cell (``ref._slstm_cell``, which every plain sLSTM forward and
+    its autograd recompute runs) and each call of the plain backward."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        from repro_torch.kernels import slstm_scan as SK
+        self.count = 0
+        self._saved = [(ref, "_slstm_cell", ref._slstm_cell),
+                       (ref, "slstm_scan_bwd_ref", ref.slstm_scan_bwd_ref),
+                       (SK, "plain_backward", SK.plain_backward)]
+        for mod, name, fn in self._saved:
+            setattr(mod, name, self._counted(fn))
+        return self
+
+    def _counted(self, fn):
+        def call(*args, **kwargs):
+            self.count += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def training_phase(dev, cfg, params, smi: str,
+                   kernels: "dict | None" = None) -> None:
     import tempfile
 
     import torch
@@ -926,31 +1070,46 @@ def training_phase(dev, cfg, params, smi: str) -> None:
     n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
 
     # one train step with the kernels against the same step on the plain
-    # path: the loss, every grad leaf, the launches forward and backward
+    # path: the loss, every grad leaf, the launches forward and backward,
+    # the plain sLSTM's steps and backward calls
+    def counts():
+        return {"mlstm_scan": MK.launches, "slstm_scan": SK.launches,
+                "slstm_scan_backward": SK.backward_launches}
+
     runs = {}
     for impl in ("hopper", "plain"):
         model = Model(cfg, kernel_impl=impl)
         leafs = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        MK.launches = SK.launches = 0
-        loss, _ = model.loss(leafs, batch)
-        torch.cuda.synchronize()
-        fwd = {"mlstm_scan": MK.launches, "slstm_scan": SK.launches}
-        grads = torch.autograd.grad(loss, list(leaves(leafs)))
-        torch.cuda.synchronize()
-        bwd = {"mlstm_scan": MK.launches - fwd["mlstm_scan"],
-               "slstm_scan": SK.launches - fwd["slstm_scan"]}
-        runs[impl] = (loss.item(), grads, fwd, bwd)
+        MK.launches = SK.launches = SK.backward_launches = 0
+        with PlainSlstmCalls() as plain_calls:
+            loss, _ = model.loss(leafs, batch)
+            torch.cuda.synchronize()
+            fwd = counts()
+            grads = torch.autograd.grad(loss, list(leaves(leafs)))
+            torch.cuda.synchronize()
+        bwd = {k: n - fwd[k] for k, n in counts().items()}
+        runs[impl] = (loss.item(), grads, fwd, bwd, plain_calls.count)
         del leafs, loss
-    k_loss, k_grads, fwd, bwd = runs["hopper"]
-    p_loss, p_grads, p_fwd, _ = runs.pop("plain")
+    k_loss, k_grads, fwd, bwd, k_plain = runs["hopper"]
+    p_loss, p_grads, p_fwd, p_bwd, p_plain = runs.pop("plain")
     print(f"train step (B,S)={(B_, S_)} launches with the kernels: forward "
-          f"{fwd}, backward {bwd}; plain path: forward {p_fwd}")
-    check(fwd == {"mlstm_scan": n_m, "slstm_scan": n_s}
-          and bwd == {"mlstm_scan": 0, "slstm_scan": 0},
+          f"{fwd}, backward {bwd}, plain sLSTM steps and backward calls "
+          f"{k_plain}; plain path: forward {p_fwd}, backward {p_bwd}, plain "
+          f"sLSTM steps and backward calls {p_plain}")
+    check(fwd == {"mlstm_scan": n_m, "slstm_scan": n_s,
+                  "slstm_scan_backward": 0}
+          and bwd == {"mlstm_scan": 0, "slstm_scan": 0,
+                      "slstm_scan_backward": n_s},
           f"a train step must launch mlstm_scan {n_m}x and slstm_scan "
-          f"{n_s}x in the forward and nothing in the backward")
-    check(p_fwd == {"mlstm_scan": 0, "slstm_scan": 0},
+          f"{n_s}x in the forward, the sLSTM backward kernel {n_s}x in the "
+          f"backward and nothing else")
+    check(k_plain == 0, "a hopper train step runs no plain sLSTM")
+    check(p_plain == n_s * S_, "the count of plain sLSTM steps counts")
+    check(p_fwd == p_bwd == dict.fromkeys(p_fwd, 0),
           "the plain path launches no kernel")
+    if kernels is not None:
+        kernels["slstm_scan_backward"]["launches"] = \
+            bwd["slstm_scan_backward"]
     rel = abs(k_loss - p_loss) / abs(p_loss)
     ok = np.isfinite(k_loss) and rel <= TOL_TRAIN_LOSS_REL
     print(f"train step loss, kernels vs plain: {k_loss:.6f} vs {p_loss:.6f}, "
@@ -1012,7 +1171,7 @@ def training_phase(dev, cfg, params, smi: str) -> None:
             if run != impl:
                 table = state.params["embed"]["table"]
                 state.params["embed"] = {"table": table * (1 + 2 ** -23)}
-            MK.launches = SK.launches = 0
+            MK.launches = SK.launches = SK.backward_launches = 0
             t0 = time.perf_counter()
             state, history = trainer.run(state)
             torch.cuda.synchronize()
@@ -1020,10 +1179,12 @@ def training_phase(dev, cfg, params, smi: str) -> None:
             curves[run] = [h["loss"] for h in history]
             print(f"Trainer, {run}: {TRAIN_STEPS} steps in {wall:.2f} s, "
                   f"losses {curves[run]}, launches mlstm_scan "
-                  f"{MK.launches}, slstm_scan {SK.launches}")
+                  f"{MK.launches}, slstm_scan {SK.launches}, its backward "
+                  f"{SK.backward_launches}")
             if run == "hopper":
-                check((MK.launches, SK.launches)
-                      == (TRAIN_STEPS * n_m, TRAIN_STEPS * n_s),
+                check((MK.launches, SK.launches, SK.backward_launches)
+                      == (TRAIN_STEPS * n_m, TRAIN_STEPS * n_s,
+                          TRAIN_STEPS * n_s),
                       "the Trainer's steps launch the kernels")
                 kept = sorted(os.listdir(ckdir))
                 check(kept == ["step_00000002", "step_00000004"],
@@ -1095,8 +1256,11 @@ def training_phase(dev, cfg, params, smi: str) -> None:
               f"{fwd_ms:.1f} ms, backward and optimiser {bwd_ms:.1f} ms; "
               f"peak memory {peak / 1e9:.2f} GB ({smi})")
 
-    # the share of the kernels' backward spent in the recompute through
-    # each plain version, at the train step's shapes
+    # the share of the kernel step's backward spent in each kernel's
+    # backward at the train step's shapes: the mLSTM's recompute through
+    # its plain version, the sLSTM's backward kernel (and, beside it, the
+    # recompute it replaced)
+    from repro_torch.kernels.autograd import recompute
     H, D = cfg.xlstm.n_heads, cfg.xlstm.head_dim
     NH, HD = cfg.xlstm.n_heads, cfg.d_model // cfg.xlstm.n_heads
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -1111,22 +1275,25 @@ def training_phase(dev, cfg, params, smi: str) -> None:
         "slstm_scan": (SK, n_s, [rand(B_, NH, S_, HD) for _ in range(4)]
                        + [rand(NH, HD, HD, scale=HD ** -0.5)
                           for _ in range(4)])}
-    recompute_ms = 0.0
+    step_bwd = times["hopper"][2]
     for name, (mod, count, args) in cases.items():
-        out = getattr(mod, name)(*args)
-        g = torch.randn(out.shape, generator=gen, device=dev)
-        ms = cuda_ms(lambda: torch.autograd.grad(out, args, g,
-                                                 retain_graph=True), 2)
-        recompute_ms += count * ms
-        print(f"  {name} backward (recompute through the plain version and "
-              f"its autograd) at {tuple(args[0].shape)}: {ms:.2f} ms a "
-              f"call, {count} calls a step = {count * ms:.1f} ms, "
-              f"{count * ms / times['hopper'][2]:.3f} of the kernel step's "
-              f"backward and optimiser ({smi})")
-        del out, g, args
-    print(f"  recompute share of the kernel step's backward and optimiser: "
-          f"{recompute_ms / times['hopper'][2]:.3f} "
-          f"({recompute_ms:.1f} of {times['hopper'][2]:.1f} ms)")
+        ways = {"recompute through the plain version and its autograd":
+                lambda: recompute(mod._launch, mod.plain, *args)}
+        if name == "slstm_scan":
+            ways = {"the backward kernel and the dR product":
+                    lambda: mod.slstm_scan(*args), **ways}
+        for way, fn in ways.items():
+            out = fn()
+            g = torch.randn(out.shape, generator=gen, device=dev)
+            ms = cuda_ms(lambda: torch.autograd.grad(out, args, g,
+                                                     retain_graph=True), 2)
+            print(f"  {name} backward, {way}, at {tuple(args[0].shape)}: "
+                  f"{ms:.2f} ms a call, {count} calls a step = "
+                  f"{count * ms:.1f} ms, {count * ms / step_bwd:.3f} of the "
+                  f"kernel step's backward and optimiser ({step_bwd:.1f} ms;"
+                  f" {smi})")
+            del out, g
+        del args
     del state0, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2175,8 +2342,10 @@ def multipod_phase(cfg, params, smi: str) -> None:
     n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
     n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
     # the forward of each local step launches the kernels; the backward
-    # recomputes through the plain versions and launches none
-    want_launches = {"mlstm_scan": steps * n_m, "slstm_scan": steps * n_s}
+    # launches the sLSTM backward kernel and recomputes the mLSTM through
+    # its plain version
+    want_launches = {"mlstm_scan": steps * n_m, "slstm_scan": steps * n_s,
+                     "slstm_scan_backward": steps * n_s}
     card = torch.cuda.get_device_name(0)
     tmp = tempfile.mkdtemp(prefix="chip-smoke-6e-")
     marker = os.path.join(tmp, "pod0-die-once")
@@ -3339,8 +3508,27 @@ def dryrun_cells_alone(smi: str) -> None:
     phase_done("8")
 
 
+def training_alone(smi: str) -> None:
+    """``--phases 5``: phase 3's xLSTM-125M tree, drawn as ``main`` draws
+    it, then phase 5."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import Model
+    dev = torch.device("cuda")
+    cfg = get_arch("xlstm-125m")
+    params = Model(cfg).init(torch.Generator().manual_seed(SEED), device=dev)
+    phase_done("3")
+    training_phase(dev, cfg, params, smi)
+    phase_done("5")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # the phases ``--phases`` runs alone, each after phase 1 (the build)
-ALONE = {"3c'": dryrun_prefill_alone, "8": dryrun_cells_alone}
+ALONE = {"3c'": dryrun_prefill_alone, "5": training_alone,
+         "8": dryrun_cells_alone}
 
 
 def routing_diff(got: list, want: list) -> tuple:

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's serving path on one GPU.
+"""Where the time goes in the PyTorch port's serving and training paths
+on one GPU.
 
     python3 scripts/profile_torch.py [--arch recurrentgemma-9b|yi-9b|yi-34b|
                                              qwen2-moe-a2.7b|minicpm3-4b|
                                              hubert-xlarge]
                                      [--dtype float32|bfloat16]
+    python3 scripts/profile_torch.py --train
 
 Runs an arch at full width with random weights (seed 0) drawn in
 ``--dtype`` (fp32 by default; bf16 for yi-34b, whose 34.4 B parameters
@@ -22,7 +24,12 @@ the kernels that ran, the device's idle share (1 - device / wall), and the
 kernels that took the most device time; for an MoE arch also the device
 time of each part of its MoE layers (router and dispatch, expert products,
 combine, shared MLP), each part's functions wrapped in a profiler range
-for the run. Needs a CUDA device.
+for the run. ``--train`` profiles one xLSTM-125M train step instead, at
+``chip_smoke.py`` phase 5's shape (B=8, S=512, fp32, AdamW): its wall and
+device time, idle share and top kernels, and the device time spent in each
+kernel's recompute through its plain version (the backward of the kernels
+that have no backward kernel), each recompute's backward in a profiler
+range for the run. Needs a CUDA device.
 """
 
 import argparse
@@ -42,15 +49,22 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
+def _kernel_rows(prof) -> list:
+    """(name, count, device us) of each kernel, most time first: kernel
+    rows only, since an operator's row carries its kernels' time too, and
+    a range's row on the device (``moe_ranges``, ``recompute_ranges``)
+    spans its kernels' gaps."""
     from torch.autograd import DeviceType
-    # kernel rows only: an operator's row carries its kernels' time too,
-    # and a range's row on the device (moe_ranges) spans its kernels' gaps
-    rows = sorted(((e.key, e.count, _device_us(e))
+    return sorted(((e.key, e.count, _device_us(e))
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and e.key not in MOE_PARTS.values()),
+                   and e.key not in MOE_PARTS.values()
+                   and not e.key.startswith(RECOMPUTE_RANGE.format(""))),
                   key=lambda r: -r[2])
+
+
+def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
+    rows = _kernel_rows(prof)
     dev_s = sum(r[2] for r in rows) / 1e6
     if dev_s == 0.0:
         print(f"{label}: wall {wall_s / steps * 1e3:.3f} ms per step; "
@@ -65,6 +79,9 @@ def _report(label: str, prof, wall_s: float, steps: int, top: int = 10):
         print(f"  {us / steps / 1e3:9.3f} ms/step {count // steps:6d} "
               f"calls/step  {us / 1e6 / dev_s:6.1%}  {key[:90]}")
 
+
+#: the train step's shape (batch, sequence), chip_smoke.py phase 5's
+TRAIN_SHAPE = (8, 512)
 
 #: full-width prefill shape (batch, sequence) of each arch
 PREFILL = {"xlstm-125m": (8, 2048), "recurrentgemma-9b": (1, 4096),
@@ -104,6 +121,92 @@ def moe_ranges():
             setattr(MOE, fn, f)
 
 
+#: profiler range of a recompute's backward (``autograd._Recompute``),
+#: by the plain version it recomputes
+RECOMPUTE_RANGE = "backward: recompute through {}"
+
+
+@contextlib.contextmanager
+def recompute_ranges():
+    """While active, each recompute's backward runs inside a profiler
+    range named for the plain version it recomputes."""
+    from torch.profiler import record_function
+
+    from repro_torch.kernels.autograd import _Recompute
+    saved = _Recompute.backward
+
+    def backward(ctx, *grads):
+        with record_function(RECOMPUTE_RANGE.format(ctx.plain.__name__)):
+            return saved(ctx, *grads)
+
+    _Recompute.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        _Recompute.backward = staticmethod(saved)
+
+
+def _report_recompute(prof, steps: int, wall_s: float) -> None:
+    """Device time of the kernels launched under each recompute range, a
+    step and as a share of the step's device and wall time."""
+    from torch.autograd import DeviceType
+    dev_us = sum(r[2] for r in _kernel_rows(prof))
+    parts: dict = {}
+    prefix = RECOMPUTE_RANGE.format("")
+    for e in prof.events():
+        if e.name.startswith(prefix) and e.device_type == DeviceType.CPU:
+            parts[e.name] = parts.get(e.name, 0.0) + float(
+                getattr(e, "device_time_total", 0.0))
+    if not parts:
+        print("  no recompute ran")
+    for name, us in sorted(parts.items()):
+        print(f"  {name}: " + (f"{us / steps / 1e3:.3f} ms/step of kernels, "
+                               f"{us / max(dev_us, 1e-9):.3f} of the step's "
+                               f"device time, {us / 1e6 / wall_s:.3f} of its "
+                               f"wall" if us else "not measured (no kernels "
+                               "under its range)"))
+
+
+def profile_train(dev) -> int:
+    """One xLSTM-125M train step at B=8, S=512 from the same state after
+    a warm-up step, under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import synth_batch
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_arch("xlstm-125m")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    b, s = TRAIN_SHAPE
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             synth_batch(cfg, batch=b, seq=s, seed=0, step=0).items()}
+    state = init_train_state(params)
+    step = make_train_step(model, AdamWConfig(lr=3e-5, warmup_steps=1,
+                                              total_steps=4))
+    step(state, batch)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with recompute_ranges(), profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report(f"xlstm-125m train step B={b} S={s}", prof, wall, 1, top=15)
+    _report_recompute(prof, 1, wall)
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    print(f"train step without the profiler: "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    return 0
+
+
 def _report_moe(prof, steps: int) -> None:
     """Device time of each MoE part: the kernels launched inside its
     ranges on the host, summed over the layers."""
@@ -124,6 +227,8 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     help="the parameters' and caches' type (default fp32, "
                     "bf16 for yi-34b)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one xlstm-125m train step instead")
     args = ap.parse_args()
     dtype = args.dtype or ("bfloat16" if args.arch == "yi-34b"
                            else "float32")
@@ -146,6 +251,8 @@ def main() -> int:
         check=True).stdout.strip())
     _build.build_all()
     dev = torch.device("cuda")
+    if args.train:
+        return profile_train(dev)
     cfg = get_arch(args.arch)
     model = Model(cfg)
     dt = getattr(torch, dtype)

@@ -1,13 +1,16 @@
-"""Autograd for the CUDA kernels: the forward is the kernel, the backward
-recomputes the plain PyTorch version from the saved inputs and
-differentiates that.
+"""Autograd for the CUDA kernels that have no backward kernel: the forward
+is the kernel, the backward recomputes the plain PyTorch version from the
+saved inputs and differentiates that.
 
 No TPU kernel of the repo has a backward: ``jax.grad`` differentiates the
 JAX model's jnp path, which never calls a kernel. Autograd through the
 plain version is the port's counterpart of that, so a gradient through a
-kernel equals the plain path's gradient at the same inputs. The forward
-saves only its inputs; what the caller gets is always the kernel's output.
-A hand-written backward kernel would replace :meth:`_Recompute.backward`.
+kernel equals the plain path's at the same inputs. The forward saves only
+its inputs; what the caller gets is always the kernel's output. The
+``mlstm_scan``, ``rglru_scan`` and both attention wrappers use it; the
+``slstm_scan`` wrapper has a backward kernel of its own
+(``slstm_scan.with_backward``), so no plain sLSTM runs in a train step on
+the card.
 """
 
 from __future__ import annotations

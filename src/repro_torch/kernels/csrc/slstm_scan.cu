@@ -162,7 +162,7 @@ __device__ __forceinline__ const float* gate_ptr(int g, const float* a,
   return g == 0 ? a : g == 1 ? b : g == 2 ? c : d;
 }
 
-template <int HD>
+template <int HD, bool kSave>
 __global__ void __launch_bounds__(Geo<HD>::NT, 1)
     slstm_cluster_kernel(const float* __restrict__ z,
                          const float* __restrict__ i,
@@ -172,7 +172,8 @@ __global__ void __launch_bounds__(Geo<HD>::NT, 1)
                          const float* __restrict__ ri,
                          const float* __restrict__ rf,
                          const float* __restrict__ ro,
-                         float* __restrict__ h, int B, int NH, int S,
+                         float* __restrict__ h,
+                         float* __restrict__ save, int B, int NH, int S,
                          int rb) {
   using G = Geo<HD>;
   constexpr int CL = G::CL, U = G::U, NCOL = G::NCOL, KPT = G::KPT;
@@ -323,7 +324,280 @@ __global__ void __launch_bounds__(Geo<HD>::NT, 1)
             st_async(cluster_addr(dst, q), hn, cluster_addr(bar, q));
         }
         if (g == 0) h[hoff + (size_t)t * HD] = hn;
+        if constexpr (kSave) {  // what the backward reads of step t
+          const size_t plane = (size_t)B * NH * S * HD;
+          float* sv = save + hoff + (size_t)t * HD;
+          sv[g * plane] = s;  // gate g's pre-activation, recurrent part in
+          if (g > 0)
+            sv[(3 + g) * plane] = g == 1 ? c_st : g == 2 ? n_st : m_st;
+        }
         prefetch(t + kRing);  // into the slot just read (s is used by now)
+      }
+    }
+  }
+  cp_async_wait<0>();
+  cluster.sync();  // no CTA leaves while a peer may still address it
+}
+
+// --------------------------------------------------------------------------
+// The backward: BPTT from t = S - 1 down to 0 on the forward's clusters.
+// --------------------------------------------------------------------------
+
+// Four floats into a peer's shared memory (16-byte aligned), completing 16
+// bytes of the transaction count of the peer's mbarrier.
+__device__ __forceinline__ void st_async4(uint32_t addr, float4 v,
+                                          uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)),
+      "r"(__float_as_uint(v.z)), "r"(__float_as_uint(v.w)), "r"(bar)
+      : "memory");
+}
+
+// Pitch of the backward's partial sums of one K chunk: 8 modulo 32 floats,
+// so the four lanes of a unit, reading chunks g, g + 4, ..., hit four
+// different banks.
+__host__ __device__ constexpr int bwd_pitch(int units) {
+  return units <= 8 ? 8 : 40;
+}
+
+size_t bwd_smem_bytes(int hd, int rb) {
+  const size_t units = hd / cluster_ctas(hd), ncol = kGates * units;
+  const size_t floats = 2 * rb * hd * kGates       // dpre [2][rb][HD][4]
+                        + rb * kSplit * bwd_pitch(units)  // partial sums
+                        + 2 * kRing * rb * ncol;   // two rings of inputs
+  return floats * sizeof(float) + 2 * sizeof(uint64_t);  // + mbarriers
+}
+
+// Reads, per step t, what the training forward saved (`save`, seven planes
+// of (B, NH, S, HD): the four gates' pre-activations with their recurrent
+// part, then c, n, m) and grad_h; writes dpre (four planes: the gradients
+// of the pre-activations z, i, f, o, which are those of the inputs z, i, f,
+// o). CTA r of a cluster holds rows [r HD/CL, (r+1) HD/CL) of all four R in
+// registers (the forward's slice, transposed: thread (unit k, K chunk kc)
+// holds R_g[k][j] for the HD/16 j of chunk kc). Per step:
+//   1. dh_t[k], the recurrent part of h_t's adjoint, is the sum over gates
+//      and j of dpre_{t+1}[g][j] R_g[k][j]: each thread one K chunk, one
+//      partial sum a row;
+//   2. the four lanes of a unit add the 16 partial sums (four each, then
+//      two shuffles), take the unit's saved values by shuffle, recompute the
+//      forward's cell of step t as the forward computed it, and run it
+//      backward: h = o c / n; n = max(f' n + i', exp(-m)); c = f' c + i' z;
+//      i' = exp(i - m), f' = exp(log f + m_prev - m); m = max(log f +
+//      m_prev, i), each maximum splitting a tie in half, as torch.maximum's
+//      and jnp.maximum's gradients do; the adjoints of c, n, m carry to
+//      step t - 1 in registers, the same in the four lanes;
+//   3. lane g writes the unit's dpre_g and sends the four as one float4
+//      to CTAs g and g + 4 of the cluster with st.async, on the forward's
+//      step-parity mbarriers: a CTA starts step t - 1 when its mbarrier has
+//      counted rb x HD float4 of dpre_t. The parity argument is the
+//      forward's: a CTA writes a parity only after it has the step before
+//      from every CTA, so after every CTA's reads of that parity.
+// The saved values and grad_h stream in reverse through two rings of kRing
+// steps by cp.async: lane g copies gate g's pre-activation of step t and,
+// for g < 3, c, n or m of step t - 1 (zero before the first step), for g = 3
+// grad_h of step t. dR = sum over b, t of h_{t-1}^T dpre_t is one batched
+// product outside the kernel.
+//
+// Replaces no TPU kernel: the Pallas kernel has no backward (jax.grad
+// differentiates the JAX model's lax.scan); it replaces the port's
+// recompute through the plain sLSTM, a Python loop of S steps (837.05 ms a
+// call at B = 8, NH = 4, S = 512, HD = 192). What bounds it is the
+// forward's: S dependent steps, each a matvec, the sum of its parts, the
+// cell backward and the exchange; the flops (0.072 ms at that shape) and
+// bytes are far below. On an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py
+// phase 2): 0.86-0.87 ms a call there, 1.70 us a step.
+template <int HD>
+__global__ void __launch_bounds__(Geo<HD>::NT, 1)
+    slstm_bwd_kernel(const float* __restrict__ save,
+                     const float* __restrict__ gh,
+                     const float* __restrict__ rz,
+                     const float* __restrict__ ri,
+                     const float* __restrict__ rf,
+                     const float* __restrict__ ro,
+                     float* __restrict__ dpre, int B, int NH, int S, int rb) {
+  using G = Geo<HD>;
+  constexpr int CL = G::CL, U = G::U, NCOL = G::NCOL, KPT = G::KPT;
+  constexpr int P = bwd_pitch(U);
+  constexpr unsigned kAll = 0xffffffffu;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cid = blockIdx.x / CL;
+  const int head = cid % NH;
+  const int b0 = (cid / NH) * rb;
+  const int rows = min(rb, B - b0);
+  const size_t plane = (size_t)B * NH * S * HD;
+
+  extern __shared__ float4 smem4[];
+  float4* dbuf = smem4;  // dpre by parity [2][rb][HD], the gates in a float4
+  float* part = reinterpret_cast<float*>(dbuf + 2 * rb * HD);  // [rb][16][P]
+  float* ring_x = part + rb * kSplit * P;      // [kRing][rb][NCOL]
+  float* ring_y = ring_x + kRing * rb * NCOL;  // [kRing][rb][NCOL]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring_y + kRing * rb * NCOL);
+  const int tid = threadIdx.x;
+
+  // -- matvec role: row k = rank U + mu of the four R, K chunk kc, once --
+  const int mu = tid % U, kc = tid / U;
+  float rr[kGates][KPT];
+#pragma unroll
+  for (int g = 0; g < kGates; ++g) {
+    const float* R = gate_ptr(g, rz, ri, rf, ro) + (size_t)head * HD * HD +
+                     (size_t)(rank * U + mu) * HD + kc * KPT;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) rr[g][j] = R[j];
+  }
+  for (int idx = tid; idx < 2 * rb * HD; idx += G::NT)
+    dbuf[idx] = make_float4(0.f, 0.f, 0.f, 0.f);  // dpre_S = 0
+
+  // -- cell role: row cr, column col = 4 u + g, as in the forward --
+  const int cr = tid / NCOL;
+  const int col = tid - cr * NCOL;
+  const int g = col & 3, u = col >> 2;
+  const bool cell = cr < rows;
+  const bool cell_warp = (tid & ~31) < rows * NCOL;  // whole warps shuffle
+  const size_t hoff = ((size_t)(b0 + cr) * NH + head) * S * HD + rank * U + u;
+  const float* xsrc = save + g * plane + hoff;
+  const float* ysrc = g < 3 ? save + (4 + g) * plane + hoff : gh + hoff;
+  auto prefetch = [&](int s) {  // cell threads only; step s undoes S-1-s
+    if (s < S) {
+      const int t = S - 1 - s;
+      const int slot = ((s % kRing) * rb + cr) * NCOL + col;
+      cp_async4(ring_x + slot, xsrc + (size_t)t * HD);
+      if (g == 3)
+        cp_async4(ring_y + slot, ysrc + (size_t)t * HD);
+      else if (t > 0)
+        cp_async4(ring_y + slot, ysrc + (size_t)(t - 1) * HD);
+      else
+        ring_y[slot] = 0.f;  // c, n, m before the first step
+    }
+    cp_async_commit();
+  };
+  if (cell)
+    for (int s = 0; s < kRing; ++s) prefetch(s);
+  // c and n of the step being undone, then the adjoints of c, n, m from the
+  // later steps; the same in the four lanes of a unit
+  float c_t = 0.f, n_t = 0.f;
+  if (cell_warp) {
+    const float v = cell && g < 2 && S > 0
+                        ? save[(4 + g) * plane + hoff + (size_t)(S - 1) * HD]
+                        : 0.f;
+    c_t = __shfl_sync(kAll, v, 0, 4);
+    n_t = __shfl_sync(kAll, v, 1, 4);
+  }
+  float dc = 0.f, dn = 0.f, dm = 0.f;
+
+  const uint32_t bar0 = smem_addr(bars);
+  const uint32_t tx = rows * HD * sizeof(float4);
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    fence_mbar_init();
+    mbar_arm(bar0, tx);
+    mbar_arm(bar0 + 8, tx);
+  }
+  cluster.sync();
+
+  for (int s = 0; s < S; ++s) {
+    const int t = S - 1 - s;
+    if (s > 0) {  // dpre_{t+1} from every CTA, then re-arm for dpre_{t-1}
+      mbar_wait(bar0 + 8 * (s & 1), ((s - 1) >> 1) & 1);
+      if (tid == 0) mbar_arm(bar0 + 8 * (s & 1), tx);
+    }
+
+    // 1. K chunk kc of row mu's sum over the four gates, each batch row
+    const float4* dq = dbuf + (s & 1) * rb * HD + kc * KPT;
+    for (int r = 0; r < rows; ++r) {
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) {
+        const float4 d = dq[r * HD + j];
+        a0 = fmaf(d.x, rr[0][j], a0);
+        a1 = fmaf(d.y, rr[1][j], a1);
+        a2 = fmaf(d.z, rr[2][j], a2);
+        a3 = fmaf(d.w, rr[3][j], a3);
+      }
+      part[(r * kSplit + kc) * P + mu] = (a0 + a1) + (a2 + a3);
+    }
+    __syncthreads();
+
+    // 2. the cell backward of step t
+    if (cell_warp) {
+      float xv = 0.f, yv = 0.f, dhr = 0.f;
+      if (cell) {
+        cp_async_wait<kRing - 1>();  // this thread's copies of step t landed
+        const int slot = ((s % kRing) * rb + cr) * NCOL + col;
+        xv = ring_x[slot];
+        yv = ring_y[slot];
+        const float* pr = part + cr * kSplit * P + u;
+        dhr = (pr[g * P] + pr[(g + 4) * P]) + (pr[(g + 8) * P] +
+                                               pr[(g + 12) * P]);
+      }
+      dhr += __shfl_xor_sync(kAll, dhr, 1);
+      dhr += __shfl_xor_sync(kAll, dhr, 2);
+      const float pz = __shfl_sync(kAll, xv, 0, 4);
+      const float pi = __shfl_sync(kAll, xv, 1, 4);
+      const float pf = __shfl_sync(kAll, xv, 2, 4);
+      const float po = __shfl_sync(kAll, xv, 3, 4);
+      const float c_p = __shfl_sync(kAll, yv, 0, 4);
+      const float n_p = __shfl_sync(kAll, yv, 1, 4);
+      const float m_p = __shfl_sync(kAll, yv, 2, 4);
+      const float dh = __shfl_sync(kAll, yv, 3, 4) + dhr;
+
+      // the forward's cell of step t, as the forward computes it
+      const float az = 2.f * pz, ez = expf(-fabsf(az));
+      const float zz = 2.f * ((az >= 0.f ? 1.f : ez) / (1.f + ez)) - 1.f;
+      const float ef = expf(-fabsf(pf));
+      const float fl = fminf(pf, 0.f) - log1pf(ef);
+      const float sig_nf = (pf >= 0.f ? ef : 1.f) / (1.f + ef);  // d fl
+      const float eo = expf(-fabsf(po));
+      const float oo = (po >= 0.f ? 1.f : eo) / (1.f + eo);
+      const float mf = fl + m_p;
+      const float m_new = fmaxf(mf, pi);
+      const float ed = expf(-fabsf(mf - pi));
+      const float isc = mf >= pi ? ed : 1.f;
+      const float fsc = mf >= pi ? 1.f : ed;
+      const float nv = fsc * n_p + isc;
+      const float em = expf(-m_new);
+
+      // backward: h = o (c / n)
+      const float cn = c_t / n_t;
+      const float dcn = dh * oo;
+      const float dcc = dc + dcn / n_t;
+      const float dnn = dn - dcn * cn / n_t;
+      // n = max(nv, exp(-m))
+      const float wn = nv > em ? 1.f : nv < em ? 0.f : 0.5f;
+      const float dnv = dnn * wn;
+      float dmm = dm - dnn * (1.f - wn) * em;
+      // c = f' c_p + i' z, nv = f' n_p + i'; i' = exp(i - m),
+      // f' = exp(mf - m)
+      const float gi = (dcc * zz + dnv) * isc;
+      const float gf = (dcc * c_p + dnv * n_p) * fsc;
+      dmm -= gi + gf;
+      // m = max(mf, i); mf = log f + m_p
+      const float wm = mf > pi ? 1.f : mf < pi ? 0.f : 0.5f;
+      const float dmf = gf + dmm * wm;
+      const float4 dp = make_float4(dcc * isc * (1.f - zz * zz),
+                                    gi + dmm * (1.f - wm), dmf * sig_nf,
+                                    dh * cn * oo * (1.f - oo));
+      dc = dcc * fsc;
+      dn = dnv * fsc;
+      dm = dmf;
+      c_t = c_p;
+      n_t = n_p;
+      if (cell) {
+        // 3. to CTAs g, g + 4; dpre_0 is needed by no step
+        if (s + 1 < S) {
+          const uint32_t dst = smem_addr(dbuf + ((s + 1) & 1) * rb * HD +
+                                         cr * HD + rank * U + u);
+          const uint32_t bar = bar0 + 8 * ((s + 1) & 1);
+#pragma unroll
+          for (int q = g; q < CL; q += 4)
+            st_async4(cluster_addr(dst, q), dp, cluster_addr(bar, q));
+        }
+        dpre[g * plane + hoff + (size_t)t * HD] =
+            g == 0 ? dp.x : g == 1 ? dp.y : g == 2 ? dp.z : dp.w;
+        prefetch(s + kRing);  // into the slot just read
       }
     }
   }
@@ -348,13 +622,15 @@ int with_hd(int hd, Fn&& fn) {
   }
 }
 
-template <int HD>
-cudaError_t prepare(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
-                    int n_clusters, int rb, cudaStream_t stream) {
+// A cluster launch of `kernel` with HD's geometry: n_clusters clusters of
+// CL CTAs of NT threads, `smem` bytes of dynamic shared memory each.
+template <int HD, typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t smem, cudaLaunchConfig_t* cfg,
+                    cudaLaunchAttribute* attr, int n_clusters,
+                    cudaStream_t stream) {
   using G = Geo<HD>;
-  const size_t smem = smem_bytes(HD, rb);
   cudaError_t err = cudaFuncSetAttribute(
-      slstm_cluster_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = G::CL;
@@ -370,9 +646,53 @@ cudaError_t prepare(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
   return err;
 }
 
+template <int HD, typename Kernel>
+int max_active(Kernel kernel, size_t smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = prepare<HD>(kernel, smem, &cfg, &attr, 1, nullptr);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(
+        &n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+template <int HD, typename Kernel, typename... Args>
+int launch(Kernel kernel, size_t smem, int n_clusters, cudaStream_t stream,
+           Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = prepare<HD>(kernel, smem, &cfg, &attr, n_clusters,
+                                stream);
+  if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
 bool valid(int hd, int cl, int rb) {
   return hd >= 16 && hd <= kMaxHD && hd % 16 == 0 &&
          cl == cluster_ctas(hd) && rb >= 1 && rb <= kMaxRows;
+}
+
+int forward(const float* z, const float* i, const float* f, const float* o,
+            const float* rz, const float* ri, const float* rf,
+            const float* ro, float* h, float* save, int B, int NH, int S,
+            int HD, int CL, int rb, cudaStream_t stream) {
+  if (!valid(HD, CL, rb) || B < 1 || NH < 1 || S < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_clusters = NH * ((B + rb - 1) / rb);
+  return with_hd(HD, [&](auto hd) {
+    constexpr int kHD = decltype(hd)::value;
+    const size_t smem = smem_bytes(kHD, rb);
+    return save == nullptr
+               ? launch<kHD>(slstm_cluster_kernel<kHD, false>, smem,
+                             n_clusters, stream, z, i, f, o, rz, ri, rf, ro,
+                             h, save, B, NH, S, rb)
+               : launch<kHD>(slstm_cluster_kernel<kHD, true>, smem,
+                             n_clusters, stream, z, i, f, o, rz, ri, rf, ro,
+                             h, save, B, NH, S, rb);
+  });
 }
 
 }  // namespace
@@ -386,19 +706,15 @@ int slstm_scan_max_hd(void) { return kMaxHD; }
 int slstm_scan_max_rows(void) { return kMaxRows; }
 
 // How many clusters of this geometry the card holds at once, or minus a
-// CUDA error code.
-int slstm_scan_max_active_clusters(int HD, int CL, int rb) {
+// CUDA error code: the forward's (backward = 0) or the backward's.
+int slstm_scan_max_active_clusters(int HD, int CL, int rb, int backward) {
   if (!valid(HD, CL, rb)) return -static_cast<int>(cudaErrorInvalidValue);
   return with_hd(HD, [&](auto hd) {
     constexpr int kHD = decltype(hd)::value;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cudaError_t err = prepare<kHD>(&cfg, &attr, 1, rb, nullptr);
-    int n = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(
-          &n, reinterpret_cast<const void*>(slstm_cluster_kernel<kHD>), &cfg);
-    return err == cudaSuccess ? n : -static_cast<int>(err);
+    return backward ? max_active<kHD>(slstm_bwd_kernel<kHD>,
+                                      bwd_smem_bytes(kHD, rb))
+                    : max_active<kHD>(slstm_cluster_kernel<kHD, false>,
+                                      smem_bytes(kHD, rb));
   });
 }
 
@@ -409,19 +725,39 @@ int slstm_scan_fwd(const float* z, const float* i, const float* f,
                    const float* o, const float* rz, const float* ri,
                    const float* rf, const float* ro, float* h, int B, int NH,
                    int S, int HD, int CL, int rb, cudaStream_t stream) {
+  return forward(z, i, f, o, rz, ri, rf, ro, h, nullptr, B, NH, S, HD, CL,
+                 rb, stream);
+}
+
+// The same launch, which also writes what the backward reads into `save`
+// (seven planes of (B, NH, S, HD): the pre-activations of z, i, f, o with
+// their recurrent part, then c, n, m). Its h is slstm_scan_fwd's, bit for
+// bit: the same arithmetic, with stores added.
+int slstm_scan_fwd_train(const float* z, const float* i, const float* f,
+                         const float* o, const float* rz, const float* ri,
+                         const float* rf, const float* ro, float* h,
+                         float* save, int B, int NH, int S, int HD, int CL,
+                         int rb, cudaStream_t stream) {
+  if (save == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return forward(z, i, f, o, rz, ri, rf, ro, h, save, B, NH, S, HD, CL, rb,
+                 stream);
+}
+
+// The backward over the forward's geometry: from `save` and grad_h
+// (B, NH, S, HD), dpre (four planes of (B, NH, S, HD): the gradients of
+// z, i, f, o). Returns the launch's CUDA error code.
+int slstm_scan_bwd(const float* save, const float* gh, const float* rz,
+                   const float* ri, const float* rf, const float* ro,
+                   float* dpre, int B, int NH, int S, int HD, int CL, int rb,
+                   cudaStream_t stream) {
   if (!valid(HD, CL, rb) || B < 1 || NH < 1 || S < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_clusters = NH * ((B + rb - 1) / rb);
   return with_hd(HD, [&](auto hd) {
     constexpr int kHD = decltype(hd)::value;
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cudaError_t err = prepare<kHD>(&cfg, &attr, n_clusters, rb, stream);
-    if (err == cudaSuccess)
-      err = cudaLaunchKernelEx(&cfg, slstm_cluster_kernel<kHD>, z, i, f, o,
-                               rz, ri, rf, ro, h, B, NH, S, rb);
-    const cudaError_t last = cudaGetLastError();
-    return static_cast<int>(err != cudaSuccess ? err : last);
+    return launch<kHD>(slstm_bwd_kernel<kHD>, bwd_smem_bytes(kHD, rb),
+                       n_clusters, stream, save, gh, rz, ri, rf, ro, dpre, B,
+                       NH, S, rb);
   });
 }
 

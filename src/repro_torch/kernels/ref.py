@@ -83,21 +83,26 @@ def mlstm_chunk_ref(q, k, v, i_raw, f_raw, state=None):
     return torch.stack(hs, 2), {"C": C, "n": n, "m": m}
 
 
+def _slstm_cell(c, n, m, pz, pi, pf, po):
+    """The sLSTM cell on the four pre-activations (recurrent part in):
+    returns h, c, n, m of the step."""
+    z = torch.tanh(pz)
+    f_log = F.logsigmoid(pf)
+    o = torch.sigmoid(po)
+    m_new = torch.maximum(f_log + m, pi)
+    i_sc = torch.exp(pi - m_new)
+    f_sc = torch.exp(f_log + m - m_new)
+    c = f_sc * c + i_sc * z
+    n = torch.maximum(f_sc * n + i_sc, torch.exp(-m_new))
+    return o * (c / n), c, n, m_new
+
+
 def slstm_step(h, c, n, m, zt, it, ft, ot, r_all):
     """One sLSTM step on pre-activations (B,NH,HD) with the four recurrent
     matrices stacked along the output axis, r_all: (NH, HD, 4*HD)."""
     rec = (h[..., None, :] @ r_all)[..., 0, :]     # (B,NH,4*HD)
     hz, hi, hf, ho = rec.chunk(4, -1)
-    z = torch.tanh(zt + hz)
-    i_log = it + hi
-    f_log = F.logsigmoid(ft + hf)
-    o = torch.sigmoid(ot + ho)
-    m_new = torch.maximum(f_log + m, i_log)
-    i_sc = torch.exp(i_log - m_new)
-    f_sc = torch.exp(f_log + m - m_new)
-    c = f_sc * c + i_sc * z
-    n = torch.maximum(f_sc * n + i_sc, torch.exp(-m_new))
-    return o * (c / n), c, n, m_new
+    return _slstm_cell(c, n, m, zt + hz, it + hi, ft + hf, ot + ho)
 
 
 def slstm_scan_ref(z, i, f, o, rz, ri, rf, ro):
@@ -113,6 +118,98 @@ def slstm_scan_ref(z, i, f, o, rz, ri, rf, ro):
                                 f[:, :, t], o[:, :, t], r_all)
         hs.append(h)
     return torch.stack(hs, 2)
+
+
+def slstm_scan_fwd_states_ref(z, i, f, o, rz, ri, rf, ro):
+    """:func:`slstm_scan_ref` (its h bit for bit) that also returns what
+    :func:`slstm_scan_bwd_ref` reads, in the training forward kernel's
+    layout: ``(h, states)``, states (7,B,NH,S,HD) holding the
+    pre-activations of z, i, f, o with their recurrent part, then c, n and
+    m of every step."""
+    b, nh, s, hd = z.shape
+    r_all = torch.cat([rz, ri, rf, ro], -1)
+    h = c = n = m = z.new_zeros(b, nh, hd)
+    hs, saved = [], []
+    for t in range(s):
+        rec = (h[..., None, :] @ r_all)[..., 0, :]
+        hz, hi, hf, ho = rec.chunk(4, -1)
+        pre = (z[:, :, t] + hz, i[:, :, t] + hi, f[:, :, t] + hf,
+               o[:, :, t] + ho)
+        h, c, n, m = _slstm_cell(c, n, m, *pre)
+        hs.append(h)
+        saved.append(torch.stack([*pre, c, n, m]))
+    return torch.stack(hs, 2), torch.stack(saved, 3)
+
+
+def _tie_weight(a, b):
+    """d max(a, b) / d a: 1 where a > b, 0 where a < b, a half at a tie (as
+    ``torch.maximum``'s and ``jnp.maximum``'s gradients split it)."""
+    return torch.where(a > b, 1.0, torch.where(a < b, 0.0, 0.5)).to(a.dtype)
+
+
+def slstm_recurrent_grads(h, dpre):
+    """dR_g = sum over b, t of h_{t-1}^T dpre_g[t] (h_{-1} = 0) for the four
+    gates at once, as one batched product: h (B,NH,S,HD), dpre
+    (4,B,NH,S,HD). Returns dr_z, dr_i, dr_f, dr_o (NH,HD,HD). The kernel's
+    backward calls it too: the JAX package leaves this product to XLA."""
+    b, nh, s, hd = h.shape
+    hp = F.pad(h, (0, 0, 1, 0))[:, :, :s]
+    a = hp.permute(1, 3, 0, 2).reshape(nh, hd, b * s)
+    d = dpre.permute(2, 1, 3, 0, 4).reshape(nh, b * s, 4 * hd)
+    return tuple(r.contiguous() for r in torch.bmm(a, d).split(hd, -1))
+
+
+def slstm_scan_bwd_ref(h, states, rz, ri, rf, ro, grad_h):
+    """The sLSTM's backward in explicit formulas, walking t from S-1 down
+    to 0: the plain version of the backward kernel. ``h`` and ``states``
+    are :func:`slstm_scan_fwd_states_ref`'s (or the training forward
+    kernel's); ``grad_h`` (B,NH,S,HD). Carries the adjoints of h's
+    recurrent part, c, n and m; per step the cell runs backward through
+    h = o c / n, n = max(f' n + i', exp(-m)), c = f' c + i' z,
+    i' = exp(i - m), f' = exp(log f + m_prev - m), m = max(log f + m_prev,
+    i), each maximum splitting a tie in half. Returns the gradients of z,
+    i, f, o (each gate's dpre) and of r_z, r_i, r_f, r_o."""
+    pz, pi, pf, po, cs, ns, ms = states
+    b, nh, s, hd = h.shape
+    r_t = torch.cat([rz, ri, rf, ro], -1).transpose(-1, -2)  # (NH,4HD,HD)
+    zero = h.new_zeros(b, nh, hd)
+    dh_rec = dc = dn = dm = zero
+    dpre = h.new_empty(4, b, nh, s, hd)
+    for t in reversed(range(s)):
+        c_p, n_p, m_p = ((cs[:, :, t - 1], ns[:, :, t - 1], ms[:, :, t - 1])
+                         if t else (zero, zero, zero))
+        p_z, p_i, p_f, p_o = (p[:, :, t] for p in (pz, pi, pf, po))
+        c, n = cs[:, :, t], ns[:, :, t]
+        # the forward's cell of step t
+        zz, oo = torch.tanh(p_z), torch.sigmoid(p_o)
+        mf = F.logsigmoid(p_f) + m_p
+        m = torch.maximum(mf, p_i)
+        i_sc, f_sc = torch.exp(p_i - m), torch.exp(mf - m)
+        nv, em = f_sc * n_p + i_sc, torch.exp(-m)
+        # h = o (c / n)
+        dh = grad_h[:, :, t] + dh_rec
+        cn = c / n
+        dcn = dh * oo
+        dcc = dc + dcn / n
+        dnn = dn - dcn * cn / n
+        # n = max(nv, exp(-m))
+        wn = _tie_weight(nv, em)
+        dnv = dnn * wn
+        dmm = dm - dnn * (1 - wn) * em
+        # c = f' c_p + i' z, nv = f' n_p + i'
+        gi = (dcc * zz + dnv) * i_sc
+        gf = (dcc * c_p + dnv * n_p) * f_sc
+        dmm = dmm - (gi + gf)
+        # m = max(mf, i), mf = log f + m_p
+        wm = _tie_weight(mf, p_i)
+        dmf = gf + dmm * wm
+        d = torch.stack([dcc * i_sc * (1 - zz * zz), gi + dmm * (1 - wm),
+                         dmf * torch.sigmoid(-p_f),
+                         dh * cn * oo * (1 - oo)])
+        dpre[:, :, :, t] = d
+        dh_rec = (torch.cat(tuple(d), -1)[..., None, :] @ r_t)[..., 0, :]
+        dc, dn, dm = dcc * f_sc, dnv * f_sc, dmf
+    return (*dpre.unbind(0), *slstm_recurrent_grads(h, dpre))
 
 
 #: bytes of scores that one block of :func:`flash_attention` may hold, and

@@ -1,15 +1,22 @@
-"""Sequential sLSTM forward: the CUDA kernel's wrapper and its plain version.
+"""Sequential sLSTM: the CUDA kernels' wrapper and their plain versions.
 
 Counterpart of ``repro/kernels/slstm_scan.py`` (the Pallas TPU kernel). The
-kernel is ``csrc/slstm_scan.cu``; its plain PyTorch version is
-:func:`repro_torch.kernels.ref.slstm_scan_ref`. The TPU kernel's tiling
-arguments (``cs``, ``interpret``) are gone: one launch covers the whole
-sequence.
+kernels are in ``csrc/slstm_scan.cu``: the forward, its training instance
+(which also saves what the backward reads) and the backward; their plain
+PyTorch versions are :func:`repro_torch.kernels.ref.slstm_scan_ref`,
+``slstm_scan_fwd_states_ref`` and ``slstm_scan_bwd_ref``. The TPU kernel's
+tiling arguments (``cs``, ``interpret``) are gone: one launch covers the
+whole sequence. The TPU kernel has no backward (``jax.grad`` differentiates
+the JAX model's ``lax.scan``); the backward kernel is the port's, so that
+no plain version runs on the card's training path.
 
 The kernel runs one thread block cluster of ``cl`` CTAs per head and ``rb``
 batch rows; CTA ``r`` of a cluster owns units ``[r*hd/cl, (r+1)*hd/cl)`` of
 all four gates and holds that slice of R on chip for the whole sequence.
 :func:`geometry` chooses ``cl`` and ``rb``; the kernel reads them as given.
+The backward runs on the same clusters, CTA ``r`` holding rows
+``[r*hd/cl, (r+1)*hd/cl)`` of the four R; ``dR`` is one batched product
+after it (``ref.slstm_recurrent_grads``).
 """
 
 from __future__ import annotations
@@ -19,16 +26,25 @@ import math
 from dataclasses import dataclass
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
-from .autograd import recompute
+from .ref import slstm_recurrent_grads
+from .ref import slstm_scan_bwd_ref as plain_backward
+from .ref import slstm_scan_fwd_states_ref as plain_forward_states
 from .ref import slstm_scan_ref as plain
 
-__all__ = ["slstm_scan", "plain", "launches", "Geometry", "cluster_size",
-           "geometry", "launch_geometry", "MAX_HD", "MAX_ROWS", "R_HELD_IN"]
+__all__ = ["slstm_scan", "plain", "plain_forward_states", "plain_backward",
+           "with_backward", "launches", "backward_launches", "Geometry",
+           "cluster_size", "geometry", "launch_geometry",
+           "backward_resident_clusters", "MAX_HD", "MAX_ROWS", "R_HELD_IN",
+           "SAVED_PLANES"]
 
-#: kernel launches made by :func:`slstm_scan` in this process
+#: forward kernel launches (store-free and training instances) made by
+#: :func:`slstm_scan` in this process
 launches = 0
+#: backward kernel launches made by :func:`slstm_scan`'s backward
+backward_launches = 0
 
 #: largest head dim (a multiple of 16 up to this), as ``slstm_scan_max_hd``
 MAX_HD = 256
@@ -36,6 +52,9 @@ MAX_HD = 256
 MAX_ROWS = 4
 #: where each CTA keeps its slice of R for the whole launch
 R_HELD_IN = "registers"
+#: what the training forward saves for the backward, a (B,NH,S,HD) plane
+#: each: the pre-activations with their recurrent part, then c, n, m
+SAVED_PLANES = ("z", "i", "f", "o", "c", "n", "m")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,7 +65,11 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("slstm_scan")
     lib.slstm_scan_fwd.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     lib.slstm_scan_fwd.restype = _I
-    lib.slstm_scan_max_active_clusters.argtypes = [_I] * 3
+    lib.slstm_scan_fwd_train.argtypes = [_P] * 10 + [_I] * 6 + [_P]
+    lib.slstm_scan_fwd_train.restype = _I
+    lib.slstm_scan_bwd.argtypes = [_P] * 7 + [_I] * 6 + [_P]
+    lib.slstm_scan_bwd.restype = _I
+    lib.slstm_scan_max_active_clusters.argtypes = [_I] * 4
     lib.slstm_scan_max_active_clusters.restype = _I
     lib.slstm_scan_max_hd.restype = _I
     lib.slstm_scan_max_rows.restype = _I
@@ -135,7 +158,7 @@ def launch_geometry(b: int, nh: int, hd: int,
         cl = cluster_size(hd)
         with torch.cuda.device(index):
             n = _lib().slstm_scan_max_active_clusters(hd, cl,
-                                                      min(b, MAX_ROWS))
+                                                      min(b, MAX_ROWS), 0)
         if n < 0:
             raise RuntimeError(f"slstm_scan occupancy query failed: CUDA "
                                f"error {-n}")
@@ -143,41 +166,145 @@ def launch_geometry(b: int, nh: int, hd: int,
     return _geometries[key]
 
 
+def backward_resident_clusters(geo: Geometry,
+                               device: "torch.device | None" = None) -> int:
+    """How many clusters of the backward kernel at ``geo`` the card holds
+    at once (``cudaOccupancyMaxActiveClusters``); the backward runs on the
+    forward's geometry, in waves where fewer are resident."""
+    device = torch.device("cuda") if device is None else torch.device(device)
+    with torch.cuda.device(device):
+        n = _lib().slstm_scan_max_active_clusters(geo.hd, geo.cl, geo.rb, 1)
+    if n < 0:
+        raise RuntimeError(f"slstm_scan backward occupancy query failed: "
+                           f"CUDA error {-n}")
+    return n
+
+
 def slstm_scan(z, i, f, o, rz, ri, rf, ro) -> torch.Tensor:
     """sLSTM from zero state on the card. z,i,f,o: (B,NH,S,HD) fp32 CUDA
     pre-activations, contiguous; r*: (NH,HD,HD) indexed [in, out]; HD a
-    multiple of 16 up to 256. Returns h: (B,NH,S,HD). Differentiable: the
-    backward recomputes through :func:`plain` and differentiates that
-    (``autograd.py``)."""
-    return recompute(_launch, plain, z, i, f, o, rz, ri, rf, ro)
+    multiple of 16 up to 256. Returns h: (B,NH,S,HD). Under grad, with any
+    input requiring it, the training forward kernel runs and the backward
+    is the backward kernel (:func:`with_backward`); otherwise the
+    store-free forward kernel runs alone."""
+    args = (z, i, f, o, rz, ri, rf, ro)
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return with_backward(_launch_train, _launch_backward, *args)
+    return _launch(*args)
 
 
-def _launch(z, i, f, o, rz, ri, rf, ro) -> torch.Tensor:
-    global launches
+class _Scan(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, forward, backward, *inputs):
+        h, states = forward(*inputs)
+        ctx.backward = backward
+        ctx.save_for_backward(h, states, *inputs[4:])
+        return h
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_h):
+        h, states, *rs = ctx.saved_tensors
+        return (None, None,
+                *ctx.backward(h, states, *rs, grad_h.contiguous()))
+
+
+def with_backward(forward, backward, *inputs) -> torch.Tensor:
+    """``forward(*inputs)[0]``, differentiable by ``backward``: ``forward``
+    takes z, i, f, o, r_z, r_i, r_f, r_o and returns ``(h, states)``;
+    ``backward(h, states, r_z, r_i, r_f, r_o, grad_h)`` returns the eight
+    inputs' gradients. :func:`slstm_scan` passes the kernels; the plain
+    versions (``plain_forward_states``, ``plain_backward``) fit the same
+    slots."""
+    return _Scan.apply(forward, backward, *inputs)
+
+
+def _check(z, i, f, o, rz, ri, rf, ro) -> None:
     b, nh, s, hd = z.shape
     seq, rec = (b, nh, s, hd), (nh, hd, hd)
     for name, t, shape in (("z", z, seq), ("i", i, seq), ("f", f, seq),
                            ("o", o, seq), ("rz", rz, rec), ("ri", ri, rec),
                            ("rf", rf, rec), ("ro", ro, rec)):
-        if not t.is_cuda or t.device != z.device:
-            raise ValueError(f"{name} must be a CUDA tensor on {z.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _check_one(name, t, shape, z.device)
+
+
+def _check_one(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(z, i, f, o, rz, ri, rf, ro) -> torch.Tensor:
+    return _forward(z, i, f, o, rz, ri, rf, ro, save=False)[0]
+
+
+def _launch_train(z, i, f, o, rz, ri, rf, ro):
+    return _forward(z, i, f, o, rz, ri, rf, ro, save=True)
+
+
+def _forward(z, i, f, o, rz, ri, rf, ro, *, save: bool):
+    """One forward launch: the store-free instance, or with ``save`` the
+    training instance. Returns (h, states or None)."""
+    global launches
+    _check(z, i, f, o, rz, ri, rf, ro)
+    b, nh, s, hd = z.shape
     geo = launch_geometry(b, nh, hd, z.device)
     out = torch.empty_like(z)
+    states = z.new_empty(len(SAVED_PLANES), b, nh, s, hd) if save else None
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().slstm_scan_fwd(
-            z.data_ptr(), i.data_ptr(), f.data_ptr(), o.data_ptr(),
-            rz.data_ptr(), ri.data_ptr(), rf.data_ptr(), ro.data_ptr(),
-            out.data_ptr(), b, nh, s, hd, geo.cl, geo.rb, stream)
+        ptrs = (z.data_ptr(), i.data_ptr(), f.data_ptr(), o.data_ptr(),
+                rz.data_ptr(), ri.data_ptr(), rf.data_ptr(), ro.data_ptr(),
+                out.data_ptr())
+        if save:
+            err = _lib().slstm_scan_fwd_train(*ptrs, states.data_ptr(), b,
+                                              nh, s, hd, geo.cl, geo.rb,
+                                              stream)
+        else:
+            err = _lib().slstm_scan_fwd(*ptrs, b, nh, s, hd, geo.cl, geo.rb,
+                                        stream)
     if err:
         raise RuntimeError(f"slstm_scan kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
-    return out
+    return out, states
+
+
+def _launch_backward(h, states, rz, ri, rf, ro, grad_h):
+    """The backward kernel, then dR by one batched product. Returns the
+    gradients of z, i, f, o, r_z, r_i, r_f, r_o."""
+    dpre = _backward_kernel(h, states, rz, ri, rf, ro, grad_h)
+    return (*dpre.unbind(0), *slstm_recurrent_grads(h, dpre))
+
+
+def _backward_kernel(h, states, rz, ri, rf, ro, grad_h) -> torch.Tensor:
+    """One backward kernel launch: dpre (4,B,NH,S,HD), the gradients of
+    the pre-activations z, i, f, o."""
+    global backward_launches
+    b, nh, s, hd = h.shape
+    seq, rec = (b, nh, s, hd), (nh, hd, hd)
+    for name, t, shape in (("h", h, seq),
+                           ("states", states, (len(SAVED_PLANES), *seq)),
+                           ("grad_h", grad_h, seq), ("rz", rz, rec),
+                           ("ri", ri, rec), ("rf", rf, rec), ("ro", ro, rec)):
+        _check_one(name, t, shape, h.device)
+    geo = launch_geometry(b, nh, hd, h.device)
+    dpre = h.new_empty(4, b, nh, s, hd)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().slstm_scan_bwd(
+            states.data_ptr(), grad_h.data_ptr(), rz.data_ptr(),
+            ri.data_ptr(), rf.data_ptr(), ro.data_ptr(), dpre.data_ptr(), b,
+            nh, s, hd, geo.cl, geo.rb, stream)
+    if err:
+        raise RuntimeError(f"slstm_scan backward kernel launch failed: CUDA "
+                           f"error {err}")
+    backward_launches += 1
+    return dpre

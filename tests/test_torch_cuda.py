@@ -454,7 +454,6 @@ def test_decode_kernel_replays_in_a_cuda_graph_with_new_lengths(cuda_device):
 
 _BACKWARD_CASES = {
     "mlstm_scan": (MK, lambda: mlstm_inputs(4, 2, 2, 256, 64)),
-    "slstm_scan": (SK, lambda: slstm_inputs(4, 2, 2, 64, 64)),
     "rglru_scan": (RK, lambda: rglru_inputs(4, 2, 64, 128, True)),
     "flash_attention": (FK, lambda: flash_inputs(4, 1, 1, 2, 128, 64)),
     "decode_attention": (DK, lambda: decode_inputs(4, 2, 1, 2, 64, 64)),
@@ -464,11 +463,13 @@ _BACKWARD_CASES = {
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("kernel", sorted(_BACKWARD_CASES))
 def test_kernel_backward_is_plain_autograd_on_card(cuda_device, kernel):
-    """Under grad each wrapper launches its kernel once in the forward and
-    not at all in the backward, and each input's grad equals autograd's
-    through the plain version at the same inputs and grad_output (the
-    same operations on the same inputs; at most 1e-6 relative, for
-    atomics in index backward)."""
+    """Under grad each wrapper that recomputes launches its kernel once in
+    the forward and not at all in the backward, and each input's grad
+    equals autograd's through the plain version at the same inputs and
+    grad_output (the same operations on the same inputs; at most 1e-6
+    relative, for atomics in index backward). ``slstm_scan`` has a
+    backward kernel of its own: its rows are the ``slstm_backward`` ones
+    below."""
     mod, make = _BACKWARD_CASES[kernel]
     args = [t(a, cuda_device) for a in make()]
     args = [a.requires_grad_(True) if a.is_floating_point() else a
@@ -498,12 +499,112 @@ def test_kernel_backward_is_plain_autograd_on_card(cuda_device, kernel):
         assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
 
 
+#: the sLSTM backward kernel's limit: each gradient's largest error
+#: against autograd of the plain version in fp64, over that gradient's
+#: largest fp64 value, is at most this many times the same error of the
+#: fp32 recompute (autograd through the plain version in fp32, the backward
+#: the kernel replaces; at least one fp32 ulp); chip_smoke.py holds the
+#: train shape to the same
+SLSTM_BWD_YARDSTICKS = 10
+
+
+def _slstm_grads_fp64(args, grad_h):
+    wide = [a.detach().double().requires_grad_(True) for a in args]
+    out = SK.plain(*wide)
+    return [g.float() for g in torch.autograd.grad(out, wide,
+                                                   grad_h.double())]
+
+
+def _slstm_recompute_grads(args, grad_h):
+    fresh = [a.detach().clone().requires_grad_(True) for a in args]
+    return torch.autograd.grad(SK.plain(*fresh), fresh, grad_h)
+
+
+def _rel_err(got, want) -> float:
+    """Largest error over the largest reference value (a gradient that is
+    zero throughout, as dR at S=1, is held absolutely)."""
+    return (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                 1e-30)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,nh,s,hd", [
+    (2, 2, 128, 64),
+    (2, 4, 256, 192),        # the model's head dim
+    (3, 4, 96, 256),         # eight CTAs a cluster, the largest head dim
+    (3, 2, 64, 64),          # B=3: a cluster of two rows has an idle row
+    (1, 1, 1, 48), (2, 3, 40, 16)])
+def test_slstm_backward_kernel_matches_plain_on_card(cuda_device, b, nh, s,
+                                                     hd):
+    """Under grad: one training forward launch, one backward launch; h
+    bit for bit the store-free forward's; each of the eight grads within
+    SLSTM_BWD_YARDSTICKS times the fp32 recompute's error against fp64
+    autograd of the plain version, against both that and the plain
+    backward (``slstm_scan_bwd_ref``) on the kernel's own saved states."""
+    args = [t(a, cuda_device).requires_grad_(True)
+            for a in slstm_inputs(5, b, nh, s, hd)]
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    grad_h = torch.randn((b, nh, s, hd), generator=gen, device=cuda_device)
+    before, before_bwd = SK.launches, SK.backward_launches
+    h = SK.slstm_scan(*args)
+    torch.cuda.synchronize()
+    assert (SK.launches, SK.backward_launches) == (before + 1, before_bwd)
+    got = torch.autograd.grad(h, args, grad_h)
+    torch.cuda.synchronize()
+    assert (SK.launches, SK.backward_launches) == (before + 1,
+                                                   before_bwd + 1)
+    with torch.no_grad():
+        assert torch.equal(h, SK.slstm_scan(*args))
+        h_k, states = SK._launch_train(*args)
+    assert torch.equal(h_k, h)
+    plain_bwd = SK.plain_backward(h_k, states, *args[4:], grad_h)
+    wide = _slstm_grads_fp64(args, grad_h)
+    yard = _slstm_recompute_grads(args, grad_h)
+    for name, g, p, w, y in zip("z i f o rz ri rf ro".split(), got,
+                                plain_bwd, wide, yard):
+        limit = SLSTM_BWD_YARDSTICKS * max(_rel_err(y, w), 2.0 ** -23)
+        assert _rel_err(g, w) <= limit, (name, _rel_err(g, w), limit)
+        assert _rel_err(g, p) <= limit, (name, _rel_err(g, p), limit)
+
+
+@pytest.mark.requires_cuda
+def test_slstm_training_forward_saves_the_plain_states_on_card(cuda_device):
+    """The training instance's h is the store-free instance's bit for bit
+    and its seven saved planes are the plain forward's to the forward
+    kernel's tolerance."""
+    args = [t(a, cuda_device) for a in slstm_inputs(6, 3, 4, 96, 192)]
+    h, states = SK._launch_train(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(h, SK._launch(*args))
+    h_p, states_p = SK.plain_forward_states(*args)
+    np.testing.assert_allclose(n(h), n(h_p), **SLSTM_TOL)
+    assert states.shape == (len(SK.SAVED_PLANES), 3, 4, 96, 192)
+    for name, got, want in zip(SK.SAVED_PLANES, states, states_p):
+        np.testing.assert_allclose(n(got), n(want), err_msg=name,
+                                   **SLSTM_TOL)
+
+
+@pytest.mark.requires_cuda
+def test_slstm_backward_refuses_what_it_does_not_take_on_card(cuda_device):
+    """A saved-state tensor of the wrong shape, or a grad in another type,
+    raises; nothing is launched and nothing recomputes."""
+    args = [t(a, cuda_device) for a in slstm_inputs(7, 2, 2, 16, 64)]
+    h, states = SK._launch_train(*args)
+    before = SK.backward_launches
+    with pytest.raises(ValueError, match="states has shape"):
+        SK._launch_backward(h, states[:6].contiguous(), *args[4:],
+                            torch.ones_like(h))
+    with pytest.raises(ValueError, match="grad_h must be float32"):
+        SK._launch_backward(h, states, *args[4:], torch.ones_like(h).double())
+    assert SK.backward_launches == before
+
+
 @pytest.mark.requires_cuda
 def test_train_step_with_kernels_matches_plain_on_card(cuda_device):
     """Smoke xLSTM at S=512 (mLSTM head dim 64, sLSTM head dim 32): one
     train step's loss and grads with the kernels against the plain path,
-    to chip_smoke.py phase 5's limits; the kernels launch in the forward
-    only (2 mlstm_scan, 1 slstm_scan)."""
+    to chip_smoke.py phase 5's limits; the kernels launch 2 mlstm_scan and
+    1 slstm_scan in the forward, and 1 sLSTM backward kernel."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synth_batch
     from repro_torch.models import Model
@@ -518,13 +619,14 @@ def test_train_step_with_kernels_matches_plain_on_card(cuda_device):
              synth_batch(cfg, batch=2, seq=512, seed=0, step=0).items()}
     runs = {}
     for impl in ("hopper", "plain"):
-        MK.launches = SK.launches = 0
+        MK.launches = SK.launches = SK.backward_launches = 0
         runs[impl] = value_and_grad(Model(cfg, kernel_impl=impl), params,
                                      batch)
         torch.cuda.synchronize()
-        runs[impl + " launches"] = (MK.launches, SK.launches)
-    assert runs["hopper launches"] == (2, 1)
-    assert runs["plain launches"] == (0, 0)
+        runs[impl + " launches"] = (MK.launches, SK.launches,
+                                    SK.backward_launches)
+    assert runs["hopper launches"] == (2, 1, 1)
+    assert runs["plain launches"] == (0, 0, 0)
     (loss, _), grads = runs["hopper"]
     (want_loss, _), want = runs["plain"]
     assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
@@ -1106,7 +1208,8 @@ def test_cluster_pod_round_on_card_matches_in_process(cuda_device):
     want = pod_round(*args)
     assert got["pid"] != os.getpid()
     assert got["device"] == torch.cuda.get_device_name(0)
-    assert got["launches"] == {"mlstm_scan": 4, "slstm_scan": 2}
+    assert got["launches"] == {"mlstm_scan": 4, "slstm_scan": 2,
+                               "slstm_scan_backward": 2}
     assert got["loss"] == want["loss"]
     assert len(got["delta"]) == len(want["delta"]) == len(flat)
     for a, b in zip(got["delta"], want["delta"]):
