@@ -18,7 +18,13 @@ Phases, each printing its own lines; any failure exits non-zero:
      the training forward's h bit for bit the store-free forward's, each
      of the eight grads against the plain backward and against autograd of
      the plain version in fp64 within SLSTM_BWD_YARDSTICKS times the fp32
-     recompute's error (printed beside), its geometry, ms and bound;
+     recompute's error (printed beside), its geometry, ms and bound; the
+     mLSTM backward kernel at the train shape (``mlstm_backward_case``):
+     the training forward's h bit for bit the store-free forward's, each
+     of dq, dk, dv, di and df against the plain backward on the kernel's
+     own saved states and against autograd of the plain version in fp64
+     within MLSTM_BWD_YARDSTICKS times the fp32 recompute's error, its
+     geometry, ms and bound, the saved states' bytes;
   3. the prefill step at full width through the entry points a user calls,
      with the launch counts zeroed just before and read just after (10
      mLSTM and 2 sLSTM launches), held against the same model on the plain
@@ -29,17 +35,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      prefill step on the same prompt;
   5. xLSTM-125M training at full width (B=8, S=512, fp32, remat "none"):
      one train step's loss and every grad leaf with the kernels (the
-     sLSTM's backward its backward kernel, the mLSTM's a recompute through
-     its plain version) against the plain path from the same params and
-     batch, with the launch counts read after the forward (10 mLSTM, 2
-     sLSTM) and after the backward (2 sLSTM backward), and no step of the
-     plain sLSTM run (``PlainSlstmCalls``); the
+     sLSTM's and the mLSTM's backward their backward kernels) against the
+     plain path from the same params and batch, with the launch counts
+     read after the forward (10 mLSTM, 2 sLSTM) and after the backward (10
+     mLSTM backward, 2 sLSTM backward), and no step of the plain sLSTM and
+     no call of the plain mLSTM run (``PlainSlstmCalls``,
+     ``PlainMlstmCalls``); the
      Trainer for 4 steps under plan("threads") with checkpoints at steps 2
      and 4, its loss curve held against the plain path's and the step-4
      checkpoint restored bit for bit; then the train step's times (forward
      with loss, backward with the optimiser), tokens/s, peak memory and the
-     share of the backward in each kernel's backward: the mLSTM's
-     recompute, the sLSTM's backward kernel and the recompute it replaced;
+     share of the backward in each kernel's backward: each backward kernel
+     beside the recompute through the plain version it replaced;
   6. the Future API on the card, with phase 3's params: three prefills
      (B=8, S=2048) as futures under plan("cuda_async"), each with the host
      ms until future() returns, resolved() right then, the ms until
@@ -107,7 +114,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      rounds of 2 local steps at phase 5's B=8, S=512 and lr, int8 + error
      feedback, pod 0's first dispatch killed (exit 43) and re-dispatched;
      each pod round's pid (not the driver's), card and launch counts read
-     in its worker (20 mlstm_scan, 4 slstm_scan, 4 sLSTM backward), its
+     in its worker (20 mlstm_scan, 4 slstm_scan, 20 mLSTM backward, 4
+     sLSTM backward), its
      loss and every delta
      leaf bit for bit the same ``pod_round`` call in this process (made on
      a thread beside the driver); every leaf with a nonzero delta moved by
@@ -290,8 +298,8 @@ Last, with no model on the card:
      xlstm-125m x decode_32k on the 256-rank one): each record
      ``status: "ok"`` with every count positive.
 Each phase prints its seconds. ``--phases`` runs the phases it names
-(``ALONE``: 3c' with 3c's tree and timing before it, 5 with phase 3's
-tree before it, and 8) alone after
+(``ALONE``: 2m, phase 2's mLSTM backward case; 3c' with 3c's tree and
+timing before it, 5 with phase 3's tree before it, and 8) alone after
 phase 1, and prints no result. The line before the last is a JSON object
 with one entry per kernel, and one more for each attention kernel at
 Yi-9B's, qwen2-moe's, Yi-34B's (bf16) and HuBERT-XLarge's (fp32 and bf16)
@@ -413,6 +421,15 @@ TRAIN_B, TRAIN_S, TRAIN_LR, TRAIN_STEPS = 8, 512, 3e-5, 4
 # errors are alike in size; a dropped adjoint or a tie sent one way moves
 # a gradient by far more than ten times
 SLSTM_BWD_YARDSTICKS = 10
+# the mLSTM backward kernel (phase 2, at the train shape), the same rule:
+# each of dq, dk, dv, di and df within this many times the fp32
+# recompute's error (at least one fp32 ulp). The kernel walks chunks of 16
+# rows where the recompute walks 256, and sums C_c G and dC v over column
+# tiles, so its errors are of the recompute's size but not its bits (at
+# D=64 to 384 on the CPU, the kernel's arithmetic read 0.3 to 1.4 times
+# it against fp64 and up to 2.8 times against the plain backward); a
+# dropped term or a tie sent one way moves a gradient by far more
+MLSTM_BWD_YARDSTICKS = 10
 # phase 3c': the card's peak memory against the dry-run trace's, as a
 # share of the trace's peak plus bytes (the caching allocator's rounding,
 # library workspaces and temporaries inside a kernel, which no op shows)
@@ -621,6 +638,7 @@ def main(argv: list | None = None) -> int:
           f"{ms_one:.4f} ms a launch, {ms_one * 1e3 / S:.4f} us a step")
     del zs, rs, out, ref, err, one
     slstm_backward_case(dev, kernels, NH, HD, smi)
+    mlstm_backward_case(dev, kernels, H, D, smi)
     for kr in kernels.values():
         print(f"  {kr['name']}: kernel {kr['ms']:.3f} ms, plain "
               f"{kr['plain_ms']:.3f} ms, bound {kr['bound_ms']:.3f} ms "
@@ -660,7 +678,8 @@ def main(argv: list | None = None) -> int:
           f"{(got - want).abs().max().item():.3e}, relative {rel:.3e} "
           f"(tolerance {TOL_PREFILL_REL}) {'ok' if ok else 'FAIL'}")
     check(ok, "prefill with the kernels disagrees with the plain path")
-    kernels["slstm_scan_backward"]["launches"] = 0   # phase 5 sets it
+    for name in ("mlstm_scan_backward", "slstm_scan_backward"):
+        kernels[name]["launches"] = 0                # phase 5 sets them
     print("kernels: " + json.dumps([{"name": n, "launches": kr["launches"]}
                                     for n, kr in kernels.items()]))
     del got, want
@@ -1018,18 +1037,120 @@ def slstm_backward_case(dev, kernels: dict, nh: int, hd: int,
     del h, states, args, rs, grad_h
 
 
+MLSTM_GRADS = ("q", "k", "v", "i", "f")
+
+
+def mlstm_backward_case(dev, kernels: dict, h: int, d: int,
+                        smi: str) -> None:
+    """Phase 2's mLSTM backward at the train shape (B=8, S=512): the
+    training forward's h against the store-free forward's, bit for bit,
+    and the bytes it saves; the backward's five grads (dq, dk, dv from the
+    kernel and the sums of its partial planes, di and df from them)
+    against the plain backward on the kernel's own saved states and
+    against autograd of the plain version in fp64, within
+    MLSTM_BWD_YARDSTICKS times the fp32 recompute's error (printed
+    beside); the kernel's ms, its bound and launch geometry, the whole
+    backward's ms and the plain backward's."""
+    import torch
+
+    from repro_torch.kernels import mlstm_scan as MK
+
+    b, s = TRAIN_B, TRAIN_S
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def rand(*shape, shift=0.0):
+        return torch.randn(shape, generator=gen, device=dev) + shift
+
+    args = [rand(b, h, s, d) for _ in range(3)] + [
+        rand(b, h, s), rand(b, h, s, shift=2.0)]
+    grad_h = rand(b, h, s, d)
+    fgeo = MK.launch_geometry(b, h, d)
+    geo = MK.launch_geometry(b, h, d, backward=True)
+    print(f"mlstm_scan backward (B,H,S,D)={(b, h, s, d)}: DV={geo.dv} "
+          f"columns of dC a CTA (the forward's {fgeo.dv}), {geo.grid} CTAs "
+          f"x {geo.threads} threads, {geo.ctas_per_sm} CTA(s) per SM on "
+          f"{geo.n_sms} SMs, {geo.waves} wave(s), {geo.smem_bytes} B of "
+          f"shared memory a CTA; dq and dk in {d // geo.dv} partial planes")
+    with torch.no_grad():
+        hh, states = MK._launch_train(*args)
+        same = torch.equal(hh, MK._launch(*args))
+    saved = sum(x.numel() * x.element_size() for x in states)
+    print(f"  training forward's h against the store-free forward's: "
+          f"{'bit for bit' if same else 'DIFFERENT'}; saved states "
+          f"{saved / 1e9:.3f} GB a layer (C at each chunk's start "
+          f"{states[0].numel() * 4 / 1e9:.3f} GB)")
+    check(same, "the mLSTM training forward's h is the store-free "
+                "forward's")
+    got = MK._launch_backward(*args, hh, states, grad_h)
+    torch.cuda.synchronize()
+    plain = MK.plain_backward(*args, hh, states, grad_h, cs=MK.CHUNK)
+    wide = [a.double().requires_grad_(True) for a in args]
+    want = [g.float() for g in torch.autograd.grad(
+        MK.plain(*wide, cs=256), wide, grad_h.double())]
+    fresh = [a.clone().requires_grad_(True) for a in args]
+    yard = torch.autograd.grad(MK.plain(*fresh, cs=256), fresh, grad_h)
+    del wide, fresh
+    max_abs = 0.0
+    for name, g, p, w, y in zip(MLSTM_GRADS, got, plain, want, yard):
+        scale = max(w.abs().max().item(), 1e-30)
+        e_y = (y - w).abs().max().item() / scale
+        limit = MLSTM_BWD_YARDSTICKS * max(e_y, 2.0 ** -23)
+        e_w = (g - w).abs().max().item() / scale
+        e_p = (g - p).abs().max().item() / max(p.abs().max().item(), 1e-30)
+        ok = bool(torch.isfinite(g).all()) and e_w <= limit and e_p <= limit
+        max_abs = max(max_abs, (g - p).abs().max().item())
+        print(f"  d{name}: against fp64 {e_w:.3e}, against the plain "
+              f"backward {e_p:.3e} of the largest {scale:.3e}; yardstick, "
+              f"the fp32 recompute against fp64, {e_y:.3e}; limit {limit:.3e}"
+              f" ({MLSTM_BWD_YARDSTICKS}x) {'ok' if ok else 'FAIL'}")
+        check(ok, f"the mLSTM backward kernel's d{name} is off")
+    del plain, want, yard, got
+    # the kernel's own work: per row 4 D^2 FMAs (C_c G, dC v, dC^T k and
+    # the rank-16 update of dC) and 5 L D for the chunk's L x L products
+    # (q.k, G.v, and their parts of dq, dk, dv), L = 16; q, k, v, h,
+    # grad_h, the gates and the saved states read once, dq, dk, dv written
+    rows, nc = b * h * s, s // MK.CHUNK
+    flops = 2.0 * rows * (4 * d * d + 5 * MK.CHUNK * d)
+    nbytes = 4.0 * (8 * rows * d + 4 * rows
+                    + b * h * nc * (d * d + d + 1))
+    k_bound = bound(flops, nbytes)
+    kernels["mlstm_scan_backward"] = dict(
+        name="mlstm_scan_backward", route="cuda",
+        source="src/repro_torch/kernels/csrc/mlstm_scan.cu",
+        replaces="src/repro/kernels/mlstm_scan.py:29",
+        max_abs_err=max_abs,
+        ms=cuda_ms(lambda: MK._backward_kernel(*args, hh, states, grad_h),
+                   10),
+        plain_ms=cuda_ms(lambda: MK.plain_backward(
+            *args, hh, states, grad_h, cs=MK.CHUNK), 1),
+        bound_ms=k_bound[0], bound_by=k_bound[1], library_ms=None)
+    whole = cuda_ms(lambda: MK._launch_backward(*args, hh, states, grad_h),
+                    10)
+    fwd_ms = cuda_ms(lambda: MK._launch_train(*args), 10)
+    kr = kernels["mlstm_scan_backward"]
+    print(f"  mlstm_scan backward kernel: {kr['ms']:.4f} ms a launch, bound "
+          f"{kr['bound_ms']:.4f} ms ({kr['bound_by']}: {flops / 1e9:.2f} "
+          f"GFLOP, {nbytes / 1e9:.3f} GB); with the plane sums and the gate "
+          f"grads {whole:.4f} ms; the training forward {fwd_ms:.4f} ms; the "
+          f"plain backward {kr['plain_ms']:.2f} ms ({smi})")
+    del hh, states, args, grad_h
+
+
 class PlainSlstmCalls:
     """While active, counts the plain sLSTM's work: each step of the
     plain cell (``ref._slstm_cell``, which every plain sLSTM forward and
     its autograd recompute runs) and each call of the plain backward."""
 
-    def __enter__(self):
+    def _targets(self) -> list:
         from repro_torch.kernels import ref
         from repro_torch.kernels import slstm_scan as SK
+        return [(ref, "_slstm_cell"), (ref, "slstm_scan_bwd_ref"),
+                (SK, "plain_backward")]
+
+    def __enter__(self):
         self.count = 0
-        self._saved = [(ref, "_slstm_cell", ref._slstm_cell),
-                       (ref, "slstm_scan_bwd_ref", ref.slstm_scan_bwd_ref),
-                       (SK, "plain_backward", SK.plain_backward)]
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in self._targets()]
         for mod, name, fn in self._saved:
             setattr(mod, name, self._counted(fn))
         return self
@@ -1043,6 +1164,19 @@ class PlainSlstmCalls:
     def __exit__(self, *exc):
         for mod, name, fn in self._saved:
             setattr(mod, name, fn)
+
+
+class PlainMlstmCalls(PlainSlstmCalls):
+    """While active, counts the plain mLSTM's work: each plain chunkwise
+    forward (``ref._mlstm_chunks``, which ``mlstm_chunkwise``, its autograd
+    recompute and the forward with states run) and each call of the plain
+    backward."""
+
+    def _targets(self) -> list:
+        from repro_torch.kernels import mlstm_scan as MK
+        from repro_torch.kernels import ref
+        return [(ref, "_mlstm_chunks"), (ref, "mlstm_chunkwise_bwd_ref"),
+                (MK, "plain_backward")]
 
 
 def training_phase(dev, cfg, params, smi: str,
@@ -1074,42 +1208,47 @@ def training_phase(dev, cfg, params, smi: str,
     # the plain sLSTM's steps and backward calls
     def counts():
         return {"mlstm_scan": MK.launches, "slstm_scan": SK.launches,
+                "mlstm_scan_backward": MK.backward_launches,
                 "slstm_scan_backward": SK.backward_launches}
 
     runs = {}
     for impl in ("hopper", "plain"):
         model = Model(cfg, kernel_impl=impl)
         leafs = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        MK.launches = SK.launches = SK.backward_launches = 0
-        with PlainSlstmCalls() as plain_calls:
+        MK.launches = SK.launches = 0
+        MK.backward_launches = SK.backward_launches = 0
+        with PlainSlstmCalls() as plain_s, PlainMlstmCalls() as plain_m:
             loss, _ = model.loss(leafs, batch)
             torch.cuda.synchronize()
             fwd = counts()
             grads = torch.autograd.grad(loss, list(leaves(leafs)))
             torch.cuda.synchronize()
         bwd = {k: n - fwd[k] for k, n in counts().items()}
-        runs[impl] = (loss.item(), grads, fwd, bwd, plain_calls.count)
+        runs[impl] = (loss.item(), grads, fwd, bwd,
+                      (plain_s.count, plain_m.count))
         del leafs, loss
     k_loss, k_grads, fwd, bwd, k_plain = runs["hopper"]
     p_loss, p_grads, p_fwd, p_bwd, p_plain = runs.pop("plain")
     print(f"train step (B,S)={(B_, S_)} launches with the kernels: forward "
-          f"{fwd}, backward {bwd}, plain sLSTM steps and backward calls "
-          f"{k_plain}; plain path: forward {p_fwd}, backward {p_bwd}, plain "
-          f"sLSTM steps and backward calls {p_plain}")
+          f"{fwd}, backward {bwd}, plain sLSTM steps and backward calls, "
+          f"plain mLSTM forwards and backward calls {k_plain}; plain path: "
+          f"forward {p_fwd}, backward {p_bwd}, plain calls {p_plain}")
     check(fwd == {"mlstm_scan": n_m, "slstm_scan": n_s,
-                  "slstm_scan_backward": 0}
+                  "mlstm_scan_backward": 0, "slstm_scan_backward": 0}
           and bwd == {"mlstm_scan": 0, "slstm_scan": 0,
-                      "slstm_scan_backward": n_s},
+                      "mlstm_scan_backward": n_m, "slstm_scan_backward": n_s},
           f"a train step must launch mlstm_scan {n_m}x and slstm_scan "
-          f"{n_s}x in the forward, the sLSTM backward kernel {n_s}x in the "
-          f"backward and nothing else")
-    check(k_plain == 0, "a hopper train step runs no plain sLSTM")
-    check(p_plain == n_s * S_, "the count of plain sLSTM steps counts")
+          f"{n_s}x in the forward, the mLSTM backward kernel {n_m}x and the "
+          f"sLSTM backward kernel {n_s}x in the backward and nothing else")
+    check(k_plain == (0, 0), "a hopper train step runs no plain sLSTM and "
+                             "no plain mLSTM")
+    check(p_plain == (n_s * S_, n_m),
+          "the counts of plain sLSTM steps and plain mLSTM forwards count")
     check(p_fwd == p_bwd == dict.fromkeys(p_fwd, 0),
           "the plain path launches no kernel")
     if kernels is not None:
-        kernels["slstm_scan_backward"]["launches"] = \
-            bwd["slstm_scan_backward"]
+        for name in ("mlstm_scan_backward", "slstm_scan_backward"):
+            kernels[name]["launches"] = bwd[name]
     rel = abs(k_loss - p_loss) / abs(p_loss)
     ok = np.isfinite(k_loss) and rel <= TOL_TRAIN_LOSS_REL
     print(f"train step loss, kernels vs plain: {k_loss:.6f} vs {p_loss:.6f}, "
@@ -1171,7 +1310,8 @@ def training_phase(dev, cfg, params, smi: str,
             if run != impl:
                 table = state.params["embed"]["table"]
                 state.params["embed"] = {"table": table * (1 + 2 ** -23)}
-            MK.launches = SK.launches = SK.backward_launches = 0
+            MK.launches = SK.launches = 0
+            MK.backward_launches = SK.backward_launches = 0
             t0 = time.perf_counter()
             state, history = trainer.run(state)
             torch.cuda.synchronize()
@@ -1179,12 +1319,14 @@ def training_phase(dev, cfg, params, smi: str,
             curves[run] = [h["loss"] for h in history]
             print(f"Trainer, {run}: {TRAIN_STEPS} steps in {wall:.2f} s, "
                   f"losses {curves[run]}, launches mlstm_scan "
-                  f"{MK.launches}, slstm_scan {SK.launches}, its backward "
+                  f"{MK.launches}, its backward {MK.backward_launches}, "
+                  f"slstm_scan {SK.launches}, its backward "
                   f"{SK.backward_launches}")
             if run == "hopper":
-                check((MK.launches, SK.launches, SK.backward_launches)
-                      == (TRAIN_STEPS * n_m, TRAIN_STEPS * n_s,
-                          TRAIN_STEPS * n_s),
+                check((MK.launches, MK.backward_launches, SK.launches,
+                       SK.backward_launches)
+                      == (TRAIN_STEPS * n_m, TRAIN_STEPS * n_m,
+                          TRAIN_STEPS * n_s, TRAIN_STEPS * n_s),
                       "the Trainer's steps launch the kernels")
                 kept = sorted(os.listdir(ckdir))
                 check(kept == ["step_00000002", "step_00000004"],
@@ -1257,9 +1399,8 @@ def training_phase(dev, cfg, params, smi: str,
               f"peak memory {peak / 1e9:.2f} GB ({smi})")
 
     # the share of the kernel step's backward spent in each kernel's
-    # backward at the train step's shapes: the mLSTM's recompute through
-    # its plain version, the sLSTM's backward kernel (and, beside it, the
-    # recompute it replaced)
+    # backward at the train step's shapes: each backward kernel and,
+    # beside it, the recompute through the plain version it replaced
     from repro_torch.kernels.autograd import recompute
     H, D = cfg.xlstm.n_heads, cfg.xlstm.head_dim
     NH, HD = cfg.xlstm.n_heads, cfg.d_model // cfg.xlstm.n_heads
@@ -1277,11 +1418,12 @@ def training_phase(dev, cfg, params, smi: str,
                           for _ in range(4)])}
     step_bwd = times["hopper"][2]
     for name, (mod, count, args) in cases.items():
-        ways = {"recompute through the plain version and its autograd":
+        kernel_way = {"slstm_scan": "the backward kernel and the dR product",
+                      "mlstm_scan": "the backward kernel, its plane sums "
+                                    "and the gate grads"}[name]
+        ways = {kernel_way: lambda: getattr(mod, name)(*args),
+                "recompute through the plain version and its autograd":
                 lambda: recompute(mod._launch, mod.plain, *args)}
-        if name == "slstm_scan":
-            ways = {"the backward kernel and the dR product":
-                    lambda: mod.slstm_scan(*args), **ways}
         for way, fn in ways.items():
             out = fn()
             g = torch.randn(out.shape, generator=gen, device=dev)
@@ -2341,10 +2483,10 @@ def multipod_phase(cfg, params, smi: str) -> None:
     steps, pods = 2, 2
     n_m = sum(kind == "mlstm" for kind in cfg.layer_pattern)
     n_s = sum(kind == "slstm" for kind in cfg.layer_pattern)
-    # the forward of each local step launches the kernels; the backward
-    # launches the sLSTM backward kernel and recomputes the mLSTM through
-    # its plain version
+    # the forward of each local step launches the kernels, the backward
+    # the backward kernels
     want_launches = {"mlstm_scan": steps * n_m, "slstm_scan": steps * n_s,
+                     "mlstm_scan_backward": steps * n_m,
                      "slstm_scan_backward": steps * n_s}
     card = torch.cuda.get_device_name(0)
     tmp = tempfile.mkdtemp(prefix="chip-smoke-6e-")
@@ -3526,9 +3668,22 @@ def training_alone(smi: str) -> None:
     torch.cuda.empty_cache()
 
 
+def mlstm_backward_alone(smi: str) -> None:
+    """``--phases 2m``: phase 2's mLSTM backward case."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch("xlstm-125m")
+    kernels: dict = {}
+    mlstm_backward_case(torch.device("cuda"), kernels, cfg.xlstm.n_heads,
+                        cfg.xlstm.head_dim, smi)
+    print(json.dumps({"kernels": list(kernels.values())}))
+    phase_done("2m")
+
+
 # the phases ``--phases`` runs alone, each after phase 1 (the build)
-ALONE = {"3c'": dryrun_prefill_alone, "5": training_alone,
-         "8": dryrun_cells_alone}
+ALONE = {"2m": mlstm_backward_alone, "3c'": dryrun_prefill_alone,
+         "5": training_alone, "8": dryrun_cells_alone}
 
 
 def routing_diff(got: list, want: list) -> tuple:

@@ -2,6 +2,7 @@
 """Where the mLSTM kernel's time goes, phase by phase, on one NVIDIA GPU.
 
     python3 scripts/mlstm_phases.py [--b 8 --h 4 --s 2048 --d 384]
+    python3 scripts/mlstm_phases.py --backward [--s 512]
 
 Builds ``csrc/mlstm_scan.cu`` a second time with ``-DMLSTM_PHASE_CLOCKS``
 (``_build.load`` keeps it apart from the plain build under
@@ -11,6 +12,11 @@ Runs it at the given shape (the xLSTM-125M prefill by default) with the
 column tile that ``mlstm_scan.launch_geometry`` picks, and prints the
 cycles a chunk of each phase (the mean over CTAs), the FMAs each phase does
 there, and the kernel's time with and without the clocks (CUDA events).
+With ``--backward`` it does the same for the backward kernel on the
+training forward's saved states, at the train shape by default (S=512),
+and first times the uninstrumented backward at every column tile that
+fits (``tile_widths(d, backward=True)``), the one ``launch_geometry``
+picks marked.
 The last line is a JSON object with the same numbers.
 """
 
@@ -28,6 +34,10 @@ PHASES = ("0 v tile, gates, wait for the copies of q and k",
           "3 readout [q|W] x [C;V]", "4 readout: summing the 16 K-slices",
           "5 write h, start copying the next q",
           "6 start copying the next k, state update C")
+BWD_PHASES = ("0 rows of q, k, v, grad_h; n_c; gate scans",
+              "1 G = grad_h / denom", "2 q.k and G.v partials, g",
+              "3 W, P", "4 dq and dk planes, dC^T k partials",
+              "5 dv, the dC and dn update")
 
 
 def main() -> int:
@@ -36,10 +46,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--b", type=int, default=8)
     ap.add_argument("--h", type=int, default=4)
-    ap.add_argument("--s", type=int, default=2048)
+    ap.add_argument("--s", type=int, default=None,
+                    help="2048 (the prefill) or, with --backward, 512")
     ap.add_argument("--d", type=int, default=384)
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--backward", action="store_true",
+                    help="the backward kernel at the train shape")
     args = ap.parse_args()
+    if args.s is None:
+        args.s = 512 if args.backward else 2048
     if not torch.cuda.is_available():
         print("mlstm_phases: no CUDA device is available", file=sys.stderr)
         return 2
@@ -59,8 +74,9 @@ def main() -> int:
               if re.search(r"[1-9]\d* bytes spill", line)]
     print(f"instrumented build: {len(spills)} ptxas line(s) with spills"
           + "".join(f"\n  {line}" for line in spills))
-    lib.mlstm_scan_phase_cycles.argtypes = [ctypes.c_void_p]
-    lib.mlstm_scan_phase_cycles.restype = ctypes.c_int
+    for name in ("mlstm_scan_phase_cycles", "mlstm_scan_bwd_phase_cycles"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+        getattr(lib, name).restype = ctypes.c_int
 
     b, h, s, d = args.b, args.h, args.s, args.d
     rng = np.random.default_rng(0)
@@ -72,6 +88,9 @@ def main() -> int:
 
     q, k, v = randn(b, h, s, d), randn(b, h, s, d), randn(b, h, s, d)
     ig, fg = randn(b, h, s), randn(b, h, s, shift=2.0)
+    if args.backward:
+        return backward_phases(args, lib, MK, (q, k, v, ig, fg),
+                               randn(b, h, s, d))
     geo = MK.launch_geometry(b, h, d)
     got = torch.empty_like(q)
 
@@ -84,16 +103,7 @@ def main() -> int:
             raise RuntimeError(f"instrumented launch failed: CUDA error {err}")
 
     def time_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.iters
+        return _time_ms(fn, args.iters)
 
     with torch.no_grad():
         ms = time_ms(lambda: MK.mlstm_scan(q, k, v, ig, fg))
@@ -128,6 +138,88 @@ def main() -> int:
                       "ms_clocked": ms_clocked,
                       "cycles_per_chunk": dict(zip(PHASES, per_chunk)),
                       "fmas_per_chunk": dict(zip(PHASES, fmas)),
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+def _time_ms(fn, iters: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def backward_phases(args, lib, MK, inputs, grad_h) -> int:
+    """``--backward``: the backward kernel's time at each tile that fits,
+    then its cycles a chunk by phase at the tile ``launch_geometry``
+    picks."""
+    import torch
+    b, h, s, d = args.b, args.h, args.s, args.d
+    with torch.no_grad():
+        out, states = MK._launch_train(*inputs)
+    geo = MK.launch_geometry(b, h, d, backward=True)
+
+    def launcher(library, dv):
+        planes = [torch.empty(d // dv, b, h, s, d, device=out.device)
+                  for _ in range(2)]
+        dv_out = torch.empty_like(out)
+        ptrs = [x.data_ptr() for x in (*inputs, out, grad_h, *states,
+                                       *planes, dv_out)]
+
+        def call():
+            err = library.mlstm_scan_bwd(
+                *ptrs, b, h, s, d, dv, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"backward launch failed: CUDA error {err}")
+        return call, (*planes, dv_out)
+
+    tiles = {}
+    for dv in MK.tile_widths(d, backward=True):
+        tiles[dv] = _time_ms(launcher(MK._lib(), dv)[0], args.iters)
+    plain, want = launcher(MK._lib(), geo.dv)
+    clocked, got = launcher(lib, geo.dv)
+    sums = (ctypes.c_ulonglong * len(BWD_PHASES))()
+    with torch.no_grad():
+        plain()
+        lib.mlstm_scan_bwd_phase_cycles(sums)      # zero the counters
+        clocked()
+        torch.cuda.synchronize()
+        if lib.mlstm_scan_bwd_phase_cycles(sums):
+            raise RuntimeError("reading the phase clocks failed")
+        if not all(torch.allclose(g, w, rtol=1e-6, atol=1e-6)
+                   for g, w in zip(got, want)):
+            raise RuntimeError("the instrumented kernel computes otherwise")
+        ms_clocked = _time_ms(clocked, args.iters)
+    chunks = s // MK.CHUNK
+    per_chunk = [c / geo.grid / chunks for c in sums]
+    total = sum(per_chunk)
+    ell, dv = MK.CHUNK, geo.dv
+    fmas = [0, 0, 2 * ell * ell * d + ell * d, 0,
+            3 * ell * d * dv + 2 * ell * ell * dv,
+            ell * ell * dv + d * dv * ell + d * ell]
+    print(f"backward, shape (B,H,S,D)={(b, h, s, d)}: " + ", ".join(
+        f"DV={t} {ms:.4f} ms" + (" (picked)" if t == dv else "")
+        for t, ms in tiles.items()))
+    print(f"DV={dv}, {geo.grid} CTAs x {geo.threads} threads, {geo.waves} "
+          f"wave(s), {chunks} chunks of {ell} rows; with the clocks "
+          f"{ms_clocked:.4f} ms; {total:.0f} cycles a chunk, so "
+          f"{total * chunks * geo.waves / tiles[dv] / 1e6:.3f} GHz over "
+          f"the kernel's time")
+    for name, cyc, f in zip(BWD_PHASES, per_chunk, fmas):
+        rate = f"{f / cyc:.1f} FMA a cycle" if f else "-"
+        print(f"  phase {name}: {cyc:.0f} cycles a chunk "
+              f"({100 * cyc / total:.1f}%), {f} FMAs, {rate}")
+    print(json.dumps({"shape": [b, h, s, d], "dv": dv, "ms_by_dv": tiles,
+                      "ms_clocked": ms_clocked,
+                      "cycles_per_chunk": dict(zip(BWD_PHASES, per_chunk)),
+                      "fmas_per_chunk": dict(zip(BWD_PHASES, fmas)),
                       "device": torch.cuda.get_device_name(0)}))
     return 0
 

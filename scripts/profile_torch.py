@@ -27,14 +27,18 @@ combine, shared MLP), each part's functions wrapped in a profiler range
 for the run. ``--train`` profiles one xLSTM-125M train step instead, at
 ``chip_smoke.py`` phase 5's shape (B=8, S=512, fp32, AdamW): its wall and
 device time, idle share and top kernels, and the device time spent in each
-kernel's recompute through its plain version (the backward of the kernels
-that have no backward kernel), each recompute's backward in a profiler
-range for the run. Needs a CUDA device.
+kernel's backward: the mLSTM's and the sLSTM's backward kernels by their
+own rows, the ops each runs around its kernel (the mLSTM's plane sums and
+gate grads, the sLSTM's dR product) and any recompute through a plain
+version in a profiler range for the run (a launch through ctypes is no op
+of the profiler, so no range holds the kernels themselves). Needs a CUDA
+device.
 """
 
 import argparse
 import contextlib
 import os
+import re
 import subprocess
 import sys
 import time
@@ -52,14 +56,14 @@ def _device_us(evt) -> float:
 def _kernel_rows(prof) -> list:
     """(name, count, device us) of each kernel, most time first: kernel
     rows only, since an operator's row carries its kernels' time too, and
-    a range's row on the device (``moe_ranges``, ``recompute_ranges``)
+    a range's row on the device (``moe_ranges``, ``backward_ranges``)
     spans its kernels' gaps."""
     from torch.autograd import DeviceType
     return sorted(((e.key, e.count, _device_us(e))
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
                    and e.key not in MOE_PARTS.values()
-                   and not e.key.startswith(RECOMPUTE_RANGE.format(""))),
+                   and not e.key.startswith(BACKWARD_RANGE.format(""))),
                   key=lambda r: -r[2])
 
 
@@ -121,44 +125,72 @@ def moe_ranges():
             setattr(MOE, fn, f)
 
 
-#: profiler range of a recompute's backward (``autograd._Recompute``),
-#: by the plain version it recomputes
-RECOMPUTE_RANGE = "backward: recompute through {}"
+#: profiler range of each kernel's backward: a recompute through the plain
+#: version (``autograd._Recompute``), named for that version, or a backward
+#: kernel's (``mlstm_scan`` and ``slstm_scan``'s ``_Scan``), named for the
+#: wrapper
+BACKWARD_RANGE = "backward: {}"
+#: the backward kernels' rows, by the kernel's name
+BACKWARD_KERNEL = re.compile(r"\w+_bwd_kernel(<[^>]*>)?")
 
 
 @contextlib.contextmanager
-def recompute_ranges():
-    """While active, each recompute's backward runs inside a profiler
-    range named for the plain version it recomputes."""
+def backward_ranges():
+    """While active, each kernel's backward runs inside a profiler range
+    named for its recompute's plain version or its backward kernel."""
     from torch.profiler import record_function
 
+    from repro_torch.kernels import mlstm_scan, slstm_scan
     from repro_torch.kernels.autograd import _Recompute
-    saved = _Recompute.backward
 
-    def backward(ctx, *grads):
-        with record_function(RECOMPUTE_RANGE.format(ctx.plain.__name__)):
-            return saved(ctx, *grads)
+    def recomputed(ctx):
+        return f"recompute through {ctx.plain.__name__}"
 
-    _Recompute.backward = staticmethod(backward)
+    def kernel_of(mod):
+        return lambda ctx: f"{mod.__name__.rsplit('.', 1)[1]} backward kernel"
+
+    targets = [(_Recompute, recomputed)] + [
+        (mod._Scan, kernel_of(mod)) for mod in (mlstm_scan, slstm_scan)]
+    saved = [(cls, cls.backward) for cls, _ in targets]
+
+    def ranged(fn, name_of):
+        def backward(ctx, *grads):
+            with record_function(BACKWARD_RANGE.format(name_of(ctx))):
+                return fn(ctx, *grads)
+        return staticmethod(backward)
+
+    for (cls, name_of), (_, fn) in zip(targets, saved):
+        cls.backward = ranged(fn, name_of)
     try:
         yield
     finally:
-        _Recompute.backward = staticmethod(saved)
+        for cls, fn in saved:
+            cls.backward = staticmethod(fn)
 
 
-def _report_recompute(prof, steps: int, wall_s: float) -> None:
-    """Device time of the kernels launched under each recompute range, a
-    step and as a share of the step's device and wall time."""
+def _report_backward(prof, steps: int, wall_s: float) -> None:
+    """Device time of each backward kernel's rows and of the kernels
+    launched under each backward range, a step and as a share of the
+    step's device and wall time."""
     from torch.autograd import DeviceType
-    dev_us = sum(r[2] for r in _kernel_rows(prof))
+    rows = _kernel_rows(prof)
+    dev_us = sum(r[2] for r in rows)
+    for name, count, us in rows:
+        found = BACKWARD_KERNEL.search(name)
+        if found:
+            print(f"  kernel {found.group(0)}: {us / steps / 1e3:.3f} ms/step "
+                  f"in {count / steps:.0f} launches, "
+                  f"{us / max(dev_us, 1e-9):.3f} of the step's device time, "
+                  f"{us / 1e6 / wall_s:.3f} of its wall")
     parts: dict = {}
-    prefix = RECOMPUTE_RANGE.format("")
+    prefix = BACKWARD_RANGE.format("")
     for e in prof.events():
         if e.name.startswith(prefix) and e.device_type == DeviceType.CPU:
             parts[e.name] = parts.get(e.name, 0.0) + float(
                 getattr(e, "device_time_total", 0.0))
     if not parts:
-        print("  no recompute ran")
+        print("  no kernel backward ran")
+    print("  under each backward's range (the ops it runs through PyTorch):")
     for name, us in sorted(parts.items()):
         print(f"  {name}: " + (f"{us / steps / 1e3:.3f} ms/step of kernels, "
                                f"{us / max(dev_us, 1e-9):.3f} of the step's "
@@ -192,13 +224,13 @@ def profile_train(dev) -> int:
     step(state, batch)
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with recompute_ranges(), profile(activities=acts) as prof:
+    with backward_ranges(), profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report(f"xlstm-125m train step B={b} S={s}", prof, wall, 1, top=15)
-    _report_recompute(prof, 1, wall)
+    _report_backward(prof, 1, wall)
     t0 = time.perf_counter()
     step(state, batch)
     torch.cuda.synchronize()

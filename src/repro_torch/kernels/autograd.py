@@ -7,10 +7,10 @@ JAX model's jnp path, which never calls a kernel. Autograd through the
 plain version is the port's counterpart of that, so a gradient through a
 kernel equals the plain path's at the same inputs. The forward saves only
 its inputs; what the caller gets is always the kernel's output. The
-``mlstm_scan``, ``rglru_scan`` and both attention wrappers use it; the
-``slstm_scan`` wrapper has a backward kernel of its own
-(``slstm_scan.with_backward``), so no plain sLSTM runs in a train step on
-the card.
+``rglru_scan`` and both attention wrappers use it; the ``slstm_scan`` and
+``mlstm_scan`` wrappers have backward kernels of their own
+(``slstm_scan.with_backward``, ``mlstm_scan.with_backward``), so no plain
+version runs in an xLSTM train step on the card.
 """
 
 from __future__ import annotations

@@ -18,13 +18,16 @@ any; on a CUDA tensor anything else raises:
 - ``decode_attention``: q fp32 or bf16 and caches fp32 or bf16; D a
   multiple of 4 up to 256, H / KV up to 16.
 
-Each wrapper is differentiable. ``slstm_scan``'s backward is a kernel too:
-under grad its forward is the training instance of the kernel, which saves
-each step's gate pre-activations and c, n, m, and its backward kernel runs
-the recurrence backwards in time on them (``slstm_scan.with_backward``).
-The other wrappers' backward recomputes the plain version from the saved
-inputs and differentiates that (``autograd.py``), so a gradient through
-those kernels is the plain path's.
+Each wrapper is differentiable. ``slstm_scan``'s and ``mlstm_scan``'s
+backwards are kernels too: under grad the forward is the kernel's training
+instance, which saves what the backward reads (each step's gate
+pre-activations and c, n, m for the sLSTM; each chunk's starting C, n, m
+and each row's stabiliser and normaliser for the mLSTM), and the backward
+kernel walks the sequence backwards on them (``slstm_scan.with_backward``,
+``mlstm_scan.with_backward``). The other wrappers' backward recomputes the
+plain version from the saved inputs and differentiates that
+(``autograd.py``), so a gradient through those kernels is the plain
+path's.
 """
 
 from __future__ import annotations

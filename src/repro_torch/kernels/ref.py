@@ -19,6 +19,22 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, *, cs: int = 256):
     ``kernels/mlstm_scan``). Walks S/cs chunks carrying (C, n, m); within a
     chunk the output is the attention-like parallel form. q,k,v: (B,H,S,D)
     fp32; gates: (B,H,S). Returns (B,H,S,D)."""
+    return _mlstm_chunks(q, k, v, i_raw, f_raw, cs, save=False)[0]
+
+
+def mlstm_chunkwise_fwd_states_ref(q, k, v, i_raw, f_raw, *, cs: int = 256):
+    """:func:`mlstm_chunkwise` (its h bit for bit at the same ``cs``) that
+    also returns what :func:`mlstm_chunkwise_bwd_ref` reads, in the
+    training forward kernel's layout (the kernel's at ``cs=16``):
+    ``(h, (C, n, m, m_row, n_row))``, each chunk's starting state C
+    (B,H,S/cs,D,D) indexed [k_dim, v_dim], n (B,H,S/cs,D) and stabiliser
+    m (B,H,S/cs), then each row's stabiliser m_row and signed normaliser
+    n_t (B,H,S), whose magnitude the denominator max(|n_t|, exp(-m_row))
+    takes."""
+    return _mlstm_chunks(q, k, v, i_raw, f_raw, cs, save=True)
+
+
+def _mlstm_chunks(q, k, v, i_raw, f_raw, cs: int, save: bool):
     b, h, s, d = q.shape
     cs = min(cs, s)
     if s % cs:
@@ -29,6 +45,7 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, *, cs: int = 256):
     n = q.new_zeros(b, h, d)
     m = q.new_zeros(b, h)
     out = torch.empty_like(q)
+    saved = ([], [], [], [], []) if save else None
     for c0 in range(0, s, cs):
         sl = slice(c0, c0 + cs)
         qc, kc, vc = q[:, :, sl] * scale, k[:, :, sl], v[:, :, sl]
@@ -47,6 +64,9 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, *, cs: int = 256):
         n_t = (qc @ n[..., None])[..., 0] * inter_sc + w.sum(-1)
         denom = torch.maximum(n_t.abs(), torch.exp(-m_row))
         out[:, :, sl] = (intra + inter) / denom[..., None]
+        if save:
+            for keep, x in zip(saved, (C, n, m, m_row, n_t)):
+                keep.append(x)
         # state update for the next chunk
         m_new = torch.maximum(b_tot[..., 0] + m, (b_tot - bb + ic).amax(-1))
         state_sc = torch.exp(b_tot[..., 0] + m - m_new)
@@ -54,7 +74,92 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, *, cs: int = 256):
         C = state_sc[..., None, None] * C + kw.transpose(-1, -2) @ vc
         n = state_sc[..., None] * n + kw.sum(-2)
         m = m_new
-    return out
+    if not save:
+        return out, None
+    starts = tuple(torch.stack(x, 2) for x in saved[:3])
+    return out, (*starts, torch.cat(saved[3], -1), torch.cat(saved[4], -1))
+
+
+def mlstm_gate_grads(q, k, f_raw, dq, dk):
+    """The mLSTM's gate gradients from dq and dk. The function reads k_s
+    only as exp(i_s) k_s, and q_t and k_s only as exp(B_t) q_t and
+    exp(-B_s) k_s, B the cumulative log f over the sequence; so
+    di_s = k_s . dk_s and d(log f)_u = sum over t >= u of
+    (q_t . dq_t - k_t . dk_t), and df = d(log f) sigmoid(-f). Returns
+    (di, df), (B,H,S) each. The kernel's backward calls it too."""
+    di = (k * dk).sum(-1)
+    db = (q * dq).sum(-1) - di
+    return di, db.flip(-1).cumsum(-1).flip(-1) * torch.sigmoid(-f_raw)
+
+
+def mlstm_chunkwise_bwd_ref(q, k, v, i_raw, f_raw, h, states, grad_h, *,
+                            cs: int = 256):
+    """The chunkwise mLSTM's backward in explicit formulas, walking the
+    chunks from last to first: the plain version of the backward kernel.
+    ``h`` and ``states`` are :func:`mlstm_chunkwise_fwd_states_ref`'s at
+    the same ``cs`` (or the training forward kernel's, at ``cs=16``);
+    ``grad_h`` (B,H,S,D). Returns the gradients of q, k, v, i_raw, f_raw.
+
+    h does not depend on the stabilisers: h_t = H_t / max(|N_t|, 1) in
+    the unstabilised sums, so no m has an adjoint. The adjoints dC (D x D)
+    and dn (D) of a chunk's starting state are carried at that chunk's
+    stabiliser m_c, so every factor is one the forward computed and none
+    exceeds 1: the state's decay exp(b_tot + m_c - m_{c+1}) carries them to
+    the chunk before, the inter-chunk scale exp(b_t + m_c - m_row_t) takes
+    row t's part, and k_s's contribution exp(b_tot - b_s + i_s - m_{c+1})
+    gives dk and dv theirs. Row t's output grad enters as
+    G_t = grad_h_t / denom_t and its normaliser grad as
+    g_t = -(G_t . h_t) d|n_t|, where d|n_t| splits a tie of |n_t| with
+    exp(-m_row) in half (as ``torch.maximum``'s gradient) and sign(0) = 0.
+    The gate grads follow from dq and dk (:func:`mlstm_gate_grads`)."""
+    b, nh, s, d = q.shape
+    cs = min(cs, s)
+    if s % cs:
+        raise ValueError("pad sequence to the chunk size")
+    C0, n0, m0, m_rows, n_rows = states
+    if C0.shape[2] != s // cs:
+        raise ValueError(f"states hold {C0.shape[2]} chunks, expected "
+                         f"{s // cs} of {cs} rows")
+    scale = d ** -0.5
+    tri = torch.ones(cs, cs, dtype=torch.bool, device=q.device).tril()
+    dC = q.new_zeros(b, nh, d, d)
+    dn = q.new_zeros(b, nh, d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for c in reversed(range(s // cs)):
+        sl = slice(c * cs, (c + 1) * cs)
+        qc, kc, vc = q[:, :, sl] * scale, k[:, :, sl], v[:, :, sl]
+        ic, fc = i_raw[..., sl], f_raw[..., sl]
+        m_prev, m_row, n_t = m0[..., c], m_rows[..., sl], n_rows[..., sl]
+        # the forward's factors of chunk c
+        bb = torch.cumsum(F.logsigmoid(fc), -1)
+        b_tot = bb[..., -1:]
+        dmat = bb[..., :, None] - bb[..., None, :] + ic[..., None, :]
+        dexp = torch.exp(dmat.masked_fill(~tri, float("-inf"))
+                         - m_row[..., None])
+        inter_sc = torch.exp(bb + m_prev[..., None] - m_row)
+        m_new = torch.maximum(b_tot[..., 0] + m_prev,
+                              (b_tot - bb + ic).amax(-1))
+        contrib = torch.exp(b_tot - bb + ic - m_new[..., None])
+        state_sc = torch.exp(b_tot[..., 0] + m_prev - m_new)
+        em, an = torch.exp(-m_row), n_t.abs()
+        dabs = _tie_weight(an, em) * torch.sign(n_t)
+        # row t's grads of the numerator (G) and the normaliser (g)
+        G = grad_h[:, :, sl] / torch.maximum(an, em)[..., None]
+        g = -(G * h[:, :, sl]).sum(-1) * dabs
+        w = (qc @ kc.transpose(-1, -2)) * dexp
+        p = dexp * (G @ vc.transpose(-1, -2) + g[..., None])   # [t, s]
+        dqc = (inter_sc[..., None] * (G @ C0[:, :, c].transpose(-1, -2)
+                                      + g[..., None] * n0[:, :, c, None, :])
+               + p @ kc)
+        dk[:, :, sl] = p.transpose(-1, -2) @ qc + contrib[..., None] * (
+            vc @ dC.transpose(-1, -2) + dn[..., None, :])
+        dv[:, :, sl] = w.transpose(-1, -2) @ G + contrib[..., None] * (
+            kc @ dC)
+        dq[:, :, sl] = dqc * scale
+        qx = qc * inter_sc[..., None]
+        dC = state_sc[..., None, None] * dC + qx.transpose(-1, -2) @ G
+        dn = state_sc[..., None] * dn + (qx * g[..., None]).sum(-2)
+    return (dq, dk, dv, *mlstm_gate_grads(q, k, f_raw, dq, dk))
 
 
 def mlstm_chunk_ref(q, k, v, i_raw, f_raw, state=None):

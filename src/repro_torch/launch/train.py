@@ -78,13 +78,15 @@ class PodRunConfig:
 
 
 def kernel_launches() -> dict:
-    """Each kernel's launches in this process so far, by name (the sLSTM
-    backward kernel's as ``slstm_scan_backward``)."""
+    """Each kernel's launches in this process so far, by name (the
+    backward kernels' as ``mlstm_scan_backward`` and
+    ``slstm_scan_backward``)."""
     from ..kernels import (decode_attention, flash_attention, mlstm_scan,
                            rglru_scan, slstm_scan)
     mods = (mlstm_scan, slstm_scan, rglru_scan, flash_attention,
             decode_attention)
     return {**{m.__name__.rsplit(".", 1)[1]: m.launches for m in mods},
+            "mlstm_scan_backward": mlstm_scan.backward_launches,
             "slstm_scan_backward": slstm_scan.backward_launches}
 
 

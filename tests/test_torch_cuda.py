@@ -469,7 +469,11 @@ def test_kernel_backward_is_plain_autograd_on_card(cuda_device, kernel):
     grad_output (the same operations on the same inputs; at most 1e-6
     relative, for atomics in index backward). ``slstm_scan`` has a
     backward kernel of its own: its rows are the ``slstm_backward`` ones
-    below."""
+    below. So has ``mlstm_scan``: its row launches the backward kernel
+    once and holds its grads to the ``mlstm_backward`` rows' rule."""
+    if kernel == "mlstm_scan":
+        _hold_mlstm_backward(cuda_device, mlstm_inputs(4, 2, 2, 256, 64))
+        return
     mod, make = _BACKWARD_CASES[kernel]
     args = [t(a, cuda_device) for a in make()]
     args = [a.requires_grad_(True) if a.is_floating_point() else a
@@ -599,12 +603,120 @@ def test_slstm_backward_refuses_what_it_does_not_take_on_card(cuda_device):
     assert SK.backward_launches == before
 
 
+#: the mLSTM backward kernel's limit, the sLSTM's rule: each gradient's
+#: largest error against autograd of the plain version in fp64, and
+#: against the plain backward on the kernel's own saved states, over that
+#: gradient's largest fp64 value, is at most this many times the fp32
+#: recompute's error against fp64 (at least one fp32 ulp); chip_smoke.py
+#: holds the train shape to the same
+MLSTM_BWD_YARDSTICKS = 10
+
+
+def _hold_mlstm_backward(device, inputs):
+    """Under grad: one training forward launch, one backward launch; h
+    bit for bit the store-free forward's; the five grads within
+    MLSTM_BWD_YARDSTICKS of the fp32 recompute's error, against fp64
+    autograd of the plain version and against the plain backward
+    (``mlstm_chunkwise_bwd_ref``) on the kernel's own saved states."""
+    args = [t(a, device).requires_grad_(True) for a in inputs]
+    gen = torch.Generator(device=device).manual_seed(1)
+    grad_h = torch.randn(args[0].shape, generator=gen, device=device)
+    before, before_bwd = MK.launches, MK.backward_launches
+    h = MK.mlstm_scan(*args)
+    torch.cuda.synchronize()
+    assert (MK.launches, MK.backward_launches) == (before + 1, before_bwd)
+    got = torch.autograd.grad(h, args, grad_h)
+    torch.cuda.synchronize()
+    assert (MK.launches, MK.backward_launches) == (before + 1,
+                                                   before_bwd + 1)
+    with torch.no_grad():
+        assert torch.equal(h, MK.mlstm_scan(*args))
+        h_k, states = MK._launch_train(*args)
+    assert torch.equal(h_k, h)
+    plain_bwd = MK.plain_backward(*args, h_k, states, grad_h, cs=MK.CHUNK)
+    wide = [a.detach().double().requires_grad_(True) for a in args]
+    want = [g.float() for g in torch.autograd.grad(
+        MK.plain(*wide, cs=256), wide, grad_h.double())]
+    fresh = [a.detach().clone().requires_grad_(True) for a in args]
+    yard = torch.autograd.grad(MK.plain(*fresh, cs=256), fresh, grad_h)
+    for name, g, p, w, y in zip("q k v i f".split(), got, plain_bwd, want,
+                                yard):
+        limit = MLSTM_BWD_YARDSTICKS * max(_rel_err(y, w), 2.0 ** -23)
+        assert _rel_err(g, w) <= limit, (name, _rel_err(g, w), limit)
+        assert _rel_err(g, p) <= limit, (name, _rel_err(g, p), limit)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("b,h,s,d", [
+    (2, 2, 128, 64),         # the smoke model's head dim
+    (2, 4, 128, 384),        # the full model's
+    (8, 4, 512, 384),        # the train shape
+    (1, 2, 64, 128), (3, 2, 48, 192), (1, 1, 32, 512),
+    (1, 1, 16, 64)])         # one chunk
+def test_mlstm_backward_kernel_matches_plain_on_card(cuda_device, b, h, s,
+                                                     d):
+    _hold_mlstm_backward(cuda_device, mlstm_inputs(5, b, h, s, d))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("shift", [-6.0, 6.0])
+def test_mlstm_backward_kernel_at_shifted_gates_on_card(cuda_device, shift):
+    """Input gates shifted by -6 (|n_t| below exp(-m_row) throughout) and
+    +6 (large gates, where fp32 itself loses most)."""
+    q, k, v, i, f = mlstm_inputs(6, 2, 2, 128, 64)
+    _hold_mlstm_backward(cuda_device, (q, k, v, i + np.float32(shift), f))
+
+
+@pytest.mark.requires_cuda
+def test_mlstm_training_forward_saves_the_plain_states_on_card(cuda_device):
+    """The training instance's h is the store-free instance's bit for bit
+    and its saved states are the plain forward's at chunks of 16 to the
+    forward kernel's tolerance."""
+    args = [t(a, cuda_device) for a in mlstm_inputs(6, 3, 4, 96, 384)]
+    h, states = MK._launch_train(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(h, MK._launch(*args))
+    h_p, states_p = MK.plain_forward_states(*args, cs=MK.CHUNK)
+    np.testing.assert_allclose(n(h), n(h_p), **MLSTM_TOL)
+    for name, got, want in zip(MK.SAVED_STATES, states, states_p):
+        assert got.shape == want.shape, name
+        np.testing.assert_allclose(n(got), n(want), err_msg=name,
+                                   **MLSTM_TOL)
+
+
+@pytest.mark.requires_cuda
+def test_mlstm_backward_refuses_what_it_does_not_take_on_card(cuda_device):
+    """A saved state of the wrong shape, a grad in another type or a
+    missing state raises; nothing is launched and nothing recomputes."""
+    args = [t(a, cuda_device) for a in mlstm_inputs(7, 2, 2, 32, 64)]
+    h, states = MK._launch_train(*args)
+    before = MK.backward_launches
+    with pytest.raises(ValueError, match="C has shape"):
+        MK._launch_backward(*args, h, (states[0][:, :, :1].contiguous(),
+                                       *states[1:]), torch.ones_like(h))
+    with pytest.raises(ValueError, match="grad_h must be float32"):
+        MK._launch_backward(*args, h, states, torch.ones_like(h).double())
+    with pytest.raises(ValueError, match="states must be"):
+        MK._launch_backward(*args, h, states[:4], torch.ones_like(h))
+    assert MK.backward_launches == before
+
+
+@pytest.mark.requires_cuda
+def test_mlstm_backward_launch_geometry_on_card(cuda_device):
+    """At the train shape the backward takes 64 columns (96 does not fit
+    its shared memory), one CTA a SM."""
+    geo = MK.launch_geometry(8, 4, 384, cuda_device, backward=True)
+    assert (geo.dv, geo.ctas_per_sm, geo.backward) == (64, 1, True)
+    assert MK.launch_geometry(8, 4, 384, cuda_device).dv == 96
+
+
 @pytest.mark.requires_cuda
 def test_train_step_with_kernels_matches_plain_on_card(cuda_device):
     """Smoke xLSTM at S=512 (mLSTM head dim 64, sLSTM head dim 32): one
     train step's loss and grads with the kernels against the plain path,
     to chip_smoke.py phase 5's limits; the kernels launch 2 mlstm_scan and
-    1 slstm_scan in the forward, and 1 sLSTM backward kernel."""
+    1 slstm_scan in the forward, and 2 mLSTM and 1 sLSTM backward kernels
+    in the backward."""
     from repro_torch.configs import get_arch
     from repro_torch.data import synth_batch
     from repro_torch.models import Model
@@ -619,14 +731,16 @@ def test_train_step_with_kernels_matches_plain_on_card(cuda_device):
              synth_batch(cfg, batch=2, seq=512, seed=0, step=0).items()}
     runs = {}
     for impl in ("hopper", "plain"):
-        MK.launches = SK.launches = SK.backward_launches = 0
+        MK.launches = SK.launches = 0
+        MK.backward_launches = SK.backward_launches = 0
         runs[impl] = value_and_grad(Model(cfg, kernel_impl=impl), params,
                                      batch)
         torch.cuda.synchronize()
         runs[impl + " launches"] = (MK.launches, SK.launches,
+                                    MK.backward_launches,
                                     SK.backward_launches)
-    assert runs["hopper launches"] == (2, 1, 1)
-    assert runs["plain launches"] == (0, 0, 0)
+    assert runs["hopper launches"] == (2, 1, 2, 1)
+    assert runs["plain launches"] == (0, 0, 0, 0)
     (loss, _), grads = runs["hopper"]
     (want_loss, _), want = runs["plain"]
     assert abs(float(loss) - float(want_loss)) <= 1e-4 * abs(float(want_loss))
@@ -1209,6 +1323,7 @@ def test_cluster_pod_round_on_card_matches_in_process(cuda_device):
     assert got["pid"] != os.getpid()
     assert got["device"] == torch.cuda.get_device_name(0)
     assert got["launches"] == {"mlstm_scan": 4, "slstm_scan": 2,
+                               "mlstm_scan_backward": 4,
                                "slstm_scan_backward": 2}
     assert got["loss"] == want["loss"]
     assert len(got["delta"]) == len(want["delta"]) == len(flat)

@@ -287,5 +287,6 @@ def test_pod_rounds_count_the_backward_kernel():
     counts = kernel_launches()
     assert counts["slstm_scan_backward"] == SK.backward_launches
     assert sorted(counts) == ["decode_attention", "flash_attention",
-                              "mlstm_scan", "rglru_scan", "slstm_scan",
+                              "mlstm_scan", "mlstm_scan_backward",
+                              "rglru_scan", "slstm_scan",
                               "slstm_scan_backward"]
